@@ -3,12 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the interior-point QP kernel (csrc/qp_ip.cu) from the checkout, holds
-it against its plain PyTorch version, solves the contouring_2obs golden at
-f64, drives the T-MPC++ fleet step (B=512 plans x 9 planners, N=20, f32) once
-through the kernel, and times the step and the kernel against their plain
-versions with CUDA events. Any failed phase raises, so the script exits
-non-zero and prints no result. The last line is the JSON result
+Builds both kernels from the checkout, in parallel: the interior-point QP
+kernel (csrc/qp_ip.cu) and the fused whole-SQP kernel (csrc/sqp_fused.cu).
+Holds each against its plain PyTorch version: the QP kernel on the bench
+QPs, the fused kernel's in-kernel linearization against torch.func, and its
+whole solve at f64. Solves the contouring_2obs golden at f64. Drives the
+T-MPC++ fleet step (B=512 plans x 9 planners, N=20, f32) through both of the
+port's paths: the main path, ``backend="fused"`` (one fused launch per
+step), and the per-iteration path, ``backend="pallas"`` (one QP launch per
+SQP iteration), each with the launch counts set to 0 just before it and read
+just after, and holds them against each other and against the plain fused
+path. Times the steps and kernels against their plain versions with CUDA
+events and profiles one fused step. Any failed phase raises, so the script
+exits non-zero and prints no result. The last line is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 Needs one CUDA device; without one it exits with code 2.
 """
@@ -111,6 +118,59 @@ def cuda_time_ms(fn, reps, warmup=2):
 
 
 @contextlib.contextmanager
+def plain_fused_solver(fleet_solve):
+    """Route a fused fleet solver through its plain version."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import sqp_fused
+
+    kernel = sqp_fused._solve_kernel
+    sqp_fused._solve_kernel = (
+        lambda tables, rows, config, phases, P, xinit, Z:
+        sqp_fused.fused_fleet_reference(fleet_solve.machinery, config, P,
+                                        xinit, Z))
+    try:
+        yield
+    finally:
+        sqp_fused._solve_kernel = kernel
+
+
+def flat_fleet(args):
+    """Fleet step inputs (B, P, ...) -> fleet solve inputs (B*P, ...)."""
+    params, xinit, z_init, _ = args
+    B, P = params.shape[:2]
+    return (params.reshape(B * P, *params.shape[2:]),
+            xinit.repeat_interleave(P, dim=0),
+            z_init.reshape(B * P, *z_init.shape[2:]))
+
+
+def fleet_P(params):
+    """(B*P, N, npar) -> (B*P, N+1, npar), stage N repeating N-1."""
+    return torch.cat([params, params[:, -1:]], dim=1)
+
+
+def profile_step(step, args):
+    """Device kernels, device busy ms (union of device intervals) and wall ms
+    of one step under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return len(spans), busy / 1e3, wall
+
+
+@contextlib.contextmanager
 def plain_qp_solver():
     """Route the SQP engine's QP solves through the plain version."""
     from oscar_mpc_planner_mr_modification_tpu_torch.ops import qp_cuda
@@ -137,9 +197,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from oscar_mpc_planner_mr_modification_tpu_torch.ops import qp_cuda
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        qp_cuda, sqp_fused)
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
-        SQPConfig, make_fleet_sqp_solver)
+        QPData, SQPConfig, make_fleet_sqp_solver)
     from oscar_mpc_planner_mr_modification_tpu_torch.parallel.batch import (
         make_batched_tmpc_step)
 
@@ -152,15 +213,19 @@ def main():
         f"CUDA {torch.version.cuda}, nvcc: {nvcc}")
     log(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    # ---- 2. build ---------------------------------------------------------
+    # ---- 2. build (one nvcc per kernel source, all started together) ------
     t = time.perf_counter()
-    info = qp_cuda.build()
+    infos = qp_cuda.build_all()
     qp_cuda._library()
-    log(f"built {os.path.relpath(info.path, ROOT)} in "
-        f"{time.perf_counter() - t:.2f} s (nvcc {info.seconds:.2f} s)")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    sqp_fused._library()
+    log(f"built {len(infos)} kernel libraries in {time.perf_counter() - t:.2f} s")
+    for name, info in infos.items():
+        log(f"{name}: {os.path.relpath(info.path, ROOT)} (nvcc {info.seconds:.2f} s)")
+        for line in info.log.splitlines():
+            if "entry function" in line or "Function properties for" in line:
+                log(f"ptxas {name}: {line.strip()}")
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
 
     # ---- 3. kernel against the plain version (B=64 -> 576 problems) -------
     cfg = operating_point()
@@ -220,50 +285,165 @@ def main():
     check(abs(cost_g - float(gold["cost"])) <= 1e-5 * abs(float(gold["cost"])),
           "golden cost within rtol 1e-5")
 
-    # ---- 5. main path at full width --------------------------------------
+    # ---- 5. fused kernel: in-kernel linearization vs torch.func (576) -----
+    for dtype in (torch.float64, torch.float32):
+        ocp64, args64 = bench_fleet(64, dtype, dev)
+        fused64 = make_fleet_sqp_solver(ocp64, cfg, dtype=dtype, device=dev,
+                                        backend="fused")
+        P64, x64, z64 = flat_fleet(args64)
+        lin_args = (fleet_P(P64), x64, z64)
+        got = sqp_fused.linearize(fused64.tables, *lin_args)
+        want = sqp_fused.linearize_reference(fused64.machinery, fused64.tables,
+                                             *lin_args)
+        torch.cuda.synchronize()
+        names = QPData._fields + ("merit", "cost", "eq_res")
+        flat_got = tuple(got[0]) + tuple(got[1:])
+        flat_want = tuple(want[0]) + tuple(want[1:])
+        worst = []
+        for name, a, b in zip(names, flat_got, flat_want):
+            rel = (a - b).abs() / (1.0 + b.abs())
+            log(f"{str(dtype)[6:]} linearize {name}: max|d| "
+                f"{(a - b).abs().max().item():.3e}, median |d|/(1+|ref|) "
+                f"{rel.median().item():.3e}, max|ref| {b.abs().max().item():.3e}")
+            if dtype == torch.float64:
+                if not torch.allclose(a, b, rtol=1e-9, atol=1e-10):
+                    worst.append(name)
+            elif rel.median().item() > 1e-4:
+                worst.append(name)
+        if dtype == torch.float64:
+            check(not worst, "f64 in-kernel linearization = build_qp on every "
+                  f"field within rtol 1e-9, atol 1e-10 (failed: {worst})")
+        else:
+            check(not worst, "f32 in-kernel linearization = build_qp: median "
+                  f"|d|/(1+|ref|) <= 1e-4 on every field (failed: {worst})")
+
+    # ---- 6. fused kernel vs its plain version at f64 (576 problems) ------
+    ocp64, args64 = bench_fleet(64, torch.float64, dev)
+    fused_err = 0.0
+    for track_best in (False, True):
+        fused64 = make_fleet_sqp_solver(
+            ocp64, cfg._replace(track_best=track_best), dtype=torch.float64,
+            device=dev, backend="fused")
+        res_k = fused64(*flat_fleet(args64))
+        res_p = fused64.reference(*flat_fleet(args64))
+        torch.cuda.synchronize()
+        diff = (res_k.z - res_p.z).abs()
+        rel = diff.amax(dim=(1, 2)) / (1.0 + res_p.z.abs().amax(dim=(1, 2)))
+        fused_err = max(fused_err, diff.max().item())
+        log(f"f64 fused solve, track_best={track_best}: success "
+            f"{res_k.success.float().mean().item():.6f} (plain "
+            f"{res_p.success.float().mean().item():.6f}), max|dZ| "
+            f"{diff.max().item():.3e}, max rel {rel.max().item():.3e}, "
+            f"max|dcost| {(res_k.cost - res_p.cost).abs().max().item():.3e}")
+        check(bool((res_k.success == res_p.success).all()),
+              f"f64 fused kernel success mask = plain (track_best={track_best})")
+        check(rel.max().item() <= 1e-6,
+              "f64 fused kernel = plain: per problem max|dZ| / (1 + max|Z|) "
+              "<= 1e-6")
+
+    # ---- 7. main path at full width: backend="fused" ----------------------
     ocp, args = bench_fleet(B_MAIN, torch.float32, dev)
-    step = make_batched_tmpc_step(ocp, cfg, dtype=torch.float32, device=dev)
-    qp_cuda.launches = 0
+    step = make_batched_tmpc_step(ocp, cfg, dtype=torch.float32, device=dev,
+                                  backend="fused")
+    qp_cuda.launches = sqp_fused.launches = 0
     out = step(*args)
     torch.cuda.synchronize()
-    main_launches = qp_cuda.launches
-    n_sqp = sum(n for n, _ in BENCH_SCHEDULE)
-    check(main_launches == n_sqp,
-          f"fleet step launched the kernel {main_launches} times (one per SQP "
-          f"iteration, {n_sqp})")
+    fused_launches, b1_in_fused = sqp_fused.launches, qp_cuda.launches
+    check(fused_launches == 1 and b1_in_fused == 0,
+          f"fused fleet step: {fused_launches} fused launch(es) (want 1), "
+          f"{b1_in_fused} QP-kernel launches (want 0)")
     P = N_PATHS + 1
     check(tuple(out.best_z.shape) == (B_MAIN, N_MAIN + 1, ocp.nvar)
           and bool(torch.isfinite(out.best_z).all()),
           f"best_z finite, shape {tuple(out.best_z.shape)}")
     success_rate = out.any_success.float().mean().item()
     per_planner = out.all_success.float().mean(dim=0).cpu().numpy()
-    log(f"success_rate (best-of-{P}) {success_rate:.6f}; per planner "
-        f"{np.array2string(per_planner, precision=4)}; mean "
+    log(f"fused step: success_rate (best-of-{P}) {success_rate:.6f}; per "
+        f"planner {np.array2string(per_planner, precision=4)}; mean "
         f"{per_planner.mean():.6f}")
-    check(success_rate >= 0.95, "best-of-9 success_rate >= 0.95")
+    check(success_rate >= 0.95, "fused step: best-of-9 success_rate >= 0.95")
 
+    def agreement(other, name):
+        agree = (out.any_success == other.any_success).float().mean().item()
+        both = out.any_success & other.any_success
+        rel_cost = ((out.best_cost - other.best_cost).abs()
+                    / other.best_cost.abs().clamp(min=1e-12))[both]
+        log(f"{name}: success_rate "
+            f"{other.any_success.float().mean().item():.6f}, any_success "
+            f"agreement with the fused step {agree:.6f}, median rel best_cost "
+            f"diff {rel_cost.median().item():.6e}")
+        check(agree >= 0.99,
+              f"fused step any_success agrees with the {name} on >= 99% of plans")
+
+    with plain_fused_solver(step.fleet_solve):
+        n0 = sqp_fused.launches + qp_cuda.launches
+        out_pf = step(*args)
+        torch.cuda.synchronize()
+        check(sqp_fused.launches + qp_cuda.launches == n0,
+              "plain fused step launched no kernel")
+    agreement(out_pf, "plain fused step")
+
+    # ---- 8. the per-iteration path at full width: backend="pallas" -------
+    step_b1 = make_batched_tmpc_step(ocp, cfg, dtype=torch.float32, device=dev,
+                                     backend="pallas")
+    qp_cuda.launches = sqp_fused.launches = 0
+    out_b1 = step_b1(*args)
+    torch.cuda.synchronize()
+    main_launches = qp_cuda.launches
+    n_sqp = sum(n for n, _ in BENCH_SCHEDULE)
+    check(main_launches == n_sqp and sqp_fused.launches == 0,
+          f"per-iteration fleet step launched the QP kernel {main_launches} "
+          f"times (one per SQP iteration, {n_sqp}) and the fused kernel "
+          f"{sqp_fused.launches} times (want 0)")
+    b1_success = out_b1.any_success.float().mean().item()
+    check(b1_success >= 0.95, "per-iteration step: best-of-9 success_rate >= 0.95")
+    agreement(out_b1, "per-iteration (QP kernel) step")
     with plain_qp_solver():
         n0 = qp_cuda.launches
-        out_p = step(*args)
+        out_p = step_b1(*args)
         torch.cuda.synchronize()
-        check(qp_cuda.launches == n0, "plain fleet step launched no kernel")
-    agree = (out.any_success == out_p.any_success).float().mean().item()
-    both = out.any_success & out_p.any_success
-    rel_cost = ((out.best_cost - out_p.best_cost).abs()
-                / out_p.best_cost.abs().clamp(min=1e-12))[both]
-    log(f"plain step: success_rate {out_p.any_success.float().mean().item():.6f}, "
-        f"any_success agreement {agree:.6f}, median rel best_cost diff "
-        f"{rel_cost.median().item():.6e}")
-    check(agree >= 0.99, "any_success agrees with the plain step on >= 99% of plans")
+        check(qp_cuda.launches == n0, "plain per-iteration step launched no kernel")
+    agree = (out_b1.any_success == out_p.any_success).float().mean().item()
+    log(f"plain per-iteration step: any_success agreement with the "
+        f"per-iteration step {agree:.6f}")
+    check(agree >= 0.99, "per-iteration step any_success agrees with its plain "
+          "step on >= 99% of plans")
 
-    # ---- 6. times ----------------------------------------------------------
+    # ---- 9. times ----------------------------------------------------------
     step_ms, _ = cuda_time_ms(lambda: step(*args), reps=10)
+    b1_step_ms, _ = cuda_time_ms(lambda: step_b1(*args), reps=5, warmup=1)
+    with plain_fused_solver(step.fleet_solve):
+        plain_fused_ms, _ = cuda_time_ms(lambda: step(*args), reps=3, warmup=0)
     with plain_qp_solver():
-        plain_step_ms, _ = cuda_time_ms(lambda: step(*args), reps=10, warmup=1)
-    log(f"[{card}] fleet step (B={B_MAIN} x {P} planners, N={N_MAIN}, f32): "
-        f"kernel path {step_ms:.3f} ms = {B_MAIN / step_ms * 1e3:.1f} plans/s; "
-        f"plain path {plain_step_ms:.3f} ms = "
-        f"{B_MAIN / plain_step_ms * 1e3:.1f} plans/s")
+        plain_step_ms, _ = cuda_time_ms(lambda: step_b1(*args), reps=3,
+                                        warmup=0)
+    log(f"[{card}] fleet step (B={B_MAIN} x {P} planners, N={N_MAIN}, f32), "
+        f"median of 10 / 5 / 3 / 3: fused kernel path {step_ms:.3f} ms = "
+        f"{B_MAIN / step_ms * 1e3:.1f} plans/s; per-iteration (QP kernel) "
+        f"path {b1_step_ms:.3f} ms = {B_MAIN / b1_step_ms * 1e3:.1f} plans/s; "
+        f"plain fused path {plain_fused_ms:.3f} ms = "
+        f"{B_MAIN / plain_fused_ms * 1e3:.1f} plans/s; plain per-iteration "
+        f"path {plain_step_ms:.3f} ms = {B_MAIN / plain_step_ms * 1e3:.1f} "
+        f"plans/s")
+    flat = flat_fleet(args)
+    f_ms, f_all = cuda_time_ms(lambda: step.fleet_solve(*flat), reps=10)
+    fp_ms, _ = cuda_time_ms(lambda: step.fleet_solve.reference(*flat), reps=3,
+                            warmup=0)
+    log(f"[{card}] fused solve at the bench shape ({B_MAIN * P} problems, "
+        f"T={N_MAIN + 1}, schedule {BENCH_SCHEDULE}, f32): kernel {f_ms:.3f} "
+        f"ms per launch (min {min(f_all):.3f}, median of 10), plain "
+        f"fused_fleet_reference {fp_ms:.3f} ms (median of 3)")
+    lin_in = (fleet_P(flat[0]), flat[1], flat[2])
+    l_ms, _ = cuda_time_ms(
+        lambda: sqp_fused.linearize(step.fleet_solve.tables, *lin_in), reps=10)
+    log(f"[{card}] fused kernel's linearization alone (sqp_fused_linearize "
+        f"entry plus unpacking) at the bench shape, f32: {l_ms:.3f} ms per "
+        f"call (median of 10)")
+    n_dev, busy_ms, wall_ms = profile_step(step, args)
+    log(f"[{card}] torch.profiler, one fused step: {n_dev} device ops, device "
+        f"busy {busy_ms:.3f} ms, profiled wall {wall_ms:.3f} ms; idle share "
+        f"{1 - busy_ms / wall_ms:.4f} (profiled), "
+        f"{1 - busy_ms / step_ms:.4f} (against the unprofiled step)")
 
     qpb, machb = initial_qp(B_MAIN, torch.float32, dev)
     dz_k, dz_p, diff, rel = compare(qpb, machb, 8, cfg)
@@ -277,14 +457,14 @@ def main():
     k_ms, k_all = cuda_time_ms(
         lambda: qp_cuda.solve_qp_batched(*qp_args(qpb, machb), **kw), reps=20)
     p_ms, _ = cuda_time_ms(
-        lambda: qp_cuda.ip_solve_reference(*qp_args(qpb, machb), **kw), reps=10)
+        lambda: qp_cuda.ip_solve_reference(*qp_args(qpb, machb), **kw), reps=5)
     log(f"[{card}] IP solve per launch at the bench shape: kernel {k_ms:.3f} ms "
         f"(min {min(k_all):.3f}), plain {p_ms:.3f} ms")
     z0 = args[2].reshape(B_MAIN * P, *args[2].shape[2:])
     p0 = args[0].reshape(B_MAIN * P, *args[0].shape[2:])
     p0 = torch.cat([p0, p0[:, -1:]], dim=1)
     x0 = args[1].repeat_interleave(P, dim=0)
-    lin_ms, _ = cuda_time_ms(lambda: machb.build_qp(z0, p0, x0), reps=10)
+    lin_ms, _ = cuda_time_ms(lambda: machb.build_qp(z0, p0, x0), reps=5)
     log(f"[{card}] linearization (build_qp, torch.func) per SQP iteration at "
         f"the bench shape: {lin_ms:.3f} ms")
 
@@ -297,6 +477,15 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "sqp_fused",
+        "route": "cuda",
+        "source": "oscar_mpc_planner_mr_modification_tpu_torch/csrc/sqp_fused.cu",
+        "replaces": "oscar_mpc_planner_mr_modification_tpu/ops/sqp_fused.py:45",
+        "launches": fused_launches,
+        "max_abs_err": fused_err,
+        "ms": f_ms,
+        "plain_ms": fp_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,7 +46,9 @@ import torch
 #: Number of kernel launches in this process (the reference does not count).
 launches = 0
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "qp_ip.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: Kernel libraries: name -> CUDA source in ``csrc/``.
+KERNELS = {"qp_ip": "qp_ip.cu", "sqp_fused": "sqp_fused.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -348,8 +350,8 @@ def _nvcc() -> str:
             return str(path)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the QP kernel is built from "
-                           f"{_SRC} with the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the kernels are built from "
+                           f"{_CSRC} with the CUDA toolkit")
     return found
 
 
@@ -359,31 +361,59 @@ class BuildInfo(NamedTuple):
     log: str  # nvcc's output (register and spill report)
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> BuildInfo:
-    """Compile ``csrc/qp_ip.cu`` for sm_90a into ``build/torch_kernels/``,
-    keyed on a hash of the source; reuse an existing build."""
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libqp_ip_{digest}.so"
-    if out.is_file():
-        return BuildInfo(str(out), 0.0, "")
+def _digest(src: Path, flags=_NVCC_FLAGS) -> str:
+    """Hash of a kernel source, every header beside it and the flags: a
+    library is rebuilt when any file it may include changes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in [src, *sorted(src.parent.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+_BUILT: dict = {}
+
+
+def build_all(names=tuple(KERNELS)) -> dict:
+    """Compile the named kernels (``KERNELS``) for sm_90a into
+    ``build/torch_kernels/``, one nvcc process per source, all started
+    together; reuse a library whose hash is unchanged. Returns
+    ``{name: BuildInfo}``; raises if any build fails."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return BuildInfo(str(out), time.perf_counter() - t0,
-                     proc.stdout + proc.stderr)
+    running = {}
+    for name in names:
+        if name in _BUILT:
+            continue
+        src = _CSRC / KERNELS[name]
+        out = _BUILD_DIR / f"lib{name}_{_digest(src)}.so"
+        if out.is_file():
+            _BUILT[name] = BuildInfo(str(out), 0.0, "")
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {KERNELS[name]} failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        _BUILT[name] = BuildInfo(str(out), time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _BUILT[name] for name in names}
+
+
+def build(name: str = "qp_ip") -> BuildInfo:
+    """Build (or reuse) one kernel library; see :func:`build_all`."""
+    return build_all((name,))[name]
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(build().path)
+    lib = ctypes.CDLL(build("qp_ip").path)
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.qp_ip_scratch_fields.argtypes = [i32] * 5
     lib.qp_ip_scratch_fields.restype = i32

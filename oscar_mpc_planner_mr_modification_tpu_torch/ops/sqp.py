@@ -7,7 +7,8 @@ per-iteration kernel path. Per iteration:
   vmapped over problems and stages); the terminal stage uses the terminal
   cost on x only, its u-block padded with the identity;
 - Hessian PSD-ization: ``"mirror"`` (eigenvalues mirrored to |lambda| and
-  floored) or ``"gershgorin"`` (diagonal shift from the Gershgorin bound);
+  floored), ``"gershgorin"`` (diagonal shift from the Gershgorin bound),
+  ``"levenberg"`` (a constant diagonal shift) or ``"none"``;
 - dynamics Jacobians A, B and defects c_k = F(z_k) - x_{k+1};
 - inequality rows from the OCP's finite-bound row spec: h rows at stages
   0..N-1, u-box rows at 0..N-1, x-box rows at 1..N-1, stage N free;
@@ -16,6 +17,9 @@ per-iteration kernel path. Per iteration:
 
 Success iff the final equality residual (dynamics defects and the initial
 condition) is <= ``res_eq_tol`` and everything is finite.
+
+``backend="fused"`` hands the whole solve to :mod:`.sqp_fused` (one kernel
+launch per fleet solve, linearization included).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ class SQPConfig(NamedTuple):
     mu_min: float = 1e-9
     reg_eps: float = 1e-6
     w_max: float = 1e14
-    regularization: str = "mirror"  # "mirror" | "gershgorin"
+    regularization: str = "mirror"  # "mirror" | "gershgorin" | "levenberg" | "none"
+    levenberg: float = 1e-3  # diagonal shift of "levenberg"
     res_eq_tol: float = 1e-2  # failure threshold on the equality residual
     merit_eq_weight: float = 1e3  # infeasibility penalty in best-iterate merit
     # True: keep the best-merit iterate across SQP iterations; False: return
@@ -51,7 +56,9 @@ class SQPResult(NamedTuple):
     z: torch.Tensor  # (B, N+1, nvar) primal trajectory (u_k, x_k); u_N is padding
     cost: torch.Tensor  # (B,) objective at the returned iterate
     eq_res: torch.Tensor  # (B,) max dynamics / initial-condition defect
+    qp_comp: torch.Tensor  # (B,) last QP complementarity (0 on the fleet paths)
     success: torch.Tensor  # (B,) bool
+    exit_code: torch.Tensor  # (B,) 1 = success, 0 = failure
 
 
 class QPData(NamedTuple):
@@ -172,6 +179,10 @@ def _make_machinery(ocp, config: SQPConfig, dtype, device):
             bound = torch.amin(diag - offdiag, dim=-1)
             shift = torch.clamp(config.reg_eps - bound, min=0.0)
             return H + shift[..., None, None] * eye_z
+        if config.regularization == "levenberg":
+            return H + config.levenberg * eye_z
+        if config.regularization == "none":
+            return H
         raise ValueError(f"unknown regularization {config.regularization!r}")
 
     def build_qp(Z, P, xinit) -> QPData:
@@ -245,15 +256,35 @@ def scale_iterations(config: SQPConfig, n: int) -> SQPConfig:
     return config._replace(n_sqp=n, qp_iter_schedule=tuple(out))
 
 
+def fleet_result(z, cost, eq_res, finite, config: SQPConfig) -> SQPResult:
+    """SQPResult of a fleet solve from its final iterate's merit terms."""
+    success = (eq_res <= config.res_eq_tol) & finite
+    return SQPResult(z=z, cost=cost, eq_res=eq_res,
+                     qp_comp=torch.zeros_like(cost), success=success,
+                     exit_code=success.to(torch.int32))
+
+
 def make_fleet_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
-                          device):
-    """Batched fleet solver: every SQP iteration linearizes the whole batch
-    and solves its QPs with one :func:`.qp_cuda.solve_qp_batched` call (the
-    kernel on a CUDA device, its plain version on the CPU).
+                          device, backend: str = "pallas"):
+    """Batched fleet solver.
+
+    ``backend="pallas"``: every SQP iteration linearizes the whole batch with
+    ``torch.func`` and solves its QPs with one
+    :func:`.qp_cuda.solve_qp_batched` call (the kernel on a CUDA device, its
+    plain version on the CPU). ``backend="fused"``: the whole solve in one
+    launch of the fused kernel (:func:`.sqp_fused.make_fused_fleet_solver`);
+    an OCP or regularization that kernel does not cover raises.
 
     Returns ``solve(all_params (B, N, npar), xinit (B, nx),
     z_init (B, N+1, nvar)) -> SQPResult``; inputs are moved to ``device`` and
     ``dtype``."""
+    if backend == "fused":
+        from .sqp_fused import make_fused_fleet_solver
+
+        return make_fused_fleet_solver(ocp, config, dtype=dtype, device=device)
+    if backend != "pallas":
+        raise ValueError(f"unknown backend {backend!r}; expected 'fused' or "
+                         "'pallas'")
     device = torch.device(device)
     config = _f32_safe(config, dtype)
     mach = _make_machinery(ocp, config, dtype, device)
@@ -288,8 +319,7 @@ def make_fleet_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
                 Z, best_Z, best_merit = iteration(Z, best_Z, best_merit, P,
                                                   xinit, n_qp)
         _, cost, eq_res, finite = mach.merit_of(best_Z, P, xinit)
-        success = (eq_res <= config.res_eq_tol) & finite
-        return SQPResult(z=best_Z, cost=cost, eq_res=eq_res, success=success)
+        return fleet_result(best_Z, cost, eq_res, finite, config)
 
     solve.machinery = mach
     return solve

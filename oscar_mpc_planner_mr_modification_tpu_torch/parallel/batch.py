@@ -21,15 +21,18 @@ class TMPCStepResult(NamedTuple):
     all_success: torch.Tensor  # (B, P)
 
 
-def make_batched_tmpc_step(ocp, config: SQPConfig, *, dtype, device):
-    """(B, P)-batched T-MPC step.
+def make_batched_tmpc_step(ocp, config: SQPConfig, *, dtype, device,
+                           backend: str = "pallas"):
+    """(B, P)-batched T-MPC step on the fleet solver of ``backend``
+    (:func:`..ops.sqp.make_fleet_sqp_solver`).
 
     plan_step(params (B,P,N,npar), xinit (B,nx), z_init (B,P,N+1,nvar),
     disabled (B,P) bool) -> TMPCStepResult with leading B axis. The B*P solves
     run as one fleet; each plan picks its cheapest successful, enabled planner
     (the first on ties, planner 0 when none succeeded)."""
     device = torch.device(device)
-    fleet_solve = make_fleet_sqp_solver(ocp, config, dtype=dtype, device=device)
+    fleet_solve = make_fleet_sqp_solver(ocp, config, dtype=dtype, device=device,
+                                        backend=backend)
 
     def plan_step(params, xinit, z_init, disabled) -> TMPCStepResult:
         params = torch.as_tensor(params, dtype=dtype, device=device)

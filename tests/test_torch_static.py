@@ -18,13 +18,14 @@ JAX_PACKAGE_IMPORT = re.compile(
     re.M)
 
 PORT_FILES = sorted(p for p in PORT.rglob("*")
-                    if p.suffix in (".py", ".cu", ".cuh", ".h"))
+                    if p.suffix in (".py", ".cu", ".cuh", ".h", ".cpp"))
 
 
 def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
-    assert {"csrc/qp_ip.cu", "ops/qp_cuda.py", "ops/sqp.py",
-            "parallel/batch.py"} <= names
+    assert {"csrc/qp_ip.cu", "csrc/qp_ip.cuh", "csrc/sqp_fused.cu",
+            "csrc/tmpc_ocp.cuh", "csrc/tmpc_ocp_host.cpp", "ops/qp_cuda.py",
+            "ops/sqp.py", "ops/sqp_fused.py", "parallel/batch.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
