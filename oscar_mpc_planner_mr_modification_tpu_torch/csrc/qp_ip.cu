@@ -2,9 +2,14 @@
 // for Hopper (sm_90a).
 //
 // Replaces the TPU kernel of the JAX package, ops/qp_pallas.py::_qp_kernel
-// -> _ip_solve (cold start, z-only output). The algorithm is the same, step
-// for step: cold start s0 = max(e, sqrt(mu0)),
-// lam0 = mu0 / s0; one Riccati factorization of Hbar = H + D^T W D per
+// -> _ip_solve, in its three configurations: cold and z-only (the entries
+// qp_ip_solve_*, behind solve_qp_batched and solve_qp_lanes), and with the
+// final multipliers out, optionally warm-started from given ones (the
+// entries qp_ip_solve_duals_*, behind solve_qp_batched_duals). The
+// algorithm is the same, step for step: cold start s0 = max(e, sqrt(mu0)),
+// lam0 = mu0 / s0, or the warm start s0 = max(e, 10 sqrt(mu_min)),
+// lam0 = clip(lam_given, mu_min, w_max), after which the freeze waits one
+// iteration; one Riccati factorization of Hbar = H + D^T W D per
 // iteration shared by the affine predictor and the corrector; closed-form SPD
 // inverse of Quu (nu <= 3); separate primal/dual fraction-to-boundary steps;
 // sigma = (comp_aff / comp)^3 clipped to [1e-8, 1]; a W clamp at w_max and a
@@ -42,7 +47,7 @@
 
 namespace {
 
-template <typename real>
+template <typename real, bool duals>
 __global__ void __launch_bounds__(QP_THREADS)
 qp_ip_kernel(const real* __restrict__ Htri, const real* __restrict__ g,
              const real* __restrict__ A, const real* __restrict__ Bm,
@@ -50,37 +55,42 @@ qp_ip_kernel(const real* __restrict__ Htri, const real* __restrict__ g,
              const real* __restrict__ e, const real* __restrict__ r0,
              const real* __restrict__ mask, const int* __restrict__ rinfo,
              const int* __restrict__ pairs, real* __restrict__ z_out,
+             const real* __restrict__ lam0, real* __restrict__ lam_out,
              real* __restrict__ scratch, Sizes sz, int any_active, int n_iters,
              real mu0, real mu_min, real tau, real w_max, real s_floor,
-             real tol_freeze, real tol100, real n_act) {
+             real s_wfloor, real tol_freeze, real tol100, real n_act) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= sz.Bt) return;
+  // Without `duals` the pointers are compile-time null: the cold z-only
+  // kernel carries no code of the dual variants.
   ip_solve_problem<real>(Htri, g, A, Bm, c, D, e, r0, mask, rinfo, pairs,
-                         z_out, scratch, sz, b, any_active, n_iters, mu0,
-                         mu_min, tau, w_max, s_floor, tol_freeze, tol100,
-                         n_act);
+                         z_out, duals ? lam0 : nullptr,
+                         duals ? lam_out : nullptr, scratch, sz, b, any_active,
+                         n_iters, mu0, mu_min, tau, w_max, s_floor, s_wfloor,
+                         tol_freeze, tol100, n_act);
 }
 
-template <typename real>
+template <typename real, bool duals>
 int launch(const void* H, const void* g, const void* A, const void* Bm,
            const void* c, const void* D, const void* e, const void* r0,
            const void* mask, const void* rinfo, const void* pairs, void* z,
-           void* scratch, int Bt, int T, int nz, int nx, int nu, int m, int mhp,
-           int nU, int any_active, int n_iters, double mu0, double mu_min,
-           double tau, double w_max, double s_floor, double tol_freeze,
-           double n_act, void* stream) {
+           const void* lam0, void* lam_out, void* scratch, int Bt, int T,
+           int nz, int nx, int nu, int m, int mhp, int nU, int any_active,
+           int n_iters, double mu0, double mu_min, double tau, double w_max,
+           double s_floor, double tol_freeze, double n_act, void* stream) {
   if (Bt < 1 || T < 2 || nx < 1 || nx > QP_MAX_NX || nu < 1 || nu > QP_MAX_NU ||
-      nz != nx + nu || m < 1 || mhp < 1 || nU < 1)
+      nz != nx + nu || m < 1 || mhp < 1 || nU < 1 || (duals && !lam_out))
     return -1;
   Sizes sz{Bt, T, nz, nx, nu, m, mhp, nU, nz * (nz + 1) / 2};
   const int blocks = (Bt + QP_THREADS - 1) / QP_THREADS;
-  qp_ip_kernel<real><<<blocks, QP_THREADS, 0, (cudaStream_t)stream>>>(
+  qp_ip_kernel<real, duals><<<blocks, QP_THREADS, 0, (cudaStream_t)stream>>>(
       (const real*)H, (const real*)g, (const real*)A, (const real*)Bm,
       (const real*)c, (const real*)D, (const real*)e, (const real*)r0,
       (const real*)mask, (const int*)rinfo, (const int*)pairs, (real*)z,
-      (real*)scratch, sz, any_active, n_iters, real(mu0), real(mu_min),
-      real(tau), real(w_max), real(s_floor), real(tol_freeze),
-      real(100.0 * tol_freeze), real(n_act));
+      (const real*)lam0, (real*)lam_out, (real*)scratch, sz, any_active,
+      n_iters, real(mu0), real(mu_min), real(tau), real(w_max), real(s_floor),
+      real(10.0 * sqrt(mu_min)), real(tol_freeze), real(100.0 * tol_freeze),
+      real(n_act));
   return (int)cudaGetLastError();
 }
 
@@ -98,15 +108,34 @@ int qp_ip_scratch_fields(int T, int nz, int nx, int nu, int m) {
            const void* mask, const void* rinfo, const void* pairs, void* z,    \
            void* scratch, int Bt, int T, int nz, int nx, int nu, int m,        \
            int mhp, int nU, int any_active, int n_iters, double mu0,           \
-           double mu_min, double tau, double w_max, double s_floor,            \
+           double mu_min, double tau, double w_max, double s_floor,           \
            double tol_freeze, double n_act, void* stream) {                    \
-    return launch<REAL>(H, g, A, Bm, c, D, e, r0, mask, rinfo, pairs, z,       \
-                        scratch, Bt, T, nz, nx, nu, m, mhp, nU, any_active,    \
-                        n_iters, mu0, mu_min, tau, w_max, s_floor, tol_freeze, \
-                        n_act, stream);                                        \
+    return launch<REAL, false>(H, g, A, Bm, c, D, e, r0, mask, rinfo, pairs,   \
+                               z, nullptr, nullptr, scratch, Bt, T, nz, nx,    \
+                               nu, m, mhp, nU, any_active, n_iters, mu0,       \
+                               mu_min, tau, w_max, s_floor, tol_freeze, n_act, \
+                               stream);                                        \
+  }
+
+// As QP_ENTRY, plus the final multipliers into lam_out (T*m, Bt) and, when
+// lam0 (T*m, Bt) is not null, the warm start from it.
+#define QP_DUALS_ENTRY(NAME, REAL)                                             \
+  int NAME(const void* H, const void* g, const void* A, const void* Bm,        \
+           const void* c, const void* D, const void* e, const void* r0,        \
+           const void* mask, const void* rinfo, const void* pairs, void* z,    \
+           const void* lam0, void* lam_out, void* scratch, int Bt, int T,      \
+           int nz, int nx, int nu, int m, int mhp, int nU, int any_active,     \
+           int n_iters, double mu0, double mu_min, double tau, double w_max,   \
+           double s_floor, double tol_freeze, double n_act, void* stream) {    \
+    return launch<REAL, true>(H, g, A, Bm, c, D, e, r0, mask, rinfo, pairs, z, \
+                              lam0, lam_out, scratch, Bt, T, nz, nx, nu, m,    \
+                              mhp, nU, any_active, n_iters, mu0, mu_min, tau,  \
+                              w_max, s_floor, tol_freeze, n_act, stream);      \
   }
 
 QP_ENTRY(qp_ip_solve_f32, float)
 QP_ENTRY(qp_ip_solve_f64, double)
+QP_DUALS_ENTRY(qp_ip_solve_duals_f32, float)
+QP_DUALS_ENTRY(qp_ip_solve_duals_f64, double)
 
 }  // extern "C"

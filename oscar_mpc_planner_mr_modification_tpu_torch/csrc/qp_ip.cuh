@@ -5,11 +5,20 @@
 // ip_solve_problem() solves ONE problem, the one in column `b` of field-major
 // (fields, Bt) input arrays, with its scratch in column `b` of a (fields, Bt)
 // scratch buffer sized by Scratch(T, nz, nx, nu, m).total. It writes z into
-// column `b` of z_out. The algorithm is described in qp_ip.cu.
+// column `b` of z_out. Two optional (T*m, Bt) arrays make the dual variants:
+// with `lam0` it warm-starts from those multipliers, with `lam_out` it writes
+// the final multipliers; null means the cold, z-only solve. The algorithm is
+// described in qp_ip.cu.
 
 #pragma once
 
+#if defined(__CUDACC__)
 #include <cuda_runtime.h>
+#else  // host build (qp_ip_count.cpp): the CUDA qualifiers mean nothing
+#define __host__
+#define __device__
+#define __forceinline__ inline
+#endif
 #include <math.h>
 #include <stddef.h>
 
@@ -330,9 +339,10 @@ __device__ void ip_solve_problem(
     const real* __restrict__ e, const real* __restrict__ r0,
     const real* __restrict__ mask, const int* __restrict__ rinfo,
     const int* __restrict__ pairs, real* __restrict__ z_out,
+    const real* __restrict__ lam0, real* __restrict__ lam_out,
     real* __restrict__ scratch, const Sizes& sz, int b, int any_active,
     int n_iters, real mu0, real mu_min, real tau, real w_max, real s_floor,
-    real tol_freeze, real tol100, real n_act) {
+    real s_wfloor, real tol_freeze, real tol100, real n_act) {
   const Scratch sc(sz.T, sz.nz, sz.nx, sz.nu, sz.m);
   const Problem<real> pr{sz, b, scratch};
   const int T = sz.T, nz = sz.nz, nx = sz.nx, nu = sz.nu, m = sz.m;
@@ -354,9 +364,14 @@ __device__ void ip_solve_problem(
     for (int f = 0; f < T * nz; ++f) pr.w(sc.gbar + f) = pr.rd_(g, f);
     solve_vec(pr, sc, A, Bm, c, r0);
     for (int f = 0; f < T * nz; ++f) z_out[(size_t)f * sz.Bt + b] = pr.w(sc.dz + f);
+    if (lam_out)
+      for (int f = 0; f < T * m; ++f) lam_out[(size_t)f * sz.Bt + b] = real(0);
     return;
   }
 
+  // Cold start: s = max(e, sqrt(mu0)), lam = mu0 / s. Warm start: slacks
+  // from the new residuals, floored off the boundary, and the carried
+  // multipliers clipped to [mu_min, w_max].
   const real v0 = sqrt(mu0);
   for (int r = 0; r < m; ++r) {
     const bool act = rinfo[r * RK_W + RK_ACTIVE] != 0;
@@ -364,8 +379,13 @@ __device__ void ip_solve_problem(
       const int f = t * m + r;
       real sv = real(1), lv = real(0);
       if (act && mask[f] > real(0)) {
-        sv = nmax(pr.rd_(e, f), v0);
-        lv = mu0 / sv;
+        if (lam0) {
+          sv = nmax(pr.rd_(e, f), s_wfloor);
+          lv = nmin(nmax(pr.rd_(lam0, f), mu_min), w_max);
+        } else {
+          sv = nmax(pr.rd_(e, f), v0);
+          lv = mu0 / sv;
+        }
       }
       pr.w(sc.s + f) = sv;
       pr.w(sc.lam + f) = lv;
@@ -513,7 +533,11 @@ __device__ void ip_solve_problem(
     real eqr = real(0);
     for (int f = 0; f < (T - 1) * nx; ++f) eqr = nmax(eqr, fabs(pr.w(sc.rd + f)));
     for (int i = 0; i < nx; ++i) eqr = nmax(eqr, fabs(pr.w(sc.r0res + i)));
-    const bool done = (comp < tol_freeze) && (feas < tol100) && (eqr < tol100);
+    // Carried duals make comp tiny at dz = 0 while the new QP is unsolved
+    // (the freeze has no stationarity term): a warm start runs one full
+    // iteration before it may freeze.
+    const bool done = (comp < tol_freeze) && (feas < tol100) && (eqr < tol100) &&
+                      (lam0 == nullptr || it >= 1);
     const bool bad = nan_acc != nan_acc;
     const real scale = (done || bad) ? real(0) : real(1);
     alpha_p = alpha_p * scale;
@@ -539,6 +563,8 @@ __device__ void ip_solve_problem(
     }
   }
   for (int f = 0; f < T * nz; ++f) z_out[(size_t)f * sz.Bt + b] = pr.w(sc.z + f);
+  if (lam_out)
+    for (int f = 0; f < T * m; ++f) lam_out[(size_t)f * sz.Bt + b] = pr.w(sc.lam + f);
 }
 
 }  // namespace

@@ -93,9 +93,9 @@ sqp_fused_kernel(const real* __restrict__ P, const real* __restrict__ x0,
           qp + (size_t)L.H * Bt, qp + (size_t)L.g * Bt, qp + (size_t)L.A * Bt,
           qp + (size_t)L.B * Bt, qp + (size_t)L.c * Bt, qp + (size_t)L.D * Bt,
           qp + (size_t)L.e * Bt, qp + (size_t)L.r0 * Bt, mask, rinfo, pairs,
-          dz.p, scratch + (size_t)F.ip * Bt, sz, b, any_active, n_qp, mu0,
-          mu_min, tau, w_max, s_floor, tol_freeze, real(100) * tol_freeze,
-          n_act);
+          dz.p, nullptr, nullptr, scratch + (size_t)F.ip * Bt, sz, b,
+          any_active, n_qp, mu0, mu_min, tau, w_max, s_floor, real(0),
+          tol_freeze, real(100) * tol_freeze, n_act);
       // A NaN step (failed QP) keeps the previous iterate.
       real acc = real(0);
       for (int f = 0; f < nzT; ++f) acc = acc + dz[f];
@@ -117,7 +117,7 @@ sqp_fused_kernel(const real* __restrict__ P, const real* __restrict__ x0,
 }
 
 // The linearization alone, at Z: QP fields (L.total, Bt) and
-// (merit, cost, eq_res) (3, Bt).
+// (merit, cost, eq_res) (3, Bt); with qp null, the merit terms alone.
 template <typename real>
 __global__ void __launch_bounds__(QP_THREADS)
 sqp_fused_linearize_kernel(const real* __restrict__ P,
@@ -132,7 +132,8 @@ sqp_fused_linearize_kernel(const real* __restrict__ P,
   const size_t Bt = Bt_;
   const tmpc::Ocp o{itab, rtab};
   const Col<const real> Pc{P, Bt, b}, xc{x0, Bt, b}, Zc{Z, Bt, b};
-  tmpc::linearize<real>(o, Pc, xc, Zc, Col<real>{qp, Bt, b}, L, reg);
+  if (qp != nullptr)
+    tmpc::linearize<real>(o, Pc, xc, Zc, Col<real>{qp, Bt, b}, L, reg);
   const Col<real> mo{merit_out, Bt, b};
   tmpc::merit<real>(o, Pc, xc, Zc, L.T, &mo[0], &mo[1], &mo[2]);
 }

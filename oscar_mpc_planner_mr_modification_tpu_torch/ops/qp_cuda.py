@@ -1,7 +1,7 @@
 """Batched stagewise interior-point QP: the Hopper kernel and its plain twin.
 
-Counterpart of the JAX package's ``ops/qp_pallas.py`` (cold start, z-only).
-Each problem is the stagewise QP over T stages, ``z_k = (u_k, x_k)``:
+Counterpart of the JAX package's ``ops/qp_pallas.py``. Each problem is the
+stagewise QP over T stages, ``z_k = (u_k, x_k)``:
 
     min  sum_k 1/2 z_k^T H_k z_k + g_k^T z_k
     s.t. dx_{k+1} = A_k dx_k + B_k du_k + c_k,  dx_0 = r0,  D_k z_k + e_k >= 0
@@ -11,14 +11,22 @@ Riccati factorization per iteration, a per-problem freeze on convergence
 (complementarity, inequality and equality residuals below tolerance, with no
 stationarity term) or on a NaN step, and no best-iterate tracking.
 
-- :func:`solve_qp_batched` takes batch-major tensors. For CUDA tensors it
-  launches the kernel ``csrc/qp_ip.cu`` (built with nvcc for ``sm_90a`` at
-  first use, loaded with ctypes) on the current stream; for CPU tensors it
-  runs :func:`ip_solve_reference`. It never falls back: a kernel that fails to
-  build or launch raises.
-- :func:`ip_solve_reference` is the plain PyTorch version of the same
-  iteration, batched over the leading axis.
-- ``launches`` counts kernel launches.
+Three entries, all on the kernel ``csrc/qp_ip.cu`` (built with nvcc for
+``sm_90a`` at first use, loaded with ctypes, launched on the current
+stream) for CUDA tensors and on :func:`ip_solve_reference` for CPU tensors;
+none falls back: a kernel that fails to build or launch raises.
+
+- :func:`solve_qp_batched`: batch-major tensors, cold start, z out.
+- :func:`solve_qp_batched_duals`: the same, plus the final multipliers, and
+  optionally a warm start from given ones (``lam0``).
+- :func:`solve_qp_lanes` / :func:`solve_qp_fields`: the batch on the
+  trailing axis (JAX's ``LaneQP`` layouts, or the kernel's own field-major
+  buffers, which it reads with no copy), cold start, z out.
+
+:func:`ip_solve_reference` is the plain PyTorch version of the iteration,
+batched over the leading axis. ``launches``, ``duals_launches`` and
+``lanes_launches`` count the kernel launches of the three entries;
+``warm_launches`` counts the duals entry's launches with a warm start.
 
 Row structure: ``row_meta`` tags each row ``("box", col, sign)`` for a one-hot
 variable bound, or ``("h", slot)`` for a generic row. Generic rows are dense:
@@ -33,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -43,12 +52,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-#: Number of kernel launches in this process (the reference does not count).
+#: Kernel launches in this process, per entry (the plain version does not
+#: count): cold z-only batch-major, duals/warm (of which warm-started), and
+#: lane layout.
 launches = 0
+duals_launches = 0
+warm_launches = 0
+lanes_launches = 0
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Kernel libraries: name -> CUDA source in ``csrc/``.
-KERNELS = {"qp_ip": "qp_ip.cu", "sqp_fused": "sqp_fused.cu"}
+KERNELS = {"qp_ip": "qp_ip.cu", "sqp_fused": "sqp_fused.cu",
+           "fma_roof": "fma_roof.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -233,19 +248,20 @@ def _row_matrix(D_h, rows: _Rows, nz):
 
 
 def _ip_iterations(H, g, A, B, c, G, e, r0, mask, n_act, *, nu, n_iters, mu0,
-                   mu_min, tau, w_max, s_floor, tol_freeze):
+                   mu_min, tau, w_max, s_floor, tol_freeze, lam0=None):
     """The interior-point iteration on active rows only.
 
     H (Bt,T,nz,nz) symmetric; G (Bt,T,R,nz) row coefficients; e (Bt,T,R);
-    mask (T,R). Returns z (Bt,T,nz)."""
+    mask (T,R); lam0 (Bt,T,R) or None (cold start). Returns z (Bt,T,nz) and
+    the final multipliers (Bt,T,R)."""
     Bt, T, nz = g.shape
     dtype, dev = g.dtype, g.device
     if G.shape[2] == 0:
         # No active row: equality constrained, one exact Riccati solve.
-        return _solve_vec(_factor(H, A, B, nu), g, A, B, c, r0, nu)
+        return (_solve_vec(_factor(H, A, B, nu), g, A, B, c, r0, nu),
+                g.new_zeros((Bt, T, 0)))
     on = mask > 0
     big = torch.tensor(3e38, dtype=dtype, device=dev)
-    v0 = torch.sqrt(torch.tensor(mu0, dtype=dtype, device=dev))
     one = torch.ones((), dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
 
@@ -258,10 +274,19 @@ def _ip_iterations(H, g, A, B, c, G, e, r0, mask, n_act, *, nu, n_iters, mu0,
         ratio = torch.where(on, ratio, big)
         return torch.amin(ratio, dim=(1, 2))
 
-    s = torch.where(on, torch.maximum(e, v0), one)
-    lam = torch.where(on, mu0 / s, zero)
+    if lam0 is None:
+        v0 = torch.sqrt(torch.tensor(mu0, dtype=dtype, device=dev))
+        s = torch.where(on, torch.maximum(e, v0), one)
+        lam = torch.where(on, mu0 / s, zero)
+    else:
+        # Dual warm start: slacks from the new residuals, floored off the
+        # boundary; the carried multipliers clipped to [mu_min, w_max].
+        s_wfloor = torch.tensor(10.0 * math.sqrt(mu_min), dtype=dtype,
+                                device=dev)
+        s = torch.where(on, torch.maximum(e, s_wfloor), one)
+        lam = torch.where(on, torch.clamp(lam0, min=mu_min, max=w_max), zero)
     z = torch.zeros((Bt, T, nz), dtype=dtype, device=dev)
-    for _ in range(n_iters):
+    for it in range(n_iters):
         rin = Dz(z) + e - s
         W = torch.clamp(mask * lam / s, max=w_max)
         Hbar = H + torch.einsum("btri,btr,btrj->btij", G, W, G)
@@ -307,6 +332,10 @@ def _ip_iterations(H, g, A, B, c, G, e, r0, mask, n_act, *, nu, n_iters, mu0,
                             torch.amax(torch.abs(r0_res), dim=1))
         done = ((comp < tol_freeze) & (feas < 100.0 * tol_freeze)
                 & (eqr < 100.0 * tol_freeze))
+        if lam0 is not None and it == 0:
+            # Carried duals make comp tiny at dz = 0 while the new QP is
+            # unsolved: a warm start runs one full iteration before freezing.
+            done = torch.zeros_like(done)
         scale = torch.where(done | torch.isnan(nan_acc), zero, one)
         alpha_p = (alpha_p * scale)[:, None, None]
         alpha_d = (alpha_d * scale)[:, None, None]
@@ -314,30 +343,52 @@ def _ip_iterations(H, g, A, B, c, G, e, r0, mask, n_act, *, nu, n_iters, mu0,
         z = z + alpha_p * dz
         s = torch.where(on, torch.clamp(s + alpha_p * ds, min=s_floor), one)
         lam = torch.where(on, torch.clamp(lam + alpha_d * dlam, min=0.0), zero)
-    return z
+    return z, lam
+
+
+def _reference(Hs, g, A, B, c, D_h, e, r0, rows: _Rows, *, nu, lam0=None,
+               **kw):
+    """The plain solve on the kernel's inputs: symmetric H, the compacted
+    generic rows D_h (Bt,T,max(mh,1),nz), e (Bt,T,m). Returns z and the
+    multipliers of every row (Bt,T,m), 0 on inactive rows."""
+    act = list(rows.active)
+    G = _row_matrix(D_h, rows, g.shape[2])
+    mask = torch.as_tensor(rows.stage_mask[:, act], dtype=g.dtype,
+                           device=g.device)
+    z, lam_a = _ip_iterations(
+        Hs, g, A, B, c, G, e[:, :, act], r0, mask, rows.n_act, nu=nu,
+        lam0=None if lam0 is None else lam0[:, :, act], **kw)
+    lam = torch.zeros_like(e)
+    lam[:, :, act] = lam_a
+    return z, lam
 
 
 def ip_solve_reference(H, g, A, B, c, D, e, row_mask, r0, *, nu: int,
                        n_iters: int = 12, mu0: float = 1e2,
                        mu_min: float = 1e-6, tau: float = 0.995,
                        w_max: float = 1e6, s_floor: float = 1e-10,
-                       tol_freeze: float = 1e-5, row_meta=None):
+                       tol_freeze: float = 1e-5, row_meta=None, lam0=None,
+                       duals_out: bool = False):
     """Plain PyTorch version of the kernel, on any device; same arguments
-    and result as :func:`solve_qp_batched`."""
+    and result as :func:`solve_qp_batched`, or with ``lam0`` / ``duals_out``
+    as :func:`solve_qp_batched_duals` (warm start, ``(z, lam)`` out)."""
     _check_inputs(H, g, A, B, c, D, e, r0, nu)
     T, nz = g.shape[1:]
+    if (duals_out or lam0 is not None) and D.shape[2] == 0:
+        raise ValueError("the dual variants need at least one inequality row "
+                         "(m == 0 has no duals)")
+    if lam0 is not None and tuple(lam0.shape) != tuple(e.shape):
+        raise ValueError(f"lam0 must be {tuple(e.shape)}, got "
+                         f"{tuple(lam0.shape)}")
     rows = _rows(row_mask, row_meta, T, D.shape[2], nz)
     D, e = _padded_rows(D, e)
-    act = list(rows.active)
-    G = _row_matrix(_generic_D(D, rows), rows, nz)
     # The kernel reads H from its upper triangle.
     Hs = torch.triu(H) + torch.triu(H, diagonal=1).transpose(-1, -2)
-    mask = torch.as_tensor(rows.stage_mask[:, act], dtype=H.dtype,
-                           device=H.device)
-    return _ip_iterations(
-        Hs, g, A, B, c, G, e[:, :, act], r0, mask, rows.n_act, nu=nu,
+    z, lam = _reference(
+        Hs, g, A, B, c, _generic_D(D, rows), e, r0, rows, nu=nu, lam0=lam0,
         n_iters=n_iters, mu0=mu0, mu_min=mu_min, tau=tau, w_max=w_max,
         s_floor=s_floor, tol_freeze=tol_freeze)
+    return (z, lam) if duals_out else z
 
 
 # ---------------------------------------------------------------------------
@@ -417,10 +468,11 @@ def _library():
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.qp_ip_scratch_fields.argtypes = [i32] * 5
     lib.qp_ip_scratch_fields.restype = i32
-    for name in ("qp_ip_solve_f32", "qp_ip_solve_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 13 + [i32] * 10 + [f64] * 7 + [ptr]
-        fn.restype = i32
+    for name, n_ptr in (("qp_ip_solve", 13), ("qp_ip_solve_duals", 15)):
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = [ptr] * n_ptr + [i32] * 10 + [f64] * 7 + [ptr]
+            fn.restype = i32
     return lib
 
 
@@ -450,6 +502,71 @@ def _lanes(x, Bt):
     return x.reshape(Bt, -1).t().contiguous()
 
 
+class QPFields(NamedTuple):
+    """A QP batch in the kernel's field-major layout: each field (n, Bt),
+    the batch on the trailing axis. H (T*ntri, Bt) holds the upper triangle
+    of each stage's Hessian, row by row; g (T*nz, Bt); A ((T-1)*nx*nx, Bt);
+    B ((T-1)*nx*nu, Bt); c ((T-1)*nx, Bt); D (T*max(mh,1)*nz, Bt) the
+    generic rows only, dense over z; e (T*m, Bt); r0 (nx, Bt)."""
+
+    H: torch.Tensor
+    g: torch.Tensor
+    A: torch.Tensor
+    B: torch.Tensor
+    c: torch.Tensor
+    D: torch.Tensor
+    e: torch.Tensor
+    r0: torch.Tensor
+
+
+def _launch(entry, fields: QPFields, rows: _Rows, *, T, nz, nx, nu, n_iters,
+            mu0, mu_min, tau, w_max, s_floor, tol_freeze, lam0=None,
+            lam_out=None):
+    """Launch one kernel entry on field-major inputs; returns z (T*nz, Bt)."""
+    if nx > _MAX_NX:
+        raise NotImplementedError(f"the kernel handles nx <= {_MAX_NX}, got {nx}")
+    Bt = fields.g.shape[1]
+    m = fields.e.shape[0] // T
+    dev, dtype = fields.g.device, fields.g.dtype
+    mask_t, table_t, pairs_t = _row_tables(
+        (rows.row_meta, rows.stage_mask.tobytes(), rows.active), T, m, dtype,
+        dev)
+    lib = _library()
+    z = torch.empty((T * nz, Bt), dtype=dtype, device=dev)
+    scratch = torch.empty((lib.qp_ip_scratch_fields(T, nz, nx, nu, m), Bt),
+                          dtype=dtype, device=dev)
+    duals = [] if lam_out is None else [lam0, lam_out]
+    tensors = [*fields, mask_t, table_t, pairs_t, z, *duals, scratch]
+    if not all(t is None or (t.is_contiguous() and t.device == dev)
+               for t in tensors):
+        raise ValueError("kernel buffers must be contiguous and on one device")
+    fn = getattr(lib, f"{entry}_{'f64' if dtype == torch.float64 else 'f32'}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[None if t is None else t.data_ptr() for t in tensors], Bt,
+                 T, nz, nx, nu, m, fields.D.shape[0] // (T * nz), nz,
+                 int(bool(rows.active)), n_iters, mu0, mu_min, tau, w_max,
+                 s_floor, tol_freeze, rows.n_act, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed with error {err}")
+    return z
+
+
+def _batch_fields(H, g, A, B, c, D, e, r0, rows: _Rows):
+    """Batch-major inputs (``solve_qp_batched``'s) -> :class:`QPFields`."""
+    Bt, _, nz, _ = H.shape
+    iu, ju = (torch.as_tensor(a, device=H.device) for a in np.triu_indices(nz))
+    return QPFields(_lanes(H[..., iu, ju], Bt), _lanes(g, Bt), _lanes(A, Bt),
+                    _lanes(B, Bt), _lanes(c, Bt),
+                    _lanes(_generic_D(D, rows), Bt), _lanes(e, Bt),
+                    _lanes(r0, Bt))
+
+
+def _cuda_device(x, name):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+
+
 def solve_qp_batched(H, g, A, B, c, D, e, row_mask, r0, *, nu: int,
                      n_iters: int = 12, mu0: float = 1e2, mu_min: float = 1e-6,
                      tau: float = 0.995, w_max: float = 1e6,
@@ -464,46 +581,174 @@ def solve_qp_batched(H, g, A, B, c, D, e, row_mask, r0, *, nu: int,
     Returns z (Bt,T,nz). CUDA tensors go through the kernel, CPU tensors
     through :func:`ip_solve_reference`."""
     global launches
-    kw = dict(nu=nu, n_iters=n_iters, mu0=mu0, mu_min=mu_min, tau=tau,
-              w_max=w_max, s_floor=s_floor, tol_freeze=tol_freeze,
-              row_meta=row_meta)
+    kw = dict(n_iters=n_iters, mu0=mu0, mu_min=mu_min, tau=tau, w_max=w_max,
+              s_floor=s_floor, tol_freeze=tol_freeze)
     if H.device.type == "cpu":
-        return ip_solve_reference(H, g, A, B, c, D, e, row_mask, r0, **kw)
-    if H.device.type != "cuda":
-        raise ValueError(f"solve_qp_batched runs on cuda or cpu, not {H.device}")
+        return ip_solve_reference(H, g, A, B, c, D, e, row_mask, r0, nu=nu,
+                                  row_meta=row_meta, **kw)
+    _cuda_device(H, "solve_qp_batched")
     _check_inputs(H, g, A, B, c, D, e, r0, nu)
     Bt, T, nz, _ = H.shape
-    nx = nz - nu
-    if nx > _MAX_NX:
-        raise NotImplementedError(f"the kernel handles nx <= {_MAX_NX}, got {nx}")
     rows = _rows(row_mask, row_meta, T, D.shape[2], nz)
     D, e = _padded_rows(D, e)
-    m = D.shape[2]
-    D_h = _generic_D(D, rows)
-    iu, ju = np.triu_indices(nz)
-    dev, dtype = H.device, H.dtype
-    mask_t, table_t, pairs_t = _row_tables(
-        (rows.row_meta, rows.stage_mask.tobytes(), rows.active), T, m, dtype,
-        dev)
-    ins = [_lanes(H[..., torch.as_tensor(iu, device=dev),
-                    torch.as_tensor(ju, device=dev)], Bt),
-           _lanes(g, Bt), _lanes(A, Bt), _lanes(B, Bt), _lanes(c, Bt),
-           _lanes(D_h, Bt), _lanes(e, Bt), _lanes(r0, Bt)]
-    lib = _library()
-    fields = lib.qp_ip_scratch_fields(T, nz, nx, nu, m)
-    z_l = torch.empty((T * nz, Bt), dtype=dtype, device=dev)
-    scratch = torch.empty((fields, Bt), dtype=dtype, device=dev)
-    tensors = ins + [mask_t, table_t, pairs_t, z_l, scratch]
-    if not all(t.is_contiguous() and t.device == dev for t in tensors):
-        raise ValueError("kernel buffers must be contiguous and on one device")
-    fn = lib.qp_ip_solve_f64 if dtype == torch.float64 else lib.qp_ip_solve_f32
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], Bt, T, nz, nx, nu, m,
-                 D_h.shape[2], D_h.shape[3], int(bool(rows.active)), n_iters,
-                 mu0, mu_min, tau, w_max, s_floor, tol_freeze, rows.n_act,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"qp_ip kernel launch failed with error {err}")
+    z = _launch("qp_ip_solve", _batch_fields(H, g, A, B, c, D, e, r0, rows),
+                rows, T=T, nz=nz, nx=nz - nu, nu=nu, **kw)
     launches += 1
-    return z_l.t().reshape(Bt, T, nz)
+    return z.t().reshape(Bt, T, nz)
+
+
+def solve_qp_batched_duals(H, g, A, B, c, D, e, row_mask, r0, *, nu: int,
+                           lam0=None, n_iters: int = 12, mu0: float = 1e2,
+                           mu_min: float = 1e-6, tau: float = 0.995,
+                           w_max: float = 1e6, s_floor: float = 1e-10,
+                           tol_freeze: float = 1e-5, row_meta=None):
+    """:func:`solve_qp_batched` that also returns the final inequality
+    multipliers lam (Bt, T, m), and with ``lam0`` (Bt, T, m) warm-starts
+    from them: slacks from the new residuals, floored at 10 sqrt(mu_min),
+    multipliers clipped to [mu_min, w_max], and no freeze before the second
+    iteration. Returns ``(z, lam)``; raises ``ValueError`` for m == 0."""
+    global duals_launches, warm_launches
+    if D.shape[2] == 0:
+        raise ValueError(
+            "solve_qp_batched_duals needs at least one inequality row "
+            "(m == 0 has no duals to return); use solve_qp_batched")
+    kw = dict(n_iters=n_iters, mu0=mu0, mu_min=mu_min, tau=tau, w_max=w_max,
+              s_floor=s_floor, tol_freeze=tol_freeze)
+    if H.device.type == "cpu":
+        return ip_solve_reference(H, g, A, B, c, D, e, row_mask, r0, nu=nu,
+                                  row_meta=row_meta, lam0=lam0,
+                                  duals_out=True, **kw)
+    _cuda_device(H, "solve_qp_batched_duals")
+    _check_inputs(H, g, A, B, c, D, e, r0, nu)
+    Bt, T, nz, _ = H.shape
+    m = D.shape[2]
+    if lam0 is not None:
+        if tuple(lam0.shape) != (Bt, T, m) or lam0.dtype != H.dtype:
+            raise ValueError(f"lam0 must be {(Bt, T, m)} {H.dtype}, got "
+                             f"{tuple(lam0.shape)} {lam0.dtype}")
+        lam0 = _lanes(lam0, Bt)
+    rows = _rows(row_mask, row_meta, T, m, nz)
+    lam = torch.empty((T * m, Bt), dtype=H.dtype, device=H.device)
+    z = _launch("qp_ip_solve_duals",
+                _batch_fields(H, g, A, B, c, D, e, r0, rows), rows, T=T,
+                nz=nz, nx=nz - nu, nu=nu, lam0=lam0, lam_out=lam, **kw)
+    duals_launches += 1
+    warm_launches += lam0 is not None
+    return z.t().reshape(Bt, T, nz), lam.t().reshape(Bt, T, m)
+
+
+def _field_sizes(f: QPFields, nu):
+    """(T, nz, nx, m, mhp) of a :class:`QPFields` batch, checked."""
+    nx = f.r0.shape[0]
+    nz = nx + nu
+    ntri = nz * (nz + 1) // 2
+    T = f.g.shape[0] // nz
+    Bt = f.g.shape[1]
+    m = f.e.shape[0] // max(T, 1)
+    mhp = f.D.shape[0] // max(T * nz, 1)
+    want = {"H": T * ntri, "g": T * nz, "A": (T - 1) * nx * nx,
+            "B": (T - 1) * nx * nu, "c": (T - 1) * nx, "D": T * mhp * nz,
+            "e": T * m, "r0": nx}
+    for name, x in zip(QPFields._fields, f):
+        if x.dim() != 2 or tuple(x.shape) != (want[name], Bt):
+            raise ValueError(f"{name} must be {(want[name], Bt)}, got "
+                             f"{tuple(x.shape)}")
+        if x.dtype != f.g.dtype or x.device != f.g.device:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}; expected "
+                             f"{f.g.dtype} on {f.g.device}")
+    if f.g.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"QP data must be float32 or float64, got {f.g.dtype}")
+    if T < 2 or not 1 <= nu <= _MAX_NU or mhp < 1:
+        raise ValueError(f"inconsistent sizes T={T}, nu={nu}, D slots {mhp}")
+    return T, nz, nx, m, mhp
+
+
+def _fields_rows(fields: QPFields, stage_mask, nu, row_meta):
+    """Checked sizes ``(T, nz, nx, m, mhp)``, the row structure, and the
+    fields with m == 0 padded to one all-masked row."""
+    T, nz, nx, m, mhp = _field_sizes(fields, nu)
+    if m == 0:
+        # One all-masked row: the solve reduces to one exact Riccati pass.
+        fields = fields._replace(e=fields.g.new_ones((T, fields.g.shape[1])))
+    rows = _rows(stage_mask, row_meta, T, m, nz)
+    if mhp != max(len(rows.h_rows), 1):
+        raise ValueError(f"D must carry the {len(rows.h_rows)} generic rows "
+                         f"(at least one slot), got {mhp}")
+    return fields, rows, (T, nz, nx, max(m, 1), mhp)
+
+
+def fields_reference(fields: QPFields, stage_mask, *, nu: int,
+                     n_iters: int = 12, mu0: float = 1e2,
+                     mu_min: float = 1e-6, tau: float = 0.995,
+                     w_max: float = 1e6, s_floor: float = 1e-10,
+                     tol_freeze: float = 1e-5, row_meta=None):
+    """Plain PyTorch version of :func:`solve_qp_fields`, on any device."""
+    fields, rows, (T, nz, nx, m, mhp) = _fields_rows(fields, stage_mask, nu,
+                                                     row_meta)
+    Bt = fields.g.shape[1]
+
+    def batch(x, *shape):
+        return x.t().reshape(Bt, *shape)
+
+    tri = batch(fields.H, T, nz * (nz + 1) // 2)
+    Hs = fields.g.new_zeros((Bt, T, nz, nz))
+    iu, ju = (torch.as_tensor(a, device=fields.g.device)
+              for a in np.triu_indices(nz))
+    Hs[..., iu, ju] = tri
+    Hs[..., ju, iu] = tri
+    z, _ = _reference(
+        Hs, batch(fields.g, T, nz), batch(fields.A, T - 1, nx, nx),
+        batch(fields.B, T - 1, nx, nu), batch(fields.c, T - 1, nx),
+        batch(fields.D, T, mhp, nz), batch(fields.e, T, m),
+        batch(fields.r0, nx), rows, nu=nu, n_iters=n_iters, mu0=mu0,
+        mu_min=mu_min, tau=tau, w_max=w_max, s_floor=s_floor,
+        tol_freeze=tol_freeze)
+    return z.reshape(Bt, -1).t()
+
+
+def solve_qp_fields(fields: QPFields, stage_mask, *, nu: int,
+                    n_iters: int = 12, mu0: float = 1e2, mu_min: float = 1e-6,
+                    tau: float = 0.995, w_max: float = 1e6,
+                    s_floor: float = 1e-10, tol_freeze: float = 1e-5,
+                    row_meta=None):
+    """Batched QP solve on the kernel's field-major layout
+    (:class:`QPFields`; D carries the generic rows, in ``row_meta`` order),
+    cold start. Returns z (T*nz, Bt). On a CUDA device it reads the fields
+    where they lie (views of one buffer are fine, as long as each field is
+    contiguous): no copy, no transpose. CPU tensors go through
+    :func:`fields_reference`."""
+    global lanes_launches
+    kw = dict(n_iters=n_iters, mu0=mu0, mu_min=mu_min, tau=tau, w_max=w_max,
+              s_floor=s_floor, tol_freeze=tol_freeze)
+    if fields.g.device.type == "cpu":
+        return fields_reference(fields, stage_mask, nu=nu, row_meta=row_meta,
+                                **kw)
+    _cuda_device(fields.g, "solve_qp_fields")
+    fields, rows, (T, nz, nx, _, _) = _fields_rows(fields, stage_mask, nu,
+                                                   row_meta)
+    z = _launch("qp_ip_solve", fields, rows, T=T, nz=nz, nx=nx, nu=nu, **kw)
+    lanes_launches += 1
+    return z
+
+
+def solve_qp_lanes(lane_qp, stage_mask, *, nu: int, n_iters: int = 12,
+                   mu0: float = 1e2, mu_min: float = 1e-6, tau: float = 0.995,
+                   w_max: float = 1e6, s_floor: float = 1e-10,
+                   tol_freeze: float = 1e-5, row_meta=None):
+    """Batched QP solve on lane-layout fields, the batch on the TRAILING
+    axis: ``lane_qp`` is a :class:`.linearize.LaneQP` (H (T,nz,nz,Bt),
+    g (T,nz,Bt), A (T-1,nx,nx,Bt), B (T-1,nx,nu,Bt), c (T-1,nx,Bt),
+    D (T,max(mh,1),nz,Bt) the generic rows in ``row_meta`` order,
+    e (T,m,Bt), r0 (nx,Bt)). Returns dz (T, nz, Bt). The layouts are field-
+    major already: reshapes and H's upper triangle, then
+    :func:`solve_qp_fields`."""
+    T, nz, _, Bt = lane_qp.H.shape
+    iu, ju = (torch.as_tensor(a, device=lane_qp.H.device)
+              for a in np.triu_indices(nz))
+    fields = QPFields(lane_qp.H[:, iu, ju].reshape(-1, Bt),
+                      *(x.reshape(-1, Bt).contiguous() for x in lane_qp[1:]))
+    z = solve_qp_fields(
+        fields, stage_mask, nu=nu, n_iters=n_iters, mu0=mu0, mu_min=mu_min,
+        tau=tau, w_max=w_max, s_floor=s_floor, tol_freeze=tol_freeze,
+        row_meta=row_meta)
+    return z.reshape(T, nz, Bt)

@@ -1,7 +1,7 @@
 """SQP-RTI engine (torch): linearize with ``torch.func``, solve the QP batch
 with one launch of the interior-point kernel per SQP iteration.
 
-Counterpart of the JAX package's ``ops/sqp.py`` with one backend, the
+Counterpart of the JAX package's ``ops/sqp.py``. ``backend="pallas"`` is the
 per-iteration kernel path. Per iteration:
 - cost gradient and Hessian per stage (forward-over-reverse ``torch.func``,
   vmapped over problems and stages); the terminal stage uses the terminal
@@ -13,13 +13,20 @@ per-iteration kernel path. Per iteration:
 - inequality rows from the OCP's finite-bound row spec: h rows at stages
   0..N-1, u-box rows at 0..N-1, x-box rows at 1..N-1, stage N free;
 - the QP batch through :func:`.qp_cuda.solve_qp_batched`, then a full step
-  that keeps the previous iterate where the step is NaN.
+  that keeps the previous iterate where the step is NaN. With
+  ``n_qp_iter_warm > 0`` the QPs go through
+  :func:`.qp_cuda.solve_qp_batched_duals` instead: iteration 0 cold with
+  ``n_qp_iter`` iterations, every later one warm-started from the previous
+  QPs' multipliers with ``n_qp_iter_warm``.
 
 Success iff the final equality residual (dynamics defects and the initial
 condition) is <= ``res_eq_tol`` and everything is finite.
 
 ``backend="fused"`` hands the whole solve to :mod:`.sqp_fused` (one kernel
-launch per fleet solve, linearization included).
+launch per fleet solve, linearization included). ``backend="lanes"`` keeps
+the batch on the trailing axis: per SQP iteration one launch of the fused
+kernel's linearization (:mod:`.linearize`) and one of the QP kernel on its
+output buffer.
 """
 
 from __future__ import annotations
@@ -44,6 +51,10 @@ class SQPConfig(NamedTuple):
     levenberg: float = 1e-3  # diagonal shift of "levenberg"
     res_eq_tol: float = 1e-2  # failure threshold on the equality residual
     merit_eq_weight: float = 1e3  # infeasibility penalty in best-iterate merit
+    # Dual warm starts (backend="pallas"): iteration 0 solves its QPs cold
+    # with n_qp_iter IP iterations, iterations 1..n_sqp-1 start from the
+    # previous QPs' multipliers with n_qp_iter_warm. 0 disables.
+    n_qp_iter_warm: int = 0
     # True: keep the best-merit iterate across SQP iterations; False: return
     # the last iterate and skip the per-iteration merit evaluation.
     track_best: bool = True
@@ -265,15 +276,20 @@ def fleet_result(z, cost, eq_res, finite, config: SQPConfig) -> SQPResult:
 
 
 def make_fleet_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
-                          device, backend: str = "pallas"):
+                          device="cuda", backend: str = "pallas"):
     """Batched fleet solver.
 
     ``backend="pallas"``: every SQP iteration linearizes the whole batch with
     ``torch.func`` and solves its QPs with one
     :func:`.qp_cuda.solve_qp_batched` call (the kernel on a CUDA device, its
-    plain version on the CPU). ``backend="fused"``: the whole solve in one
-    launch of the fused kernel (:func:`.sqp_fused.make_fused_fleet_solver`);
-    an OCP or regularization that kernel does not cover raises.
+    plain version on the CPU), or with ``n_qp_iter_warm > 0`` one
+    :func:`.qp_cuda.solve_qp_batched_duals` call, warm after the first.
+    ``backend="fused"``: the whole solve in one launch of the fused kernel
+    (:func:`.sqp_fused.make_fused_fleet_solver`). ``backend="lanes"``: per
+    SQP iteration one launch of the fused kernel's linearization and one of
+    the QP kernel on its output (:func:`_make_lane_fleet_solver`). The fused
+    and lane backends raise for an OCP or regularization the fused kernel
+    does not cover, and for ``n_qp_iter_warm > 0``.
 
     Returns ``solve(all_params (B, N, npar), xinit (B, nx),
     z_init (B, N+1, nvar)) -> SQPResult``; inputs are moved to ``device`` and
@@ -282,44 +298,135 @@ def make_fleet_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
         from .sqp_fused import make_fused_fleet_solver
 
         return make_fused_fleet_solver(ocp, config, dtype=dtype, device=device)
+    if backend == "lanes":
+        return _make_lane_fleet_solver(ocp, config, dtype=dtype, device=device)
     if backend != "pallas":
-        raise ValueError(f"unknown backend {backend!r}; expected 'fused' or "
-                         "'pallas'")
+        raise ValueError(f"unknown backend {backend!r}; expected 'fused', "
+                         "'lanes' or 'pallas'")
+    dual_warm = config.n_qp_iter_warm > 0
+    if dual_warm and config.qp_iter_schedule:
+        raise ValueError(
+            "qp_iter_schedule and n_qp_iter_warm are mutually exclusive "
+            "(the warm path has its own per-iteration budget)")
     device = torch.device(device)
     config = _f32_safe(config, dtype)
     mach = _make_machinery(ocp, config, dtype, device)
-    nu = mach.nu
+    kw = dict(nu=mach.nu, mu_min=config.mu_min, w_max=config.w_max,
+              row_meta=mach.row_meta)
 
-    def iteration(Z, best_Z, best_merit, P, xinit, n_iters):
+    def iteration(Z, best_Z, best_merit, P, xinit, n_iters, lam):
         qp = mach.build_qp(Z, P, xinit)
-        dz = qp_cuda.solve_qp_batched(
-            qp.H, qp.g, qp.A, qp.B, qp.c, qp.D, qp.e, mach.stage_mask, qp.r0,
-            nu=nu, n_iters=n_iters, mu_min=config.mu_min, w_max=config.w_max,
-            row_meta=mach.row_meta)
+        args = (qp.H, qp.g, qp.A, qp.B, qp.c, qp.D, qp.e, mach.stage_mask,
+                qp.r0)
+        if dual_warm:
+            dz, lam = qp_cuda.solve_qp_batched_duals(*args, lam0=lam,
+                                                     n_iters=n_iters, **kw)
+            # A failed QP's duals are useless: reseed the next warm start
+            # with 1 (clipped to [mu_min, w_max] in the kernel).
+            lam = torch.where(torch.isnan(lam), torch.ones_like(lam), lam)
+        else:
+            dz = qp_cuda.solve_qp_batched(*args, n_iters=n_iters, **kw)
         Z_new = Z + dz
         bad = torch.any(torch.isnan(Z_new), dim=(1, 2), keepdim=True)
         Z_new = torch.where(bad, Z, Z_new)
         if not config.track_best:
-            return Z_new, Z_new, best_merit
+            return Z_new, Z_new, best_merit, lam
         merit, _, _, _ = mach.merit_of(Z_new, P, xinit)
         better = (merit < best_merit)[:, None, None]
         return (Z_new, torch.where(better, Z_new, best_Z),
-                torch.minimum(merit, best_merit))
+                torch.minimum(merit, best_merit), lam)
+
+    phases = (((1, config.n_qp_iter),
+               (config.n_sqp - 1, config.n_qp_iter_warm)) if dual_warm
+              else _phases_of(config))
 
     def solve(all_params, xinit, z_init) -> SQPResult:
         all_params = torch.as_tensor(all_params, dtype=dtype, device=device)
         P = torch.cat([all_params, all_params[:, -1:]], dim=1)  # stage N reuses N-1
         Z = torch.as_tensor(z_init, dtype=dtype, device=device)
         xinit = torch.as_tensor(xinit, dtype=dtype, device=device)
-        best_Z = Z
+        best_Z, lam = Z, None
         best_merit = (mach.merit_of(Z, P, xinit)[0] if config.track_best
                       else None)
-        for n_sqp, n_qp in _phases_of(config):
+        for n_sqp, n_qp in phases:
             for _ in range(n_sqp):
-                Z, best_Z, best_merit = iteration(Z, best_Z, best_merit, P,
-                                                  xinit, n_qp)
+                Z, best_Z, best_merit, lam = iteration(
+                    Z, best_Z, best_merit, P, xinit, n_qp, lam)
         _, cost, eq_res, finite = mach.merit_of(best_Z, P, xinit)
         return fleet_result(best_Z, cost, eq_res, finite, config)
 
     solve.machinery = mach
+    return solve
+
+
+def _make_lane_fleet_solver(ocp, config: SQPConfig, *, dtype, device):
+    """Fleet solver with the batch on the trailing axis from end to end.
+
+    Per SQP iteration: one launch of the fused kernel's linearization
+    (:func:`.linearize.make_lane_linearizer`'s ``fields``), which writes the
+    QP in the QP kernel's field-major layout and the merit terms of the
+    iterate, then one launch of the QP kernel that reads that buffer where it
+    lies (:func:`.qp_cuda.solve_qp_fields`): no ``torch.func``, no copy, no
+    transpose. Then the full step, kept back where it is NaN. The merit of
+    each iterate comes with its linearization, so best-iterate tracking
+    judges iterate k at iteration k (JAX judges it at the end of k-1: the
+    same comparisons in the same order); one merit launch for the last
+    iterate ends the solve. On the CPU the plain versions run. Raises at
+    build time for what the fused kernel does not cover."""
+    from .linearize import make_lane_linearizer
+
+    if config.n_qp_iter_warm > 0:
+        raise ValueError("backend='lanes' solves its QPs cold; "
+                         "n_qp_iter_warm needs backend='pallas'")
+    device = torch.device(device)
+    config = _f32_safe(config, dtype)
+    lin = make_lane_linearizer(ocp, config, dtype=dtype, device=device)
+    mach = lin.machinery
+    kw = dict(nu=mach.nu, mu_min=config.mu_min, w_max=config.w_max,
+              row_meta=mach.row_meta)
+
+    def solve(all_params, xinit, z_init) -> SQPResult:
+        all_params = torch.as_tensor(all_params, dtype=dtype, device=device)
+        P = torch.cat([all_params, all_params[:, -1:]], dim=1)
+        P_cols = P.permute(2, 1, 0).contiguous()  # (npar, T, B)
+        Z = torch.as_tensor(z_init, dtype=dtype,
+                            device=device).permute(1, 2, 0).contiguous()
+        x_cols = torch.as_tensor(xinit, dtype=dtype,
+                                 device=device).t().contiguous()
+        T, nz, B = Z.shape
+        best = None  # (Z, merit, cost, eq_res) of the best iterate so far
+
+        def track(Z, terms):
+            nonlocal best
+            if best is None:
+                best = (Z, *terms)
+                return
+            better = terms[0] < best[1]
+            best = (torch.where(better, Z, best[0]),
+                    torch.minimum(terms[0], best[1]),
+                    torch.where(better, terms[1], best[2]),
+                    torch.where(better, terms[2], best[3]))
+
+        for n_sqp, n_qp in _phases_of(config):
+            for _ in range(n_sqp):
+                fields, terms = lin.fields(P_cols, Z, x_cols)
+                if config.track_best:
+                    track(Z, terms)
+                dz = qp_cuda.solve_qp_fields(fields, mach.stage_mask,
+                                             n_iters=n_qp, **kw)
+                Z_new = Z + dz.reshape(T, nz, B)
+                bad = torch.any(torch.isnan(Z_new), dim=(0, 1))
+                Z = torch.where(bad, Z, Z_new)
+        last = lin.merit_terms(P_cols, Z, x_cols)
+        if config.track_best:
+            track(Z, last)
+            Z, _, cost, eq_res = best
+        else:
+            _, cost, eq_res = last
+        finite = torch.isfinite(cost) & torch.all(torch.isfinite(Z),
+                                                  dim=(0, 1))
+        return fleet_result(Z.permute(2, 0, 1).contiguous(), cost, eq_res,
+                            finite, config)
+
+    solve.machinery, solve.tables = mach, lin.tables
     return solve

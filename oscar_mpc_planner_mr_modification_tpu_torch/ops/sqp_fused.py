@@ -19,13 +19,16 @@ with ``track_best`` it keeps the best iterate by merit.
 - :func:`fused_fleet_reference` is the plain PyTorch version: the same SQP
   with ``torch.func`` linearization (:func:`.sqp._make_machinery`) and
   :func:`.qp_cuda.ip_solve_reference`.
-- :func:`linearize` runs the kernel's linearization once (the
-  ``sqp_fused_linearize`` entry) so that its derivatives can be checked
-  field by field; :func:`linearize_reference` is its plain version and
+- :func:`linearize_fields` runs the kernel's linearization once (the
+  ``sqp_fused_linearize`` entry) on field-major inputs and returns the raw
+  QP buffer, which ``backend="lanes"`` hands to the QP kernel as it lies;
+  :func:`merit_fields` runs the same entry for the merit terms alone, and
+  :func:`linearize` unpacks the buffer so that its derivatives can be checked
+  field by field. :func:`linearize_reference` is their plain version and
   :func:`host_linearize` runs the same header compiled for the host with a
   C++ compiler.
 - ``launches`` counts solve launches, ``linearize_launches`` linearize
-  launches.
+  launches and ``merit_launches`` merit-only launches.
 
 What the header covers (:func:`ocp_tables` checks it): the
 ``ContouringSecondOrderUnicycleModel``; the objectives ``MPCBaseModule``
@@ -55,6 +58,8 @@ from .sqp import (QPData, SQPConfig, _f32_safe, _make_machinery, _phases_of,
 launches = 0
 #: Number of linearize-entry kernel launches in this process.
 linearize_launches = 0
+#: Number of merit-only launches of the linearize entry in this process.
+merit_launches = 0
 
 # IP constants of the fused solve (JAX ops/sqp_fused.py::make_fused_fleet_solver).
 _IP = dict(mu0=1e2, tau=0.995, s_floor=1e-10, tol_freeze=1e-5)
@@ -404,27 +409,58 @@ def _shapes(tables, P, xinit, Z):
     return B
 
 
-def linearize(tables: OcpTables, P, xinit, Z):
-    """The kernel's linearization at Z (CUDA tensors; P (B, T, npar) with
-    stage N repeating N-1). Returns ``(QPData, merit, cost, eq_res)``."""
-    global linearize_launches
-    B = _shapes(tables, P, xinit, Z)
-    dev, dtype = Z.device, Z.dtype
+def _linearize_launch(tables: OcpTables, P_f, x_f, Z_f, with_qp: bool):
+    B = Z_f.shape[1]
+    want = {"P": (tables.npar * tables.T, B), "xinit": (_NX, B),
+            "Z": (tables.T * _NZ, B)}
+    for name, x in zip(want, (P_f, x_f, Z_f)):
+        if tuple(x.shape) != want[name] or x.dtype != Z_f.dtype:
+            raise ValueError(f"{name} must be {want[name]} {Z_f.dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    dev, dtype = Z_f.device, Z_f.dtype
     lib = _library()
-    ins = _lanes_in(P, xinit, Z)
     itab, rtab = _device_tables(tables, dev)
-    qp = torch.empty((qp_layout(tables.T, tables.m, tables.mh)["total"], B),
-                     dtype=dtype, device=dev)
+    qp = (torch.empty((qp_layout(tables.T, tables.m, tables.mh)["total"], B),
+                      dtype=dtype, device=dev) if with_qp else None)
     mo = torch.empty((3, B), dtype=dtype, device=dev)
-    _check_cuda(*ins, qp, mo)
+    _check_cuda(P_f, x_f, Z_f, mo, *(() if qp is None else (qp,)))
     fn = (lib.sqp_fused_linearize_f64 if dtype == torch.float64
           else lib.sqp_fused_linearize_f32)
     with torch.cuda.device(dev):
-        err = fn(*[t.data_ptr() for t in (*ins, qp, mo, itab, rtab)], B,
+        err = fn(*[None if t is None else t.data_ptr()
+                   for t in (P_f, x_f, Z_f, qp, mo, itab, rtab)], B,
                  tables.T, tables.m, tables.mh, tables.reg, _stream(dev))
     if err != 0:
         raise RuntimeError(f"sqp_fused_linearize launch failed with error {err}")
+    return qp, mo
+
+
+def linearize_fields(tables: OcpTables, P_f, x_f, Z_f):
+    """The kernel's linearization at Z on field-major CUDA inputs: P_f
+    (npar*T, B) with field p*T + t (stage N repeating N-1), x_f (nx, B),
+    Z_f (T*nz, B). Returns the raw QP buffer (``qp_layout(...)["total"]``,
+    B), whose fields the QP kernel reads where they lie, and (merit, cost,
+    eq_res) as (3, B)."""
+    global linearize_launches
+    out = _linearize_launch(tables, P_f, x_f, Z_f, with_qp=True)
     linearize_launches += 1
+    return out
+
+
+def merit_fields(tables: OcpTables, P_f, x_f, Z_f):
+    """(merit, cost, eq_res) (3, B) at Z on field-major CUDA inputs: the
+    linearize entry with no QP output."""
+    global merit_launches
+    _, mo = _linearize_launch(tables, P_f, x_f, Z_f, with_qp=False)
+    merit_launches += 1
+    return mo
+
+
+def linearize(tables: OcpTables, P, xinit, Z):
+    """The kernel's linearization at Z (CUDA tensors; P (B, T, npar) with
+    stage N repeating N-1). Returns ``(QPData, merit, cost, eq_res)``."""
+    _shapes(tables, P, xinit, Z)
+    qp, mo = linearize_fields(tables, *_lanes_in(P, xinit, Z))
     return unpack_qp(qp, tables), mo[0], mo[1], mo[2]
 
 
@@ -464,13 +500,17 @@ def _solve_kernel(tables, rows, config, phases, P, xinit, Z):
     return fleet_result(Zo, cost, eq_res, finite, config)
 
 
-def make_fused_fleet_solver(ocp, config: SQPConfig, *, dtype, device):
+def make_fused_fleet_solver(ocp, config: SQPConfig, *, dtype,
+                            device="cuda"):
     """Build the fused fleet solver: ``solve(all_params (B, N, npar),
     xinit (B, nx), z_init (B, N+1, nvar)) -> SQPResult``, the whole solve in
     one kernel launch on a CUDA device, :func:`fused_fleet_reference` on the
     CPU. Raises at build time for an OCP or regularization the kernel does
-    not cover. ``solve.reference`` runs the plain version on the same
-    arguments."""
+    not cover, and for ``n_qp_iter_warm > 0`` (its QPs are cold).
+    ``solve.reference`` runs the plain version on the same arguments."""
+    if config.n_qp_iter_warm > 0:
+        raise ValueError("the fused kernel solves its QPs cold; "
+                         "n_qp_iter_warm needs backend='pallas'")
     device = torch.device(device)
     config = _f32_safe(config, dtype)
     tables = ocp_tables(ocp, config)

@@ -21,7 +21,7 @@ class TMPCStepResult(NamedTuple):
     all_success: torch.Tensor  # (B, P)
 
 
-def make_batched_tmpc_step(ocp, config: SQPConfig, *, dtype, device,
+def make_batched_tmpc_step(ocp, config: SQPConfig, *, dtype, device="cuda",
                            backend: str = "pallas"):
     """(B, P)-batched T-MPC step on the fleet solver of ``backend``
     (:func:`..ops.sqp.make_fleet_sqp_solver`).
@@ -60,7 +60,7 @@ def make_batched_tmpc_step(ocp, config: SQPConfig, *, dtype, device,
     return plan_step
 
 
-def to_torch_fleet(params, xinit, z_init, disabled, *, device, dtype):
+def to_torch_fleet(params, xinit, z_init, disabled, *, device="cuda", dtype):
     """Fleet inputs as numpy arrays (from ``build_tmpc_fleet`` of either
     package) -> tensors on ``device``: floats in ``dtype``, ``disabled`` bool."""
     def f(x):

@@ -261,7 +261,7 @@ def test_uncovered_raises(case, error):
     elif case == "two_modes":
         ocp = _two_modes(ocp)
     else:
-        backend = "lanes"
+        backend = "mosaic"
     with pytest.raises(error):
         make_batched_tmpc_step(ocp, cfg, dtype=F64, device="cpu",
                                backend=backend)

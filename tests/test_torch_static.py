@@ -24,8 +24,11 @@ PORT_FILES = sorted(p for p in PORT.rglob("*")
 def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
     assert {"csrc/qp_ip.cu", "csrc/qp_ip.cuh", "csrc/sqp_fused.cu",
-            "csrc/tmpc_ocp.cuh", "csrc/tmpc_ocp_host.cpp", "ops/qp_cuda.py",
-            "ops/sqp.py", "ops/sqp_fused.py", "parallel/batch.py"} <= names
+            "csrc/tmpc_ocp.cuh", "csrc/tmpc_ocp_host.cpp", "csrc/fma_roof.cu",
+            "csrc/qp_ip_count.cpp",
+            "ops/qp_cuda.py", "ops/sqp.py", "ops/sqp_fused.py",
+            "ops/linearize.py", "ops/roofline.py", "parallel/batch.py",
+            "tools/bench_roofline.py", "tools/bench_warm.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
