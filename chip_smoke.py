@@ -7,7 +7,10 @@ Builds the three kernel libraries from the checkout, in parallel, and prints
 each ptxas report: the interior-point QP kernel (csrc/qp_ip.cu, with its
 cold, duals/warm and field-layout entries), the fused whole-SQP kernel
 (csrc/sqp_fused.cu, with its linearize entry) and the FP32 roof kernel
-(csrc/fma_roof.cu). Holds each against its plain PyTorch version: the QP
+(csrc/fma_roof.cu). B1 and B2 run one warp per problem with its state in
+shared memory: for every entry it prints the launch plan at the bench shape
+(warps per block, dynamic shared memory per block, problems resident per
+SM, registers and local memory per thread). Holds each against its plain PyTorch version: the QP
 kernel on the bench QPs (cold; cold with duals out, then warm from them on
 the re-linearized QPs; on the linearize entry's buffer), the fused kernel's
 in-kernel linearization against torch.func, its whole solve at f64, and the
@@ -42,7 +45,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from oscar_mpc_planner_mr_modification_tpu_torch.tools.common import (  # noqa: E402
-    BENCH_SCHEDULE, bench_config, bench_fleet, card_line, cuda_time_ms)
+    BENCH_SCHEDULE, FUSED_F64_GATE, LIN_F64_ATOL, LIN_F64_RTOL, QP_F64_GATE,
+    bench_config, bench_fleet, card_line, cuda_time_ms)
 
 B_MAIN, N_MAIN, N_PATHS = 512, 20, 8
 T0 = time.perf_counter()
@@ -157,6 +161,42 @@ def plain_qp_solver():
         qp_cuda.solve_qp_batched = kernel
 
 
+def log_launch_plans(dev):
+    """Every B1 and B2 entry's launch plan at the bench shape, f32 and f64."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        qp_cuda, sqp_fused)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        make_fleet_sqp_solver)
+
+    ocp, _ = bench_fleet(1, torch.float32, "cpu")
+    solve = make_fleet_sqp_solver(ocp, bench_config(), dtype=torch.float32,
+                                  device="cpu", backend="fused")
+    tables = solve.tables
+    with torch.cuda.device(dev):
+        for dtype in (torch.float32, torch.float64):
+            plans = {
+                name: qp_cuda.launch_info(dtype, duals, tables.T, tables.m,
+                                          max(tables.mh, 1), ocp.nx, ocp.nu)
+                for name, duals in (("qp_ip (cold, lanes)", False),
+                                    ("qp_ip_duals", True))}
+            plans["sqp_fused"], plans["sqp_fused_linearize"] = (
+                sqp_fused.launch_info(dtype, tables))
+            for name, p in plans.items():
+                log(f"launch plan {name} {str(dtype)[6:]} at T={tables.T}, "
+                    f"m={tables.m}: {p['warps_per_block']} warps (problems) "
+                    f"per block, {p['smem_bytes_per_block']} B dynamic shared "
+                    f"memory per block, {p['problems_per_sm']} problems "
+                    f"resident per SM, {p['registers']} registers and "
+                    f"{p['local_bytes']} B local memory per thread")
+                check(p["err"] == 0 and p["problems_per_sm"] > 0,
+                      f"{name} {str(dtype)[6:]} fits the card")
+
+
+def spread(times):
+    """min / max of a list of ms, for the log."""
+    return f"min {min(times):.3f}, max {max(times):.3f}"
+
+
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -201,6 +241,7 @@ def main():
                 log(f"ptxas {name}: {line.strip()}")
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    log_launch_plans(dev)
 
     # ---- 3. kernel against the plain version (B=64 -> 576 problems) -------
     cfg = bench_config()
@@ -210,8 +251,9 @@ def main():
     log(f"f64 576 problems: max|dz| {dz64.abs().max().item():.6e}, "
         f"max|ddz| {diff.max().item():.6e}, median |ddz| "
         f"{diff.median().item():.6e}")
-    check(diff.max().item() <= 1e-8 * scale,
-          f"f64 kernel = plain: max|ddz| <= 1e-8 (1 + max|dz|) = {1e-8 * scale:.3e}")
+    check(diff.max().item() <= QP_F64_GATE * scale,
+          f"f64 kernel = plain: max|ddz| <= {QP_F64_GATE:g} (1 + max|dz|) = "
+          f"{QP_F64_GATE * scale:.3e}")
 
     qp32, mach32 = initial_qp(64, torch.float32, dev)
     dz_k, dz_p, diff, rel = compare(qp32, mach32, 8, cfg)
@@ -284,13 +326,15 @@ def main():
                 f"{(a - b).abs().max().item():.3e}, median |d|/(1+|ref|) "
                 f"{rel.median().item():.3e}, max|ref| {b.abs().max().item():.3e}")
             if dtype == torch.float64:
-                if not torch.allclose(a, b, rtol=1e-9, atol=1e-10):
+                if not torch.allclose(a, b, rtol=LIN_F64_RTOL,
+                                      atol=LIN_F64_ATOL):
                     worst.append(name)
             elif rel.median().item() > 1e-4:
                 worst.append(name)
         if dtype == torch.float64:
             check(not worst, "f64 in-kernel linearization = build_qp on every "
-                  f"field within rtol 1e-9, atol 1e-10 (failed: {worst})")
+                  f"field within rtol {LIN_F64_RTOL:g}, atol "
+                  f"{LIN_F64_ATOL:g} (failed: {worst})")
         else:
             check(not worst, "f32 in-kernel linearization = build_qp: median "
                   f"|d|/(1+|ref|) <= 1e-4 on every field (failed: {worst})")
@@ -315,9 +359,9 @@ def main():
             f"max|dcost| {(res_k.cost - res_p.cost).abs().max().item():.3e}")
         check(bool((res_k.success == res_p.success).all()),
               f"f64 fused kernel success mask = plain (track_best={track_best})")
-        check(rel.max().item() <= 1e-6,
+        check(rel.max().item() <= FUSED_F64_GATE,
               "f64 fused kernel = plain: per problem max|dZ| / (1 + max|Z|) "
-              "<= 1e-6")
+              f"<= {FUSED_F64_GATE:g}")
 
     # ---- 7. main path at full width: backend="fused" ----------------------
     ocp, args = bench_fleet(B_MAIN, torch.float32, dev)
@@ -388,7 +432,7 @@ def main():
           "step on >= 99% of plans")
 
     # ---- 9. times ----------------------------------------------------------
-    step_ms, _ = cuda_time_ms(lambda: step(*args), reps=10)
+    step_ms, step_all = cuda_time_ms(lambda: step(*args), reps=10)
     b1_step_ms, _ = cuda_time_ms(lambda: step_b1(*args), reps=5, warmup=1)
     with plain_fused_solver(step.fleet_solve):
         plain_fused_ms, _ = cuda_time_ms(lambda: step(*args), reps=3, warmup=0)
@@ -402,14 +446,14 @@ def main():
         f"plain fused path {plain_fused_ms:.3f} ms = "
         f"{B_MAIN / plain_fused_ms * 1e3:.1f} plans/s; plain per-iteration "
         f"path {plain_step_ms:.3f} ms = {B_MAIN / plain_step_ms * 1e3:.1f} "
-        f"plans/s")
+        f"plans/s; fused step {spread(step_all)}")
     flat = flat_fleet(args)
     f_ms, f_all = cuda_time_ms(lambda: step.fleet_solve(*flat), reps=10)
     fp_ms, _ = cuda_time_ms(lambda: step.fleet_solve.reference(*flat), reps=3,
                             warmup=0)
     log(f"[{card}] fused solve at the bench shape ({B_MAIN * P} problems, "
         f"T={N_MAIN + 1}, schedule {BENCH_SCHEDULE}, f32): kernel {f_ms:.3f} "
-        f"ms per launch (min {min(f_all):.3f}, median of 10), plain "
+        f"ms per launch (median of 10; {spread(f_all)}), plain "
         f"fused_fleet_reference {fp_ms:.3f} ms (median of 3)")
     lin_in = (fleet_P(flat[0]), flat[1], flat[2])
     l_ms, _ = cuda_time_ms(
@@ -437,7 +481,7 @@ def main():
     p_ms, _ = cuda_time_ms(
         lambda: qp_cuda.ip_solve_reference(*qp_args(qpb, machb), **kw), reps=5)
     log(f"[{card}] IP solve per launch at the bench shape: kernel {k_ms:.3f} ms "
-        f"(min {min(k_all):.3f}), plain {p_ms:.3f} ms")
+        f"(median of 20; {spread(k_all)}), plain {p_ms:.3f} ms")
     z0 = args[2].reshape(B_MAIN * P, *args[2].shape[2:])
     p0 = args[0].reshape(B_MAIN * P, *args[0].shape[2:])
     p0 = torch.cat([p0, p0[:, -1:]], dim=1)
@@ -449,7 +493,7 @@ def main():
     n_problems = B_MAIN * P
     tables = step.fleet_solve.tables
     lin_f = sqp_fused._lanes_in(*lin_in)
-    lf_ms, _ = cuda_time_ms(
+    lf_ms, lf_all = cuda_time_ms(
         lambda: sqp_fused.linearize_fields(tables, *lin_f), reps=10)
     lr_ms, _ = cuda_time_ms(
         lambda: sqp_fused.linearize_reference(step.fleet_solve.machinery,
@@ -457,7 +501,8 @@ def main():
         warmup=1)
     log(f"[{card}] linearize entry alone (sqp_fused_linearize, field-major "
         f"in and out, no unpacking) at the bench shape, f32: {lf_ms:.3f} ms "
-        f"per launch; plain linearize_reference {lr_ms:.3f} ms")
+        f"per launch (median of 10; {spread(lf_all)}); plain "
+        f"linearize_reference {lr_ms:.3f} ms")
 
     # ---- 10. B1's dual variants vs the plain version at the bench QPs -----
     def gap(a, b):
@@ -495,9 +540,10 @@ def main():
                     f"{scale - 1:.3e}, median rel {rel.median().item():.3e}, "
                     f"NaN {int(torch.isnan(b).sum())}")
                 if dtype == torch.float64:
-                    check(d.max().item() <= 1e-8 * scale,
+                    check(d.max().item() <= QP_F64_GATE * scale,
                           f"f64 duals kernel = plain ({phase}, {name}): max|d|"
-                          f" <= 1e-8 (1 + max|ref|) = {1e-8 * scale:.3e}")
+                          f" <= {QP_F64_GATE:g} (1 + max|ref|) = "
+                          f"{QP_F64_GATE * scale:.3e}")
                 else:
                     check(rel.median().item() <= 1e-4,
                           f"f32 duals kernel = plain ({phase}, {name}): median"
@@ -511,8 +557,8 @@ def main():
     dp_ms, _ = cuda_time_ms(lambda: qp_cuda.ip_solve_reference(
         *qp_args(qp_1, mach_d), duals_out=True, **kw_w), reps=5)
     log(f"[{card}] duals/warm IP solve per launch at the bench shape (warm, 8 "
-        f"iterations, f32): kernel {dk_ms:.3f} ms (min {min(dk_all):.3f}), "
-        f"plain {dp_ms:.3f} ms")
+        f"iterations, f32): kernel {dk_ms:.3f} ms (median of 20; "
+        f"{spread(dk_all)}), plain {dp_ms:.3f} ms")
 
     # ---- 11. path (a): the dual-warm per-iteration fleet step -------------
     from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
@@ -601,8 +647,8 @@ def main():
     agreement(out_ln, "lane step")
     ln_ms, ln_all = cuda_time_ms(lambda: step_ln(*args), reps=10)
     n_dev, busy_ms, wall_ms = profile_step(step_ln, args)
-    log(f"[{card}] lane step: {ln_ms:.3f} ms (median of 10, min "
-        f"{min(ln_all):.3f}) = {B_MAIN / ln_ms * 1e3:.1f} plans/s; "
+    log(f"[{card}] lane step: {ln_ms:.3f} ms (median of 10; "
+        f"{spread(ln_all)}) = {B_MAIN / ln_ms * 1e3:.1f} plans/s; "
         f"torch.profiler, one step: {n_dev} device ops, device busy "
         f"{busy_ms:.3f} ms, profiled wall {wall_ms:.3f} ms; idle share "
         f"{1 - busy_ms / wall_ms:.4f} (profiled), "
@@ -630,9 +676,9 @@ def main():
             f"({zk.shape[1]} problems, 8 iterations): max|d| "
             f"{d.max().item():.3e}, median rel {rel.median().item():.3e}")
         if dtype == torch.float64:
-            check(d.max().item() <= 1e-8 * scale,
-                  f"f64 lane QP kernel = plain: max|d| <= 1e-8 (1 + max|ref|)"
-                  f" = {1e-8 * scale:.3e}")
+            check(d.max().item() <= QP_F64_GATE * scale,
+                  f"f64 lane QP kernel = plain: max|d| <= {QP_F64_GATE:g} "
+                  f"(1 + max|ref|) = {QP_F64_GATE * scale:.3e}")
         else:
             check(rel.median().item() <= 1e-4,
                   "f32 lane QP kernel = plain: median rel <= 1e-4")
@@ -642,8 +688,8 @@ def main():
     lp_ms, _ = cuda_time_ms(
         lambda: qp_cuda.fields_reference(fields, mask_l, **kw_l), reps=5)
     log(f"[{card}] lane QP entry per launch at the bench shape (8 iterations, "
-        f"f32): kernel {lk_ms:.3f} ms (min {min(lk_all):.3f}), plain "
-        f"{lp_ms:.3f} ms")
+        f"f32): kernel {lk_ms:.3f} ms (median of 20; {spread(lk_all)}), "
+        f"plain {lp_ms:.3f} ms")
 
     # ---- 13. path (c): kernel B3, the FP32 roof, achieved FLOP/s ----------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -743,7 +789,7 @@ def main():
               roofline.tensor_bytes(*lin_in, flat[2]) + 8 * n_problems),
         entry("sqp_fused_linearize", "sqp_fused.cu",
               f"{jax_ops}/sqp_fused.py:45", lanlin_launches, lin_err, lf_ms,
-              lr_ms, roofline.LIN_FLOPS * n_problems, lin_b),
+              lr_ms, roofline.lin_flops(n_problems), lin_b),
         entry("fma_roof", "fma_roof.cu", "tools/bench_roofline.py:85",
               roof_launches, fma_err, fk_ms, fpl_ms,
               roofline.fma_flops(x_r.numel()), 8 * x_r.numel()),

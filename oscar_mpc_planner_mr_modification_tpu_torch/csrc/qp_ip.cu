@@ -1,5 +1,5 @@
 // Batched stagewise Mehrotra predictor-corrector interior-point QP solver
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), one warp per problem.
 //
 // Replaces the TPU kernel of the JAX package, ops/qp_pallas.py::_qp_kernel
 // -> _ip_solve, in its three configurations: cold and z-only (the entries
@@ -15,106 +15,160 @@
 // sigma = (comp_aff / comp)^3 clipped to [1e-8, 1]; a W clamp at w_max and a
 // slack floor; a per-problem freeze once comp, feas and the equality residual
 // are below tolerance, or when the step is NaN. Box rows (one +-1 entry) are
-// analytic (diagonal Hbar update); generic rows contract their column support
-// pairs. With no active row the QP is equality constrained and one exact
-// Riccati solve from z = 0 finishes it.
+// analytic (diagonal Hbar update); generic rows are dense over z. With no
+// active row the QP is equality constrained and one exact Riccati solve from
+// z = 0 finishes it.
 //
-// Mapping: one thread per problem, 32 threads per block, so that the fleet
-// step's 4608 problems spread over all 132 SMs. Every per-problem array
-// (inputs, output and scratch: s, lam, cached row residuals and steps, Hbar,
-// the K / Linv / Qux / P factors) lives in global memory in a field-major
-// (fields, B) layout, so that neighbouring threads touch neighbouring
-// addresses and every load and store coalesces. Small per-stage temporaries
-// of the Riccati sweep are thread-local arrays sized by QP_MAX_NX/QP_MAX_NU.
+// Mapping: one warp per problem, W warps per block (4, 2 or 1: the block
+// size that keeps the most problems resident per SM, chosen at launch from
+// the shared-memory footprint by the occupancy API). A block copies the row
+// table and the stage mask into shared memory once; each warp copies its
+// problem's columns of the field-major (fields, B) inputs into its own
+// shared memory, runs qp_ip.cuh::ip_solve_problem there (how the lanes share
+// the work is in its file comment), and writes z (and the multipliers) back
+// into its column. Nothing of the iteration touches global memory. The state
+// and input dimensions are template parameters, instantiated for
+// (nx, nu) = (5, 2), the port's unicycle model; the wrapper raises for any
+// other.
 //
-// What bounds it: occupancy and latency. 4608 threads are about one warp per
-// SM, so there is little to hide the latency of the scratch traffic, which
-// goes through L1/L2 (about 5k fields per problem). The next design
-// (a warp or small thread group per problem, its state in shared memory,
-// lanes sharing the stage- and row-parallel passes and the nx x nx blocks of
-// the Riccati sweep) is the later step; this kernel is the simple, exact one.
+// What bounds it: latency along each problem's sequential chain, not
+// arithmetic (it runs at about 1% of the FP32 roof). An iteration runs the
+// Riccati factorization and two vector sweeps stage after stage, and row
+// passes whose lanes each loop the T stages, so a warp waits on
+// shared-memory and division latency most of the time, with only 6 problems
+// resident per SM at f32 (shared memory, about 34 KB each) to hide it. This
+// replaces one thread per problem with all state in global memory, where
+// every one of ~90k operations an iteration waited on an L1/L2 round trip
+// with about one warp per SM to hide it. What is left to gain: more problems
+// per SM (a smaller footprint), and shorter chains in the row passes and the
+// factorization.
 //
-// The per-problem solve, ip_solve_problem(), lives in qp_ip.cuh: this file's
-// kernel is one thread per problem around it, and the fused whole-SQP kernel
-// (sqp_fused.cu) calls it once per SQP iteration.
-//
-// The kernel allocates nothing and does not synchronize: the caller passes
-// the scratch buffer (sized by qp_ip_scratch_fields) and the stream. Each
-// extern "C" entry returns cudaGetLastError() after the launch, or -1 when a
-// size is out of range.
+// The kernel allocates nothing and does not synchronize. Each extern "C"
+// entry returns cudaGetLastError() after the launch, -1 when a size is out
+// of range, -2 when no block fits the card's shared memory, and -3 for an
+// (nx, nu) with no instantiation.
 
 #include "qp_ip.cuh"
 
 namespace {
 
-template <typename real, bool duals>
-__global__ void __launch_bounds__(QP_THREADS)
-qp_ip_kernel(const real* __restrict__ Htri, const real* __restrict__ g,
-             const real* __restrict__ A, const real* __restrict__ Bm,
-             const real* __restrict__ c, const real* __restrict__ D,
-             const real* __restrict__ e, const real* __restrict__ r0,
-             const real* __restrict__ mask, const int* __restrict__ rinfo,
-             const int* __restrict__ pairs, real* __restrict__ z_out,
+constexpr int MAX_WARPS = 4;
+
+template <typename real, int NX, int NU>
+size_t block_bytes(const Sizes& sz, int W) {
+  return sizeof(real) * ((size_t)sz.T * sz.m +
+                         (size_t)W * qp_problem_reals<NX, NU>(sz)) +
+         sizeof(int) * (size_t)sz.m * RK_W;
+}
+
+template <typename real, int NX, int NU, bool duals>
+__global__ void __launch_bounds__(MAX_WARPS * WIDTH)
+qp_ip_kernel(QpBatch<real> in, const real* __restrict__ mask,
+             const int* __restrict__ rinfo, real* __restrict__ z_out,
              const real* __restrict__ lam0, real* __restrict__ lam_out,
-             real* __restrict__ scratch, Sizes sz, int any_active, int n_iters,
-             real mu0, real mu_min, real tau, real w_max, real s_floor,
-             real s_wfloor, real tol_freeze, real tol100, real n_act) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= sz.Bt) return;
+             Sizes sz, int Bt, int any_active, int n_iters,
+             IpParams<real> prm) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  real* sm = reinterpret_cast<real*>(smem_raw);
+  const int W = blockDim.x / WIDTH, per = qp_problem_reals<NX, NU>(sz);
+  const int Tm = sz.T * sz.m;
+  real* probs = sm + Tm;
+  int* rinfo_s = reinterpret_cast<int*>(probs + (size_t)W * per);
+  for (int i = threadIdx.x; i < Tm; i += blockDim.x) sm[i] = mask[i];
+  for (int i = threadIdx.x; i < sz.m * RK_W; i += blockDim.x)
+    rinfo_s[i] = rinfo[i];
+  __syncthreads();
+  const int wid = threadIdx.x / WIDTH, b = blockIdx.x * W + wid;
+  if (b >= Bt) return;
   // Without `duals` the pointers are compile-time null: the cold z-only
   // kernel carries no code of the dual variants.
-  ip_solve_problem<real>(Htri, g, A, Bm, c, D, e, r0, mask, rinfo, pairs,
-                         z_out, duals ? lam0 : nullptr,
-                         duals ? lam_out : nullptr, scratch, sz, b, any_active,
-                         n_iters, mu0, mu_min, tau, w_max, s_floor, s_wfloor,
-                         tol_freeze, tol100, n_act);
+  qp_solve_column<real, NX, NU>(Lanes{(int)(threadIdx.x % WIDTH)}, in,
+                                Rows<real>{sm, rinfo_s}, sz,
+                                Bt, b,
+                                probs + (size_t)wid * per, any_active,
+                                n_iters, duals ? lam0 : nullptr, z_out,
+                                duals ? lam_out : nullptr, prm);
+}
+
+template <typename real, int NX, int NU, bool duals>
+warp::LaunchPlan plan(const Sizes& sz) {
+  return warp::cached_plan(qp_ip_kernel<real, NX, NU, duals>, sz.T, sz.m,
+                           sz.mhp, [&](int W) {
+                             return block_bytes<real, NX, NU>(sz, W);
+                           });
+}
+
+template <typename real, int NX, int NU, bool duals>
+int launch_nxnu(const QpBatch<real>& in, const void* mask, const void* rinfo,
+                void* z, const void* lam0, void* lam_out, const Sizes& sz,
+                int Bt, int any_active, int n_iters,
+                const IpParams<real>& prm, void* stream) {
+  const warp::LaunchPlan p = plan<real, NX, NU, duals>(sz);
+  if (p.err != 0) return p.err;
+  const int blocks = (Bt + p.warps - 1) / p.warps;
+  qp_ip_kernel<real, NX, NU, duals>
+      <<<blocks, p.warps * WIDTH, p.bytes, (cudaStream_t)stream>>>(
+          in, (const real*)mask, (const int*)rinfo, (real*)z,
+          (const real*)lam0, (real*)lam_out, sz, Bt, any_active, n_iters,
+          prm);
+  return (int)cudaGetLastError();
 }
 
 template <typename real, bool duals>
 int launch(const void* H, const void* g, const void* A, const void* Bm,
            const void* c, const void* D, const void* e, const void* r0,
-           const void* mask, const void* rinfo, const void* pairs, void* z,
-           const void* lam0, void* lam_out, void* scratch, int Bt, int T,
-           int nz, int nx, int nu, int m, int mhp, int nU, int any_active,
-           int n_iters, double mu0, double mu_min, double tau, double w_max,
-           double s_floor, double tol_freeze, double n_act, void* stream) {
-  if (Bt < 1 || T < 2 || nx < 1 || nx > QP_MAX_NX || nu < 1 || nu > QP_MAX_NU ||
-      nz != nx + nu || m < 1 || mhp < 1 || nU < 1 || (duals && !lam_out))
-    return -1;
-  Sizes sz{Bt, T, nz, nx, nu, m, mhp, nU, nz * (nz + 1) / 2};
-  const int blocks = (Bt + QP_THREADS - 1) / QP_THREADS;
-  qp_ip_kernel<real, duals><<<blocks, QP_THREADS, 0, (cudaStream_t)stream>>>(
-      (const real*)H, (const real*)g, (const real*)A, (const real*)Bm,
-      (const real*)c, (const real*)D, (const real*)e, (const real*)r0,
-      (const real*)mask, (const int*)rinfo, (const int*)pairs, (real*)z,
-      (const real*)lam0, (real*)lam_out, (real*)scratch, sz, any_active,
-      n_iters, real(mu0), real(mu_min), real(tau), real(w_max), real(s_floor),
-      real(10.0 * sqrt(mu_min)), real(tol_freeze), real(100.0 * tol_freeze),
-      real(n_act));
-  return (int)cudaGetLastError();
+           const void* mask, const void* rinfo, void* z, const void* lam0,
+           void* lam_out, int Bt, int T, int nx, int nu, int m, int mhp,
+           int any_active, int n_iters, double mu0, double mu_min, double tau,
+           double w_max, double s_floor, double tol_freeze, double n_act,
+           void* stream) {
+  const QpBatch<real> in{(const real*)H, (const real*)g, (const real*)A,
+                         (const real*)Bm, (const real*)c, (const real*)D,
+                         (const real*)e, (const real*)r0};
+  return qp_entry<real>(
+      duals, lam_out, Bt, T, nx, nu, m, mhp, mu0, mu_min, tau, w_max, s_floor,
+      tol_freeze, n_act,
+      [&](auto dims, const Sizes& sz, const IpParams<real>& prm) {
+        using Dim = decltype(dims);
+        return launch_nxnu<real, Dim::NX, Dim::NU, duals>(
+            in, mask, rinfo, z, lam0, lam_out, sz, Bt, any_active, n_iters,
+            prm, stream);
+      });
 }
 
 }  // namespace
 
 extern "C" {
 
-int qp_ip_scratch_fields(int T, int nz, int nx, int nu, int m) {
-  return Scratch(T, nz, nx, nu, m).total;
+// The launch plan of an entry (f64: 0/1, duals: 0/1) at these sizes, as 6
+// ints (warp.cuh plan_out); out[5] = -3 for an (nx, nu) with no instantiation.
+void qp_ip_launch_info(int f64, int duals, int T, int m, int mhp, int nx,
+                       int nu, int* out) {
+  const Sizes sz{T, m, mhp};
+  warp::LaunchPlan p{0, 0, 0, 0, 0, -3};
+  with_dims(nx, nu, [&](auto dims) {
+    using Dim = decltype(dims);
+    constexpr int NX = Dim::NX, NU = Dim::NU;
+    p = f64 ? (duals ? plan<double, NX, NU, true>(sz)
+                     : plan<double, NX, NU, false>(sz))
+            : (duals ? plan<float, NX, NU, true>(sz)
+                     : plan<float, NX, NU, false>(sz));
+    return 0;
+  });
+  warp::plan_out(p, out);
 }
 
 #define QP_ENTRY(NAME, REAL)                                                   \
   int NAME(const void* H, const void* g, const void* A, const void* Bm,        \
            const void* c, const void* D, const void* e, const void* r0,        \
-           const void* mask, const void* rinfo, const void* pairs, void* z,    \
-           void* scratch, int Bt, int T, int nz, int nx, int nu, int m,        \
-           int mhp, int nU, int any_active, int n_iters, double mu0,           \
-           double mu_min, double tau, double w_max, double s_floor,           \
-           double tol_freeze, double n_act, void* stream) {                    \
-    return launch<REAL, false>(H, g, A, Bm, c, D, e, r0, mask, rinfo, pairs,   \
-                               z, nullptr, nullptr, scratch, Bt, T, nz, nx,    \
-                               nu, m, mhp, nU, any_active, n_iters, mu0,       \
-                               mu_min, tau, w_max, s_floor, tol_freeze, n_act, \
-                               stream);                                        \
+           const void* mask, const void* rinfo, void* z, int Bt, int T,       \
+           int nx, int nu, int m, int mhp, int any_active, int n_iters,        \
+           double mu0, double mu_min, double tau, double w_max,                \
+           double s_floor, double tol_freeze, double n_act, void* stream) {    \
+    return launch<REAL, false>(H, g, A, Bm, c, D, e, r0, mask, rinfo, z,       \
+                               nullptr, nullptr, Bt, T, nx, nu, m, mhp,        \
+                               any_active, n_iters, mu0, mu_min, tau, w_max,   \
+                               s_floor, tol_freeze, n_act, stream);            \
   }
 
 // As QP_ENTRY, plus the final multipliers into lam_out (T*m, Bt) and, when
@@ -122,15 +176,15 @@ int qp_ip_scratch_fields(int T, int nz, int nx, int nu, int m) {
 #define QP_DUALS_ENTRY(NAME, REAL)                                             \
   int NAME(const void* H, const void* g, const void* A, const void* Bm,        \
            const void* c, const void* D, const void* e, const void* r0,        \
-           const void* mask, const void* rinfo, const void* pairs, void* z,    \
-           const void* lam0, void* lam_out, void* scratch, int Bt, int T,      \
-           int nz, int nx, int nu, int m, int mhp, int nU, int any_active,     \
-           int n_iters, double mu0, double mu_min, double tau, double w_max,   \
-           double s_floor, double tol_freeze, double n_act, void* stream) {    \
-    return launch<REAL, true>(H, g, A, Bm, c, D, e, r0, mask, rinfo, pairs, z, \
-                              lam0, lam_out, scratch, Bt, T, nz, nx, nu, m,    \
-                              mhp, nU, any_active, n_iters, mu0, mu_min, tau,  \
-                              w_max, s_floor, tol_freeze, n_act, stream);      \
+           const void* mask, const void* rinfo, void* z, const void* lam0,    \
+           void* lam_out, int Bt, int T, int nx, int nu, int m, int mhp,       \
+           int any_active, int n_iters, double mu0, double mu_min, double tau, \
+           double w_max, double s_floor, double tol_freeze, double n_act,      \
+           void* stream) {                                                     \
+    return launch<REAL, true>(H, g, A, Bm, c, D, e, r0, mask, rinfo, z, lam0,  \
+                              lam_out, Bt, T, nx, nu, m, mhp, any_active,      \
+                              n_iters, mu0, mu_min, tau, w_max, s_floor,       \
+                              tol_freeze, n_act, stream);                      \
   }
 
 QP_ENTRY(qp_ip_solve_f32, float)

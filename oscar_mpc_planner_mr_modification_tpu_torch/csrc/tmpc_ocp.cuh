@@ -39,21 +39,26 @@
 
 #pragma once
 
+#include "warp.cuh"
+
 #include <math.h>
 #include <stddef.h>
 
 // TMPC_HD: small helpers, always inlined; TMPC_FN: the stage functions;
-// TMPC_ONCE: linearize() and merit(), compiled once and called, so that the
-// kernels that share them do not each carry a copy.
+// TMPC_ONCE: linearize_stage() and merit_stage(), compiled once and called,
+// so that the kernels that share them do not each carry a copy; TMPC_WARP:
+// the lane-group forms (warp.cuh), device code on the card.
 #if defined(__CUDACC__)
 #define TMPC_HD __host__ __device__ __forceinline__
 #define TMPC_FN __host__ __device__
 #define TMPC_ONCE __host__ __device__ __noinline__
+#define TMPC_WARP __device__
 #define TMPC_UNROLL _Pragma("unroll")
 #else
 #define TMPC_HD inline
 #define TMPC_FN inline
 #define TMPC_ONCE inline
+#define TMPC_WARP inline
 #define TMPC_UNROLL
 #endif
 
@@ -527,11 +532,12 @@ TMPC_FN void store_hessian(R* Hs, int reg, double reg_eps, double levenberg,
     TMPC_UNROLL for (int j = i; j < NZ; ++j, ++k) qp[f0 + k] = Hs[i * NZ + j];
 }
 
-// Linearize problem b at its iterate Z: every field of QpLayout.
+// Linearize stage t of one problem at its iterate Z: the stage's fields of
+// QpLayout (all but r0).
 template <typename R>
-TMPC_ONCE void linearize(const Ocp& o, const Col<const R>& P,
-                       const Col<const R>& x0, const Col<const R>& Z,
-                       const Col<R>& qp, const QpLayout& L, int reg) {
+TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
+                               const Col<const R>& Z, const Col<R>& qp,
+                               const QpLayout& L, int reg, int t) {
   using J2 = Jet<R, NZ, NTRI>;
   using J1 = Jet<R, NZ, 0>;
   const int T = L.T, N = T - 1, m = L.m;
@@ -539,122 +545,204 @@ TMPC_ONCE void linearize(const Ocp& o, const Col<const R>& P,
   const double dt = o.rt[RT_DT];
   const bool body_terminal = (o.it[TB_FLAGS] & FL_BODY_TERMINAL) != 0;
   const int* rows = o.it + o.it[TB_OFF_ROWS];
-  for (int t = 0; t < T; ++t) {
-    const Par<R> p = stage_params(P, t, T);
-    R z[NZ];
+  const Par<R> p = stage_params(P, t, T);
+  R z[NZ];
+  TMPC_UNROLL for (int i = 0; i < NZ; ++i)
+    z[i] = (t == N && i < NU) ? R(0) : Z[t * NZ + i];
+
+  // Cost gradient and Hessian. Stage N: terminal cost at u = 0; its block
+  // is the identity on u and the cost's x block on x.
+  {
+    J2 zj[NZ];
+    TMPC_UNROLL for (int i = 0; i < NZ; ++i) zj[i] = jet_seed<R, NZ, NTRI>(z[i], i);
+    const J2 cost = stage_cost(o, p, zj, t < N ? body_terminal : true);
+    R Hs[NZ * NZ];
+    int k = 0;
     TMPC_UNROLL for (int i = 0; i < NZ; ++i)
-      z[i] = (t == N && i < NU) ? R(0) : Z[t * NZ + i];
-
-    // Cost gradient and Hessian. Stage N: terminal cost at u = 0; its block
-    // is the identity on u and the cost's x block on x.
-    {
-      J2 zj[NZ];
-      TMPC_UNROLL for (int i = 0; i < NZ; ++i) zj[i] = jet_seed<R, NZ, NTRI>(z[i], i);
-      const J2 cost = stage_cost(o, p, zj, t < N ? body_terminal : true);
-      R Hs[NZ * NZ];
-      int k = 0;
-      TMPC_UNROLL for (int i = 0; i < NZ; ++i)
-        TMPC_UNROLL for (int j = i; j < NZ; ++j, ++k) {
-          Hs[i * NZ + j] = cost.h[k];
-          Hs[j * NZ + i] = cost.h[k];
-        }
-      if (t == N) {
-        TMPC_UNROLL for (int i = 0; i < NU; ++i)
-          TMPC_UNROLL for (int j = 0; j < NZ; ++j) {
-            const R v = (i == j) ? R(1) : R(0);
-            Hs[i * NZ + j] = v;
-            Hs[j * NZ + i] = v;
-          }
+      TMPC_UNROLL for (int j = i; j < NZ; ++j, ++k) {
+        Hs[i * NZ + j] = cost.h[k];
+        Hs[j * NZ + i] = cost.h[k];
       }
-      TMPC_UNROLL for (int i = 0; i < NZ; ++i)
-        qp[L.g + t * NZ + i] = (t == N && i < NU) ? R(0) : cost.g[i];
-      store_hessian(Hs, reg, reg_eps, lev, qp, L.H + t * NTRI);
-    }
-
     if (t == N) {
-      // Stage N: masked placeholder rows.
-      for (int f = 0; f < L.mhp * NZ; ++f) qp[L.D + t * L.mhp * NZ + f] = R(0);
-      for (int r = 0; r < m; ++r) qp[L.e + t * m + r] = R(1);
-      continue;
+      TMPC_UNROLL for (int i = 0; i < NU; ++i)
+        TMPC_UNROLL for (int j = 0; j < NZ; ++j) {
+          const R v = (i == j) ? R(1) : R(0);
+          Hs[i * NZ + j] = v;
+          Hs[j * NZ + i] = v;
+        }
     }
+    TMPC_UNROLL for (int i = 0; i < NZ; ++i)
+      qp[L.g + t * NZ + i] = (t == N && i < NU) ? R(0) : cost.g[i];
+    store_hessian(Hs, reg, reg_eps, lev, qp, L.H + t * NTRI);
+  }
 
-    J1 zd[NZ];
-    TMPC_UNROLL for (int i = 0; i < NZ; ++i) zd[i] = jet_seed<R, NZ, 0>(z[i], i);
+  if (t == N) {
+    // Stage N: masked placeholder rows.
+    for (int f = 0; f < L.mhp * NZ; ++f) qp[L.D + t * L.mhp * NZ + f] = R(0);
+    for (int r = 0; r < m; ++r) qp[L.e + t * m + r] = R(1);
+    return;
+  }
 
-    // Dynamics: A = dF/dx, B = dF/du, c = F(z_t) - x_{t+1}.
-    {
-      J1 F[NX];
-      rk4(zd + NU, zd, dt, F);
-      TMPC_UNROLL for (int i = 0; i < NX; ++i) {
-        TMPC_UNROLL for (int j = 0; j < NX; ++j)
-          qp[L.A + (t * NX + i) * NX + j] = F[i].g[NU + j];
-        TMPC_UNROLL for (int j = 0; j < NU; ++j)
-          qp[L.B + (t * NX + i) * NU + j] = F[i].g[j];
-        qp[L.c + t * NX + i] = F[i].v - Z[(t + 1) * NZ + NU + i];
-      }
-    }
+  J1 zd[NZ];
+  TMPC_UNROLL for (int i = 0; i < NZ; ++i) zd[i] = jet_seed<R, NZ, 0>(z[i], i);
 
-    // Inequality rows D z + e >= 0 in the OCP's row order.
-    int slot = 0;
-    for (int r = 0; r < m; ++r) {
-      const int kind = rows[2 * r], idx = rows[2 * r + 1];
-      const R bound = R(o.rt[RT_BOUNDS + r]);
-      R e;
-      if (kind == ROW_HL || kind == ROW_HU) {
-        const J1 h = h_row(o, p, zd, idx);
-        const int d0 = L.D + (t * L.mhp + slot) * NZ;
-        TMPC_UNROLL for (int j = 0; j < NZ; ++j) qp[d0 + j] = kind == ROW_HL ? h.g[j] : -h.g[j];
-        e = kind == ROW_HL ? h.v - bound : bound - h.v;
-        ++slot;
-      } else {
-        e = kind == ROW_ZL ? z[idx] - bound : bound - z[idx];
-      }
-      qp[L.e + t * m + r] = e;
-    }
-    if (slot == 0) {
-      for (int j = 0; j < NZ; ++j) qp[L.D + t * L.mhp * NZ + j] = R(0);
+  // Dynamics: A = dF/dx, B = dF/du, c = F(z_t) - x_{t+1}.
+  {
+    J1 F[NX];
+    rk4(zd + NU, zd, dt, F);
+    TMPC_UNROLL for (int i = 0; i < NX; ++i) {
+      TMPC_UNROLL for (int j = 0; j < NX; ++j)
+        qp[L.A + (t * NX + i) * NX + j] = F[i].g[NU + j];
+      TMPC_UNROLL for (int j = 0; j < NU; ++j)
+        qp[L.B + (t * NX + i) * NU + j] = F[i].g[j];
+      qp[L.c + t * NX + i] = F[i].v - Z[(t + 1) * NZ + NU + i];
     }
   }
+
+  // Inequality rows D z + e >= 0 in the OCP's row order.
+  int slot = 0;
+  for (int r = 0; r < m; ++r) {
+    const int kind = rows[2 * r], idx = rows[2 * r + 1];
+    const R bound = R(o.rt[RT_BOUNDS + r]);
+    R e;
+    if (kind == ROW_HL || kind == ROW_HU) {
+      const J1 h = h_row(o, p, zd, idx);
+      const int d0 = L.D + (t * L.mhp + slot) * NZ;
+      TMPC_UNROLL for (int j = 0; j < NZ; ++j) qp[d0 + j] = kind == ROW_HL ? h.g[j] : -h.g[j];
+      e = kind == ROW_HL ? h.v - bound : bound - h.v;
+      ++slot;
+    } else {
+      e = kind == ROW_ZL ? z[idx] - bound : bound - z[idx];
+    }
+    qp[L.e + t * m + r] = e;
+  }
+  if (slot == 0) {
+    for (int j = 0; j < NZ; ++j) qp[L.D + t * L.mhp * NZ + j] = R(0);
+  }
+}
+
+// The initial-condition residual r0 = x0 - x_0.
+template <typename R>
+TMPC_HD void linearize_r0(const Col<const R>& x0, const Col<const R>& Z,
+                          const Col<R>& qp, const QpLayout& L) {
   TMPC_UNROLL for (int i = 0; i < NX; ++i) qp[L.r0 + i] = x0[i] - Z[NU + i];
 }
 
-// make_lane_merit: merit = cost + w eq_res (inf unless cost and Z are
-// finite); eq_res = max(|F(z_t) - x_{t+1}|, |x0 - x_0|).
+// Every field of QpLayout, stage after stage: the host's serial form.
 template <typename R>
-TMPC_ONCE void merit(const Ocp& o, const Col<const R>& P, const Col<const R>& x0,
+TMPC_HD void linearize(const Ocp& o, const Col<const R>& P,
+                       const Col<const R>& x0, const Col<const R>& Z,
+                       const Col<R>& qp, const QpLayout& L, int reg) {
+  for (int t = 0; t < L.T; ++t) linearize_stage(o, P, Z, qp, L, reg, t);
+  linearize_r0(x0, Z, qp, L);
+}
+
+// Every field of QpLayout with one lane group: lane t linearizes stage t,
+// lane 0 writes r0.
+template <typename R>
+TMPC_WARP void linearize_warp(const warp::Lanes& lanes, const Ocp& o,
+                              const Col<const R>& P, const Col<const R>& x0,
+                              const Col<const R>& Z, const Col<R>& qp,
+                              const QpLayout& L, int reg) {
+  lanes.run([&](int l) {
+    for (int t = l; t < L.T; t += warp::WIDTH)
+      linearize_stage(o, P, Z, qp, L, reg, t);
+    if (l == 0) linearize_r0(x0, Z, qp, L);
+  });
+}
+
+// Stage t's merit terms: its cost, its largest dynamics defect
+// max_i |F(z_t) - x_{t+1}| (0 at stage N) and whether its z is finite (1/0).
+template <typename R>
+TMPC_ONCE void merit_stage(const Ocp& o, const Col<const R>& P,
+                           const Col<const R>& Z, int T, int t, R* cost_out,
+                           R* eq_out, R* finite_out) {
+  const int N = T - 1;
+  const Par<R> p = stage_params(P, t, T);
+  const bool body_terminal = (o.it[TB_FLAGS] & FL_BODY_TERMINAL) != 0;
+  R z[NZ];
+  bool z_finite = true;
+  TMPC_UNROLL for (int i = 0; i < NZ; ++i) {
+    z[i] = Z[t * NZ + i];
+    z_finite = z_finite && finite(z[i]);
+  }
+  R eq = R(0);
+  if (t == N) {
+    z[Z_A] = R(0);
+    z[Z_W] = R(0);
+    *cost_out = stage_cost(o, p, z, true);
+  } else {
+    R F[NX];
+    rk4(z + NU, z, o.rt[RT_DT], F);
+    TMPC_UNROLL for (int i = 0; i < NX; ++i)
+      eq = nanmax(eq, m_abs(F[i] - Z[(t + 1) * NZ + NU + i]));
+    *cost_out = stage_cost(o, p, z, body_terminal);
+  }
+  *eq_out = eq;
+  *finite_out = z_finite ? R(1) : R(0);
+}
+
+// |x0 - x_0| at its largest.
+template <typename R>
+TMPC_HD R initial_defect(const Col<const R>& x0, const Col<const R>& Z) {
+  R eq = R(0);
+  TMPC_UNROLL for (int i = 0; i < NX; ++i)
+    eq = nanmax(eq, m_abs(x0[i] - Z[NU + i]));
+  return eq;
+}
+
+// make_lane_merit's combination of the stage terms, in stage order: merit =
+// cost + w eq_res (inf unless cost and Z are finite), eq_res = max(dynamics
+// defects, initial defect).
+template <typename R>
+struct MeritSum {
+  R cost = R(0), eq_dyn = R(0);
+  bool z_finite = true;
+  TMPC_HD void add(R cost_t, R eq_t, R finite_t) {
+    cost = cost + cost_t;
+    eq_dyn = nanmax(eq_dyn, eq_t);
+    z_finite = z_finite && finite_t != R(0);
+  }
+  TMPC_HD void finish(const Ocp& o, R eq_init, R* merit_out, R* cost_out,
+                      R* eq_out) const {
+    const R eq = nanmax(eq_dyn, eq_init);
+    const bool ok = finite(cost) && z_finite;
+    *merit_out = ok ? cost + R(o.rt[RT_MERIT_W]) * eq : R(INFINITY);
+    *cost_out = cost;
+    *eq_out = eq;
+  }
+};
+
+// The merit terms at Z, stage after stage: the host's serial form.
+template <typename R>
+TMPC_HD void merit(const Ocp& o, const Col<const R>& P, const Col<const R>& x0,
                    const Col<const R>& Z, int T, R* merit_out, R* cost_out,
                    R* eq_out) {
-  const int N = T - 1;
-  const double dt = o.rt[RT_DT];
-  const bool body_terminal = (o.it[TB_FLAGS] & FL_BODY_TERMINAL) != 0;
-  R eq_dyn = R(0), eq_init = R(0), cost = R(0);
-  bool z_finite = true;
+  MeritSum<R> sum;
   for (int t = 0; t < T; ++t) {
-    const Par<R> p = stage_params(P, t, T);
-    R z[NZ];
-    TMPC_UNROLL for (int i = 0; i < NZ; ++i) {
-      z[i] = Z[t * NZ + i];
-      z_finite = z_finite && finite(z[i]);
-    }
-    if (t == N) {
-      z[Z_A] = R(0);
-      z[Z_W] = R(0);
-      cost = cost + stage_cost(o, p, z, true);
-      break;
-    }
-    R F[NX];
-    rk4(z + NU, z, dt, F);
-    TMPC_UNROLL for (int i = 0; i < NX; ++i)
-      eq_dyn = nanmax(eq_dyn, m_abs(F[i] - Z[(t + 1) * NZ + NU + i]));
-    cost = cost + stage_cost(o, p, z, body_terminal);
+    R c, e, f;
+    merit_stage(o, P, Z, T, t, &c, &e, &f);
+    sum.add(c, e, f);
   }
-  TMPC_UNROLL for (int i = 0; i < NX; ++i)
-    eq_init = nanmax(eq_init, m_abs(x0[i] - Z[NU + i]));
-  const R eq = nanmax(eq_dyn, eq_init);
-  const bool ok = finite(cost) && z_finite;
-  *merit_out = ok ? cost + R(o.rt[RT_MERIT_W]) * eq : R(INFINITY);
-  *cost_out = cost;
-  *eq_out = eq;
+  sum.finish(o, initial_defect(x0, Z), merit_out, cost_out, eq_out);
+}
+
+// The merit terms with one lane group: lane t takes stage t, lane 0 the
+// initial defect; `red` holds 3 n + 1 reals (n >= T) for the partials,
+// which uniform code combines in stage order. Every lane returns the terms.
+template <typename R>
+TMPC_WARP void merit_warp(const warp::Lanes& lanes, const Ocp& o,
+                          const Col<const R>& P, const Col<const R>& x0,
+                          const Col<const R>& Z, int T, R* red, int n,
+                          R* merit_out, R* cost_out, R* eq_out) {
+  lanes.run([&](int l) {
+    for (int t = l; t < T; t += warp::WIDTH)
+      merit_stage(o, P, Z, T, t, red + t, red + n + t, red + 2 * n + t);
+    if (l == 0) red[3 * n] = initial_defect(x0, Z);
+  });
+  MeritSum<R> sum;
+  for (int t = 0; t < T; ++t) sum.add(red[t], red[n + t], red[2 * n + t]);
+  sum.finish(o, red[3 * n], merit_out, cost_out, eq_out);
 }
 
 #undef TMPC_JET

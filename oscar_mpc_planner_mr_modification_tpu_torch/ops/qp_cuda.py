@@ -13,8 +13,10 @@ stationarity term) or on a NaN step, and no best-iterate tracking.
 
 Three entries, all on the kernel ``csrc/qp_ip.cu`` (built with nvcc for
 ``sm_90a`` at first use, loaded with ctypes, launched on the current
-stream) for CUDA tensors and on :func:`ip_solve_reference` for CPU tensors;
-none falls back: a kernel that fails to build or launch raises.
+stream; one warp per problem, its state in shared memory) for CUDA tensors
+and on :func:`ip_solve_reference` for CPU tensors; none falls back: a
+kernel that fails to build or launch raises, and so does an (nx, nu) the
+kernel is not compiled for (``INSTANTIATED``).
 
 - :func:`solve_qp_batched`: batch-major tensors, cold start, z out.
 - :func:`solve_qp_batched_duals`: the same, plus the final multipliers, and
@@ -24,16 +26,18 @@ none falls back: a kernel that fails to build or launch raises.
   buffers, which it reads with no copy), cold start, z out.
 
 :func:`ip_solve_reference` is the plain PyTorch version of the iteration,
-batched over the leading axis. ``launches``, ``duals_launches`` and
+batched over the leading axis. :func:`host_solve_qp_fields` runs the
+kernel's own per-problem code compiled for the host
+(``csrc/tmpc_ocp_host.cpp``, 32 emulated lanes per problem), for the CPU
+tests. ``launches``, ``duals_launches`` and
 ``lanes_launches`` count the kernel launches of the three entries;
 ``warm_launches`` counts the duals entry's launches with a warm start.
 
 Row structure: ``row_meta`` tags each row ``("box", col, sign)`` for a one-hot
 variable bound, or ``("h", slot)`` for a generic row. Generic rows are dense:
 every column counts, which is exact because D is 0 off a row's support. The
-kernel takes the rows, their (D column, z column) pairs and the (T, m) stage
-mask as small device tables, so a later pass that finds each row's column
-support needs no kernel change.
+kernel takes the row table and the (T, m) stage mask as small device tables;
+it reads a generic row's D slot as dense over z, as ``row_meta`` builds it.
 """
 
 from __future__ import annotations
@@ -67,21 +71,23 @@ KERNELS = {"qp_ip": "qp_ip.cu", "sqp_fused": "sqp_fused.cu",
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_MAX_NX, _MAX_NU = 8, 3
-_RK_W = 6  # ints per row in the kernel's row table
+_MAX_NU = 3  # the plain version's closed-form SPD inverse
+#: (nx, nu) pairs the kernels are compiled for (template instantiations of
+#: ``csrc/qp_ip.cu``): the port's ContouringSecondOrderUnicycleModel. A model
+#: with other sizes adds an instantiation there and here.
+INSTANTIATED = ((5, 2),)
 
 
 # ---------------------------------------------------------------------------
 # Row structure (shared by the kernel and the plain version)
 # ---------------------------------------------------------------------------
-def _compact_row_meta(row_meta, nz, m):
-    """``(row_meta, h_rows)``: each generic row re-mapped to its slot in the
-    compacted D storage, with its (D column, z column) pairs (all of them)."""
+def _compact_row_meta(row_meta, m):
+    """``(row_meta, h_rows)``: each generic row re-mapped to ``("h", slot)``,
+    its slot in the compacted D storage."""
     if row_meta is None:
         row_meta = tuple(("h", r) for r in range(m))
     h_rows = tuple(r for r, meta in enumerate(row_meta) if meta[0] == "h")
-    pairs = tuple((col, col) for col in range(nz))
-    row_meta = tuple(("h", h_rows.index(r), pairs) if meta[0] == "h" else meta
+    row_meta = tuple(("h", h_rows.index(r)) if meta[0] == "h" else meta
                      for r, meta in enumerate(row_meta))
     return row_meta, h_rows
 
@@ -94,7 +100,7 @@ class _Rows(NamedTuple):
     n_act: float  # max(number of active (stage, row) pairs, 1)
 
 
-def _rows(row_mask, row_meta, T, m, nz) -> _Rows:
+def _rows(row_mask, row_meta, T, m) -> _Rows:
     if isinstance(row_mask, torch.Tensor):
         row_mask = row_mask.detach().cpu().numpy()
     mask = np.asarray(row_mask, dtype=np.float64)
@@ -111,7 +117,7 @@ def _rows(row_mask, row_meta, T, m, nz) -> _Rows:
         row_meta = tuple(tuple(meta) for meta in row_meta)
         if len(row_meta) != m:
             raise ValueError(f"row_meta has {len(row_meta)} rows, D has {m}")
-    meta_c, h_rows = _compact_row_meta(row_meta, nz, m)
+    meta_c, h_rows = _compact_row_meta(row_meta, m)
     active = tuple(r for r in range(m) if mask[:, r].any())
     return _Rows(meta_c, h_rows, mask, active,
                  max(float(mask.sum()), 1.0))
@@ -132,6 +138,13 @@ def _generic_D(D, rows: _Rows):
         Bt, T, _, nz = D.shape
         return torch.zeros((Bt, T, 1, nz), dtype=D.dtype, device=D.device)
     return D.index_select(2, torch.as_tensor(rows.h_rows, device=D.device))
+
+
+def check_instantiated(nx: int, nu: int):
+    """Raise ``ValueError`` unless the kernels are compiled for (nx, nu)."""
+    if (nx, nu) not in INSTANTIATED:
+        raise ValueError(f"the QP kernel is compiled for (nx, nu) in "
+                         f"{INSTANTIATED}, not ({nx}, {nu})")
 
 
 def _check_inputs(H, g, A, B, c, D, e, r0, nu):
@@ -233,7 +246,7 @@ def _solve_vec(fact, gbar, A, B, rd, r0_res, nu):
 
 def _row_matrix(D_h, rows: _Rows, nz):
     """Dense (Bt, T, R, nz) coefficients of the active rows: +-1 at a box
-    row's column, the supported D entries of a generic row, 0 elsewhere."""
+    row's column and 0 elsewhere, a generic row's D slot."""
     Bt, T = D_h.shape[:2]
     G = torch.zeros((Bt, T, len(rows.active), nz), dtype=D_h.dtype,
                     device=D_h.device)
@@ -242,8 +255,7 @@ def _row_matrix(D_h, rows: _Rows, nz):
         if meta[0] == "box":
             G[:, :, i, meta[1]] = float(meta[2])
         else:
-            for u, col in meta[2]:
-                G[:, :, i, col] = D_h[:, :, meta[1], u]
+            G[:, :, i, :] = D_h[:, :, meta[1], :]
     return G
 
 
@@ -380,7 +392,7 @@ def ip_solve_reference(H, g, A, B, c, D, e, row_mask, r0, *, nu: int,
     if lam0 is not None and tuple(lam0.shape) != tuple(e.shape):
         raise ValueError(f"lam0 must be {tuple(e.shape)}, got "
                          f"{tuple(lam0.shape)}")
-    rows = _rows(row_mask, row_meta, T, D.shape[2], nz)
+    rows = _rows(row_mask, row_meta, T, D.shape[2])
     D, e = _padded_rows(D, e)
     # The kernel reads H from its upper triangle.
     Hs = torch.triu(H) + torch.triu(H, diagonal=1).transpose(-1, -2)
@@ -462,39 +474,68 @@ def build(name: str = "qp_ip") -> BuildInfo:
     return build_all((name,))[name]
 
 
+def _bind_qp(lib, suffixes):
+    """Argument types of the QP entries (kernel or host build)."""
+    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for name, n_ptr in (("qp_ip_solve", 11), ("qp_ip_solve_duals", 13)):
+        for suffix in suffixes:
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = [ptr] * n_ptr + [i32] * 8 + [f64] * 7 + [ptr]
+            fn.restype = i32
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = ctypes.CDLL(build("qp_ip").path)
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.qp_ip_scratch_fields.argtypes = [i32] * 5
-    lib.qp_ip_scratch_fields.restype = i32
-    for name, n_ptr in (("qp_ip_solve", 13), ("qp_ip_solve_duals", 15)):
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, name + suffix)
-            fn.argtypes = [ptr] * n_ptr + [i32] * 10 + [f64] * 7 + [ptr]
-            fn.restype = i32
+    _bind_qp(lib, ("_f32", "_f64"))
+    lib.qp_ip_launch_info.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.qp_ip_launch_info.restype = None
     return lib
+
+
+#: Fields of a launch plan (``csrc/warp.cuh::plan_out``).
+PLAN_FIELDS = ("warps_per_block", "smem_bytes_per_block", "problems_per_sm",
+               "registers", "local_bytes", "err")
+
+
+def launch_info(dtype, duals, T, m, mhp, nx, nu) -> dict:
+    """How the QP kernel launches at these sizes, on the current device:
+    warps (= problems) per block, dynamic shared memory per block, problems
+    resident per SM (the occupancy API), registers and local memory per
+    thread (``PLAN_FIELDS``)."""
+    check_instantiated(nx, nu)
+    out = (ctypes.c_int * 6)()
+    _library().qp_ip_launch_info(int(dtype == torch.float64), int(duals), T,
+                                 m, mhp, nx, nu, out)
+    return dict(zip(PLAN_FIELDS, out))
+
+
+def _launch_error(entry, err):
+    if err == -2:
+        return RuntimeError(f"{entry}: one problem's shared-memory footprint "
+                            "exceeds what a block may use on this card")
+    if err == -3:
+        return ValueError(f"{entry}: no kernel instantiation for these "
+                          "(nx, nu)")
+    return RuntimeError(f"{entry} kernel launch failed with error {err}")
 
 
 @functools.lru_cache(maxsize=64)
 def _row_tables(rows_key, T, m, dtype, device):
     """Device tables of the row structure: stage mask (T*m,) in the QP
-    dtype, the per-row int table (m, 6) and the (D column, z column) pairs."""
+    dtype and the per-row int table (m, 4): kind (0 box, 1 generic),
+    active, box column or generic D slot, box sign."""
     row_meta, mask_bytes, active = rows_key
     mask = np.frombuffer(mask_bytes, dtype=np.float64).reshape(T, m).copy()
-    table, pairs = [], []
+    table = []
     for r, meta in enumerate(row_meta):
         act = int(r in active)
         if meta[0] == "box":
-            table.append([0, act, int(meta[1]), int(np.sign(meta[2])), 0, 0])
+            table.append([0, act, int(meta[1]), int(np.sign(meta[2]))])
         else:
-            begin = len(pairs)
-            pairs.extend([int(u), int(col)] for u, col in meta[2])
-            table.append([1, act, int(meta[1]), 1, begin, len(pairs)])
-    pairs = pairs or [[0, 0]]
+            table.append([1, act, int(meta[1]), 1])
     return (torch.as_tensor(mask.reshape(-1), dtype=dtype, device=device),
-            torch.as_tensor(table, dtype=torch.int32, device=device),
-            torch.as_tensor(pairs, dtype=torch.int32, device=device))
+            torch.as_tensor(table, dtype=torch.int32, device=device))
 
 
 def _lanes(x, Bt):
@@ -521,34 +562,36 @@ class QPFields(NamedTuple):
 
 def _launch(entry, fields: QPFields, rows: _Rows, *, T, nz, nx, nu, n_iters,
             mu0, mu_min, tau, w_max, s_floor, tol_freeze, lam0=None,
-            lam_out=None):
-    """Launch one kernel entry on field-major inputs; returns z (T*nz, Bt)."""
-    if nx > _MAX_NX:
-        raise NotImplementedError(f"the kernel handles nx <= {_MAX_NX}, got {nx}")
+            lam_out=None, lib=None):
+    """Launch one kernel entry on field-major inputs; returns z (T*nz, Bt).
+    CPU tensors run the entry of ``lib``, a host build with the kernel's
+    entries (the stream argument is then null)."""
+    check_instantiated(nx, nu)
     Bt = fields.g.shape[1]
     m = fields.e.shape[0] // T
     dev, dtype = fields.g.device, fields.g.dtype
-    mask_t, table_t, pairs_t = _row_tables(
+    mask_t, table_t = _row_tables(
         (rows.row_meta, rows.stage_mask.tobytes(), rows.active), T, m, dtype,
         dev)
-    lib = _library()
     z = torch.empty((T * nz, Bt), dtype=dtype, device=dev)
-    scratch = torch.empty((lib.qp_ip_scratch_fields(T, nz, nx, nu, m), Bt),
-                          dtype=dtype, device=dev)
     duals = [] if lam_out is None else [lam0, lam_out]
-    tensors = [*fields, mask_t, table_t, pairs_t, z, *duals, scratch]
+    tensors = [*fields, mask_t, table_t, z, *duals]
     if not all(t is None or (t.is_contiguous() and t.device == dev)
                for t in tensors):
         raise ValueError("kernel buffers must be contiguous and on one device")
-    fn = getattr(lib, f"{entry}_{'f64' if dtype == torch.float64 else 'f32'}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[None if t is None else t.data_ptr() for t in tensors], Bt,
-                 T, nz, nx, nu, m, fields.D.shape[0] // (T * nz), nz,
-                 int(bool(rows.active)), n_iters, mu0, mu_min, tau, w_max,
-                 s_floor, tol_freeze, rows.n_act, stream)
+    args = ([None if t is None else t.data_ptr() for t in tensors]
+            + [Bt, T, nx, nu, m, fields.D.shape[0] // (T * nz),
+               int(bool(rows.active)), n_iters, mu0, mu_min, tau, w_max,
+               s_floor, tol_freeze, rows.n_act])
+    suffix = "_f64" if dtype == torch.float64 else "_f32"
+    if dev.type == "cpu":
+        err = getattr(lib, entry + "_host" + suffix)(*args, None)
+    else:
+        fn = getattr(_library(), entry + suffix)
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed with error {err}")
+        raise _launch_error(entry, err)
     return z
 
 
@@ -589,7 +632,7 @@ def solve_qp_batched(H, g, A, B, c, D, e, row_mask, r0, *, nu: int,
     _cuda_device(H, "solve_qp_batched")
     _check_inputs(H, g, A, B, c, D, e, r0, nu)
     Bt, T, nz, _ = H.shape
-    rows = _rows(row_mask, row_meta, T, D.shape[2], nz)
+    rows = _rows(row_mask, row_meta, T, D.shape[2])
     D, e = _padded_rows(D, e)
     z = _launch("qp_ip_solve", _batch_fields(H, g, A, B, c, D, e, r0, rows),
                 rows, T=T, nz=nz, nx=nz - nu, nu=nu, **kw)
@@ -627,7 +670,7 @@ def solve_qp_batched_duals(H, g, A, B, c, D, e, row_mask, r0, *, nu: int,
             raise ValueError(f"lam0 must be {(Bt, T, m)} {H.dtype}, got "
                              f"{tuple(lam0.shape)} {lam0.dtype}")
         lam0 = _lanes(lam0, Bt)
-    rows = _rows(row_mask, row_meta, T, m, nz)
+    rows = _rows(row_mask, row_meta, T, m)
     lam = torch.empty((T * m, Bt), dtype=H.dtype, device=H.device)
     z = _launch("qp_ip_solve_duals",
                 _batch_fields(H, g, A, B, c, D, e, r0, rows), rows, T=T,
@@ -670,7 +713,7 @@ def _fields_rows(fields: QPFields, stage_mask, nu, row_meta):
     if m == 0:
         # One all-masked row: the solve reduces to one exact Riccati pass.
         fields = fields._replace(e=fields.g.new_ones((T, fields.g.shape[1])))
-    rows = _rows(stage_mask, row_meta, T, m, nz)
+    rows = _rows(stage_mask, row_meta, T, m)
     if mhp != max(len(rows.h_rows), 1):
         raise ValueError(f"D must carry the {len(rows.h_rows)} generic rows "
                          f"(at least one slot), got {mhp}")
@@ -752,3 +795,73 @@ def solve_qp_lanes(lane_qp, stage_mask, *, nu: int, n_iters: int = 12,
         tau=tau, w_max=w_max, s_floor=s_floor, tol_freeze=tol_freeze,
         row_meta=row_meta)
     return z.reshape(T, nz, Bt)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' per-problem code on the host (CPU tests)
+# ---------------------------------------------------------------------------
+_HOST_SRC = _CSRC / "tmpc_ocp_host.cpp"
+_HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+
+
+def host_compiler():
+    """The C++ compiler for :func:`build_host`, or None."""
+    for cand in (os.environ.get("CXX"), "g++", "c++", "clang++"):
+        if cand and shutil.which(cand):
+            return shutil.which(cand)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def build_host() -> str:
+    """Compile ``csrc/tmpc_ocp_host.cpp`` (the kernels' per-problem code for
+    the host) into ``build/torch_kernels/``; reuse an unchanged build."""
+    cxx = host_compiler()
+    if cxx is None:
+        raise RuntimeError("no C++ compiler found (set CXX)")
+    out = _BUILD_DIR / f"libtmpc_ocp_host_{_digest(_HOST_SRC, _HOST_FLAGS)}.so"
+    if not out.is_file():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *_HOST_FLAGS, "-o", str(tmp),
+                               str(_HOST_SRC)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    return str(out)
+
+
+@functools.lru_cache(maxsize=None)
+def host_library():
+    """The host build, loaded, with the QP entries bound (``qp_ip_solve*_host_f64``:
+    the kernel's entries with the kernel's arguments, f64)."""
+    lib = ctypes.CDLL(build_host())
+    _bind_qp(lib, ("_host_f64",))
+    return lib
+
+
+def host_solve_qp_fields(fields: QPFields, stage_mask, *, nu: int,
+                         lam0=None, duals_out: bool = False,
+                         n_iters: int = 12, mu0: float = 1e2,
+                         mu_min: float = 1e-6, tau: float = 0.995,
+                         w_max: float = 1e6, s_floor: float = 1e-10,
+                         tol_freeze: float = 1e-5, row_meta=None):
+    """The QP kernel's entries run by its per-problem code compiled for the
+    host, 32 emulated lanes per problem (f64 CPU :class:`QPFields`, the
+    kernel's layout): cold and z-only, or with ``duals_out`` / ``lam0``
+    (T*m, Bt) the duals entry. Returns z (T*nz, Bt), and with
+    ``duals_out`` the multipliers (T*m, Bt)."""
+    if fields.g.dtype != torch.float64 or fields.g.device.type != "cpu":
+        raise ValueError("the host build runs f64 CPU tensors")
+    fields, rows, (T, nz, nx, m, _) = _fields_rows(fields, stage_mask, nu,
+                                                   row_meta)
+    kw = dict(T=T, nz=nz, nx=nx, nu=nu, n_iters=n_iters, mu0=mu0,
+              mu_min=mu_min, tau=tau, w_max=w_max, s_floor=s_floor,
+              tol_freeze=tol_freeze, lib=host_library())
+    if not (duals_out or lam0 is not None):
+        return _launch("qp_ip_solve", fields, rows, **kw)
+    lam = torch.empty((T * m, fields.g.shape[1]), dtype=torch.float64)
+    z = _launch("qp_ip_solve_duals", fields, rows, lam0=lam0, lam_out=lam,
+                **kw)
+    return (z, lam) if duals_out else z

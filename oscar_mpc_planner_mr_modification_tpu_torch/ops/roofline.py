@@ -12,7 +12,8 @@ plain version twice; :func:`fma_roof_emulated` rounds as the kernel does.
 ``launches`` counts kernel launches.
 
 :func:`ip_iter_flops` counts the operations of one iteration of the QP
-kernels' interior-point code. :func:`bound_ms` is the least time the card
+kernels' interior-point code; ``LIN_FLOPS`` and ``MERIT_FLOPS`` are the
+fused kernel's own counts of a linearization and a merit evaluation. :func:`bound_ms` is the least time the card
 could take for a given work:
 the larger of bytes over the memory rate and operations over the FP32 rate,
 both the published H100 SXM figures at its 700 W limit.
@@ -54,12 +55,18 @@ ALGO_FLOPS_PER_PROBLEM = 2.7563e6
 #: the bench OCP's row structure (tests/test_torch_roofline.py recomputes it).
 IP_ITER_FLOPS = 90662
 
-#: Algorithmic FLOPs of one linearization per problem at the bench shape
-#: (N=20, the bench OCP): the QP fields and the merit terms, XLA cost
-#: analysis of the JAX ``ops/linearize.py::make_lane_linearizer`` plus
-#: ``make_lane_merit`` on the CPU (1.0230e6 + 1.95e4; tests/test_torch_roofline.py
-#: repeats it).
-LIN_FLOPS = 1.0425e6
+#: Operations of one linearization (every QP field) per problem at the bench
+#: OCP (N=20): ``csrc/tmpc_ocp.cuh::linearize_warp`` run on the host by
+#: ``csrc/qp_ip_count.cpp`` with a counting scalar type (each sqrt, exp,
+#: sin, cos, atan2 and fmod counts 1; 1627 of them), the same on every
+#: problem of the bench fleet. XLA's count of the JAX lane linearizer is
+#: about 6x larger (it differentiates by jacfwd over jacrev, the kernel by
+#: forward-mode jets with a packed Hessian triangle).
+#: tests/test_torch_roofline.py recomputes it.
+LIN_FLOPS = 162321
+#: Operations of one evaluation of the merit terms (cost, dynamics defects)
+#: per problem at the bench OCP, counted the same way (``merit_warp``).
+MERIT_FLOPS = 27822
 
 
 def fma_flops(n: int) -> float:
@@ -110,13 +117,21 @@ def ip_flops(n_problems: int, n_iters: int) -> float:
 
 
 def sqp_flops(n_problems: int, schedule) -> float:
-    """Algorithmic FLOPs of one fleet solve on the schedule: one
-    linearization per SQP iteration and every interior-point iteration.
-    ``ALGO_FLOPS_PER_PROBLEM`` (the JAX bench's convention) counts each
-    phase's IP loop once and comes out about 2.3x lower."""
+    """Operations of one fused fleet solve on the schedule, as the bench
+    runs it (``track_best=False``): one linearization per SQP iteration,
+    every interior-point iteration, and the merit terms of the returned
+    iterate. ``ALGO_FLOPS_PER_PROBLEM`` (the JAX bench's convention: XLA's
+    counts, each phase's IP loop once) is a different count that happens to
+    land within 5% of this one."""
     n_lin = sum(n_sqp for n_sqp, _ in schedule)
     n_ip = sum(n_sqp * n_qp for n_sqp, n_qp in schedule)
-    return (LIN_FLOPS * n_lin + IP_ITER_FLOPS * n_ip) * n_problems
+    return (LIN_FLOPS * n_lin + MERIT_FLOPS + IP_ITER_FLOPS * n_ip) * n_problems
+
+
+def lin_flops(n_problems: int) -> float:
+    """Operations of one launch of the linearize entry: the QP fields and
+    the merit terms of every problem."""
+    return (LIN_FLOPS + MERIT_FLOPS) * n_problems
 
 
 def qp_bytes(T, nx, nu, m, mh, n_problems, itemsize, lam_in=False,

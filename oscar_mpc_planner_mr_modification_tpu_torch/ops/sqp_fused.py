@@ -11,7 +11,8 @@ with ``track_best`` it keeps the best iterate by merit.
 
 - :func:`make_fused_fleet_solver` builds ``solve(all_params, xinit, z_init)
   -> SQPResult``. For CUDA tensors it launches the kernel (built with nvcc
-  for ``sm_90a`` at first use, loaded with ctypes); for CPU tensors it runs
+  for ``sm_90a`` at first use, loaded with ctypes; one warp per problem,
+  its state in shared memory); for CPU tensors it runs
   :func:`fused_fleet_reference`. It never falls back: an OCP the kernel's
   header does not cover raises ``NotImplementedError`` and
   ``regularization="mirror"`` raises ``ValueError`` when the solver is
@@ -26,7 +27,8 @@ with ``track_best`` it keeps the best iterate by merit.
   :func:`linearize` unpacks the buffer so that its derivatives can be checked
   field by field. :func:`linearize_reference` is their plain version and
   :func:`host_linearize` runs the same header compiled for the host with a
-  C++ compiler.
+  C++ compiler (stage after stage, or as the linearize entry's lane group);
+  ``solve.host`` runs the kernel's per-problem code on the host.
 - ``launches`` counts solve launches, ``linearize_launches`` linearize
   launches and ``merit_launches`` merit-only launches.
 
@@ -42,9 +44,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
 from typing import NamedTuple
 
 import numpy as np
@@ -346,24 +345,47 @@ def fused_fleet_reference(mach, config: SQPConfig, P, xinit, Z):
 # ---------------------------------------------------------------------------
 # The kernel: bind, launch
 # ---------------------------------------------------------------------------
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(qp_cuda.build("sqp_fused").path)
+def _bind(lib, suffixes):
+    """Argument types of the solve and linearize entries (kernel or host
+    build)."""
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.tmpc_qp_layout.argtypes = [i32, i32, i32, ptr]
     lib.tmpc_qp_layout.restype = None
-    lib.sqp_fused_scratch_fields.argtypes = [i32] * 3
-    lib.sqp_fused_scratch_fields.restype = i32
-    for name in ("sqp_fused_solve_f32", "sqp_fused_solve_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 11 + [i32] * 8 + [f64] * 7 + [ptr]
+    for suffix in suffixes:
+        fn = getattr(lib, "sqp_fused_solve" + suffix)
+        fn.argtypes = [ptr] * 9 + [i32] * 8 + [f64] * 7 + [ptr]
         fn.restype = i32
-    for name in ("sqp_fused_linearize_f32", "sqp_fused_linearize_f64"):
-        fn = getattr(lib, name)
+        fn = getattr(lib, "sqp_fused_linearize" + suffix)
         fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         fn.restype = i32
     _check_layout(lib)
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = _bind(ctypes.CDLL(qp_cuda.build("sqp_fused").path), ("_f32", "_f64"))
+    lib.sqp_fused_launch_info.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p] * 2
+    lib.sqp_fused_launch_info.restype = None
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _host_library():
+    return _bind(ctypes.CDLL(qp_cuda.build_host()), ("_host_f64",))
+
+
+def launch_info(dtype, tables: OcpTables) -> tuple:
+    """How the solve kernel and the linearize entry launch at the tables'
+    sizes, on the current device: two dicts of ``qp_cuda.PLAN_FIELDS``
+    (warps per block, shared memory per block, problems resident per SM,
+    registers and local memory per thread)."""
+    solve, lin = (ctypes.c_int * 6)(), (ctypes.c_int * 6)()
+    _library().sqp_fused_launch_info(int(dtype == torch.float64), tables.T,
+                                     tables.m, tables.mh, solve, lin)
+    return (dict(zip(qp_cuda.PLAN_FIELDS, solve)),
+            dict(zip(qp_cuda.PLAN_FIELDS, lin)))
 
 
 def _check_layout(lib):
@@ -384,6 +406,12 @@ def _device_tables(tables: OcpTables, device):
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_host(*tensors):
+    if not all(t.device.type == "cpu" and t.is_contiguous()
+               and t.dtype == torch.float64 for t in tensors):
+        raise ValueError("the host build runs contiguous f64 CPU tensors")
 
 
 def _check_cuda(*tensors):
@@ -409,7 +437,8 @@ def _shapes(tables, P, xinit, Z):
     return B
 
 
-def _linearize_launch(tables: OcpTables, P_f, x_f, Z_f, with_qp: bool):
+def _linearize_launch(tables: OcpTables, P_f, x_f, Z_f, with_qp: bool,
+                      host=False):
     B = Z_f.shape[1]
     want = {"P": (tables.npar * tables.T, B), "xinit": (_NX, B),
             "Z": (tables.T * _NZ, B)}
@@ -418,18 +447,24 @@ def _linearize_launch(tables: OcpTables, P_f, x_f, Z_f, with_qp: bool):
             raise ValueError(f"{name} must be {want[name]} {Z_f.dtype}, got "
                              f"{tuple(x.shape)} {x.dtype}")
     dev, dtype = Z_f.device, Z_f.dtype
-    lib = _library()
     itab, rtab = _device_tables(tables, dev)
     qp = (torch.empty((qp_layout(tables.T, tables.m, tables.mh)["total"], B),
                       dtype=dtype, device=dev) if with_qp else None)
     mo = torch.empty((3, B), dtype=dtype, device=dev)
-    _check_cuda(P_f, x_f, Z_f, mo, *(() if qp is None else (qp,)))
-    fn = (lib.sqp_fused_linearize_f64 if dtype == torch.float64
-          else lib.sqp_fused_linearize_f32)
-    with torch.cuda.device(dev):
-        err = fn(*[None if t is None else t.data_ptr()
-                   for t in (P_f, x_f, Z_f, qp, mo, itab, rtab)], B,
-                 tables.T, tables.m, tables.mh, tables.reg, _stream(dev))
+    bufs = (P_f, x_f, Z_f, mo, *(() if qp is None else (qp,)))
+    args = [None if t is None else t.data_ptr()
+            for t in (P_f, x_f, Z_f, qp, mo, itab, rtab)] + [
+                B, tables.T, tables.m, tables.mh, tables.reg]
+    if host:
+        _check_host(*bufs)
+        err = _host_library().sqp_fused_linearize_host_f64(*args, None)
+    else:
+        _check_cuda(*bufs)
+        lib = _library()
+        fn = (lib.sqp_fused_linearize_f64 if dtype == torch.float64
+              else lib.sqp_fused_linearize_f32)
+        with torch.cuda.device(dev):
+            err = fn(*args, _stream(dev))
     if err != 0:
         raise RuntimeError(f"sqp_fused_linearize launch failed with error {err}")
     return qp, mo
@@ -464,35 +499,40 @@ def linearize(tables: OcpTables, P, xinit, Z):
     return unpack_qp(qp, tables), mo[0], mo[1], mo[2]
 
 
-def _solve_kernel(tables, rows, config, phases, P, xinit, Z):
+def _solve_kernel(tables, rows, config, phases, P, xinit, Z, host=False):
+    """One launch of the solve kernel (CUDA tensors), or with ``host`` the
+    same entry of the host build (f64 CPU tensors)."""
     global launches
     B = _shapes(tables, P, xinit, Z)
     dev, dtype = Z.device, Z.dtype
     T, m = tables.T, tables.m
-    lib = _library()
     ins = _lanes_in(P, xinit, Z)
     itab, rtab = _device_tables(tables, dev)
-    mask_t, table_t, pairs_t = qp_cuda._row_tables(
+    mask_t, table_t = qp_cuda._row_tables(
         (rows.row_meta, rows.stage_mask.tobytes(), rows.active), T, m, dtype,
         dev)
     phases_t = torch.as_tensor(np.asarray(phases, dtype=np.int32).reshape(-1),
                                device=dev)
     out = torch.empty((T * _NZ + 2, B), dtype=dtype, device=dev)
-    scratch = torch.empty((lib.sqp_fused_scratch_fields(T, m, tables.mh), B),
-                          dtype=dtype, device=dev)
-    bufs = (*ins, out, scratch, mask_t, table_t, pairs_t, itab, rtab, phases_t)
-    _check_cuda(*bufs)
-    fn = (lib.sqp_fused_solve_f64 if dtype == torch.float64
-          else lib.sqp_fused_solve_f32)
-    with torch.cuda.device(dev):
-        err = fn(*[t.data_ptr() for t in bufs], len(phases), B, T, m,
-                 tables.mh, int(bool(rows.active)), int(config.track_best),
-                 tables.reg, _IP["mu0"], config.mu_min, _IP["tau"],
-                 config.w_max, _IP["s_floor"], _IP["tol_freeze"], rows.n_act,
-                 _stream(dev))
+    bufs = (*ins, out, mask_t, table_t, itab, rtab, phases_t)
+    args = [t.data_ptr() for t in bufs] + [
+        len(phases), B, T, m, tables.mh,
+        int(bool(rows.active)), int(config.track_best), tables.reg,
+        _IP["mu0"], config.mu_min, _IP["tau"], config.w_max, _IP["s_floor"],
+        _IP["tol_freeze"], rows.n_act]
+    if host:
+        _check_host(*ins, out)
+        err = _host_library().sqp_fused_solve_host_f64(*args, None)
+    else:
+        _check_cuda(*bufs)
+        lib = _library()
+        fn = (lib.sqp_fused_solve_f64 if dtype == torch.float64
+              else lib.sqp_fused_solve_f32)
+        with torch.cuda.device(dev):
+            err = fn(*args, _stream(dev))
     if err != 0:
         raise RuntimeError(f"sqp_fused kernel launch failed with error {err}")
-    launches += 1
+    launches += not host
     flat = out.t()
     Zo = flat[:, :T * _NZ].reshape(B, T, _NZ)
     cost, eq_res = flat[:, T * _NZ], flat[:, T * _NZ + 1]
@@ -516,8 +556,7 @@ def make_fused_fleet_solver(ocp, config: SQPConfig, *, dtype,
     tables = ocp_tables(ocp, config)
     mach = _make_machinery(ocp, config, dtype, device)
     phases = _phases_of(config)
-    rows = qp_cuda._rows(mach.stage_mask, mach.row_meta, tables.T, tables.m,
-                         _NZ)
+    rows = qp_cuda._rows(mach.stage_mask, mach.row_meta, tables.T, tables.m)
 
     def inputs(all_params, xinit, z_init):
         all_params = torch.as_tensor(all_params, dtype=dtype, device=device)
@@ -533,6 +572,9 @@ def make_fused_fleet_solver(ocp, config: SQPConfig, *, dtype,
 
     solve.reference = lambda *args: fused_fleet_reference(
         mach, config, *inputs(*args))
+    # the kernel's per-problem code compiled for the host (f64, CPU solver)
+    solve.host = lambda *args: _solve_kernel(tables, rows, config, phases,
+                                             *inputs(*args), host=True)
     solve.machinery, solve.tables = mach, tables
     return solve
 
@@ -540,51 +582,27 @@ def make_fused_fleet_solver(ocp, config: SQPConfig, *, dtype,
 # ---------------------------------------------------------------------------
 # The header on the host (CPU tests)
 # ---------------------------------------------------------------------------
-_HOST_SRC = qp_cuda._CSRC / "tmpc_ocp_host.cpp"
-_HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+host_compiler = qp_cuda.host_compiler
+build_host = qp_cuda.build_host
 
 
-def host_compiler():
-    """The C++ compiler for :func:`build_host`, or None."""
-    for cand in (os.environ.get("CXX"), "g++", "c++", "clang++"):
-        if cand and shutil.which(cand):
-            return shutil.which(cand)
-    return None
-
-
-@functools.lru_cache(maxsize=None)
-def build_host() -> str:
-    """Compile ``csrc/tmpc_ocp_host.cpp`` (the kernel's linearization header
-    for the host) into ``build/torch_kernels/``; reuse an unchanged build."""
-    cxx = host_compiler()
-    if cxx is None:
-        raise RuntimeError("no C++ compiler found (set CXX)")
-    out = qp_cuda._BUILD_DIR / (
-        f"libtmpc_ocp_host_{qp_cuda._digest(_HOST_SRC, _HOST_FLAGS)}.so")
-    if not out.is_file():
-        qp_cuda._BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([cxx, *_HOST_FLAGS, "-o", str(tmp),
-                               str(_HOST_SRC)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{cxx} failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    return str(out)
-
-
-def host_linearize(tables: OcpTables, P, xinit, Z):
+def host_linearize(tables: OcpTables, P, xinit, Z, lanes: bool = False):
     """:func:`linearize` run by the header compiled for the host (f64, CPU
-    tensors or arrays). Returns ``(QPData, merit, cost, eq_res)``."""
+    tensors or arrays): stage after stage, or with ``lanes`` through the
+    linearize entry's lane-group code (32 emulated lanes per problem).
+    Returns ``(QPData, merit, cost, eq_res)``."""
+    f64 = functools.partial(torch.as_tensor, dtype=torch.float64)
+    P, xinit, Z = f64(P), f64(xinit), f64(Z)
+    B = _shapes(tables, P, xinit, Z)
+    ins = _lanes_in(P, xinit, Z)
+    if lanes:
+        qp, mo = _linearize_launch(tables, *ins, with_qp=True, host=True)
+        return unpack_qp(qp, tables), mo[0], mo[1], mo[2]
     lib = ctypes.CDLL(build_host())
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn = lib.tmpc_host_linearize_f64
     fn.argtypes = [ptr] * 7 + [i32] * 5
     fn.restype = None
-    f64 = functools.partial(torch.as_tensor, dtype=torch.float64)
-    P, xinit, Z = f64(P), f64(xinit), f64(Z)
-    B = _shapes(tables, P, xinit, Z)
-    ins = _lanes_in(P, xinit, Z)
     qp = torch.empty((qp_layout(tables.T, tables.m, tables.mh)["total"], B),
                      dtype=torch.float64)
     mo = torch.empty((3, B), dtype=torch.float64)

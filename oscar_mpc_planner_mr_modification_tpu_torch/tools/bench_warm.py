@@ -11,7 +11,12 @@ previous QPs' multipliers). Prints one JSON line: per variant the step's ms
 success, and against the cold variant the ``any_success`` agreement and the
 p99 of the relative cost difference, per problem where both solved it (as
 the JAX tool) and per plan on the best cost, with the card's name and power
-limit. ``BENCH_BATCH`` and ``BENCH_N`` override the fleet
+limit. ``split_ms`` splits one more step of each variant by where the time
+goes: the host's ``torch.func`` linearization (``build_qp``, and
+``merit_of`` with best-iterate tracking), the QP kernel's calls
+(``solve_qp_batched`` / ``solve_qp_batched_duals``, wrapper and kernel), and
+the rest, each part timed on the host clock with the device synchronized
+before and after it. ``BENCH_BATCH`` and ``BENCH_N`` override the fleet
 size. Without a CUDA device it exits with code 2.
 """
 
@@ -19,9 +24,11 @@ from __future__ import annotations
 
 import json
 import os
+import time
 
 import torch
 
+from ..ops import qp_cuda
 from ..ops.sqp import SQPConfig
 from .common import (BENCH_BATCH, BENCH_N, bench_fleet, card_line,
                      cuda_time_ms, require_card)
@@ -56,6 +63,46 @@ def against(out, ref) -> dict:
                                      out.any_success & ref.any_success)}
 
 
+def split(step, args) -> dict:
+    """ms of one step and of its parts: ``build_qp``, ``merit_of``, ``qp``
+    (the QP kernel's calls) and ``rest``; ``calls`` counts each part."""
+    mach = step.fleet_solve.machinery
+    ms = dict.fromkeys(("build_qp", "merit_of", "qp"), 0.0)
+    calls = dict.fromkeys(ms, 0)
+
+    def timed(part, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            ms[part] += (time.perf_counter() - t0) * 1e3
+            calls[part] += 1
+            return out
+        return run
+
+    saved = {name: getattr(mach, name) for name in ("build_qp", "merit_of")}
+    saved_qp = {name: getattr(qp_cuda, name)
+                for name in ("solve_qp_batched", "solve_qp_batched_duals")}
+    try:
+        for name, fn in saved.items():
+            setattr(mach, name, timed(name, fn))
+        for name, fn in saved_qp.items():
+            setattr(qp_cuda, name, timed("qp", fn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in saved.items():
+            setattr(mach, name, fn)
+        for name, fn in saved_qp.items():
+            setattr(qp_cuda, name, fn)
+    return {"step": total, **ms, "rest": total - sum(ms.values()),
+            "calls": calls}
+
+
 def main():
     from ..parallel.batch import make_batched_tmpc_step
 
@@ -71,7 +118,8 @@ def main():
                                       backend="pallas")
         out = step(*args)
         ms, _ = cuda_time_ms(lambda: step(*args), reps=3, warmup=0)
-        row = {"ms": ms, "plans_per_s": B / ms * 1e3, **summary(out)}
+        row = {"ms": ms, "plans_per_s": B / ms * 1e3, **summary(out),
+               "split_ms": split(step, args)}
         if ref is None:
             ref = out
         else:

@@ -12,6 +12,16 @@ import torch
 BENCH_SCHEDULE = ((1, 3), (1, 5), (2, 8))
 BENCH_BATCH, BENCH_N, BENCH_PATHS = 512, 20, 8
 
+#: The f64 gates that hold a kernel entry to its plain version
+#: (``chip_smoke.py``, ``tools/kernel_check.py``): the QP kernel's z (and
+#: lam) within ``QP_F64_GATE * (1 + max|ref|)``; the in-kernel linearization
+#: within ``LIN_F64_RTOL`` / ``LIN_F64_ATOL`` on every field; the fused
+#: kernel's iterate within ``FUSED_F64_GATE * (1 + max|ref|)`` per problem,
+#: with the same success mask.
+QP_F64_GATE = 1e-8
+LIN_F64_RTOL, LIN_F64_ATOL = 1e-9, 1e-10
+FUSED_F64_GATE = 1e-6
+
 
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""

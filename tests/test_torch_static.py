@@ -25,10 +25,11 @@ def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
     assert {"csrc/qp_ip.cu", "csrc/qp_ip.cuh", "csrc/sqp_fused.cu",
             "csrc/tmpc_ocp.cuh", "csrc/tmpc_ocp_host.cpp", "csrc/fma_roof.cu",
-            "csrc/qp_ip_count.cpp",
+            "csrc/qp_ip_count.cpp", "csrc/warp.cuh", "csrc/sqp_fused.cuh",
             "ops/qp_cuda.py", "ops/sqp.py", "ops/sqp_fused.py",
             "ops/linearize.py", "ops/roofline.py", "parallel/batch.py",
-            "tools/bench_roofline.py", "tools/bench_warm.py"} <= names
+            "tools/bench_roofline.py", "tools/bench_warm.py",
+            "tools/kernel_check.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
