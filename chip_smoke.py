@@ -25,13 +25,24 @@ linearize and one QP launch per SQP iteration); holds them against each
 other and against the plain paths. Times the steps and kernels against their
 plain versions with CUDA events, profiles the fused and lane steps, measures
 the FP32 roof and the matmul ceilings (tools/bench_roofline.py) and the
-achieved FLOP/s against them. Any failed phase raises, so the script exits
+achieved FLOP/s against them. Then drives the single-robot planner tick of
+bench.py::_e2e_tick (Planner -> TMPCOptimizer -> one B2 launch per tick; 5
+planners, N=20, f32, 12 crossing pedestrians on a 65 m path, simulated
+clock): 124 serial and 124 pipelined ticks on the scene of bench.py's
+serial loop, and 124 pipelined on the timing of its pipelined loop, each
+run with the launch counts set to 0 just before it; checks one B2 launch
+and no other per tick, the fused backend, the C++ guidance PRM and
+H-signature, success, progress and (on the first two) clearance to the
+pedestrians; holds B2 at the tick's shape against its plain version and
+times the ticks, the host share, B2 and the PRM, and profiles three pipelined
+ticks. Any failed phase raises, so the script exits
 non-zero and prints no result. The last line is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 each with its bound. Needs one CUDA device; without one it exits with code 2.
 """
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -102,7 +113,7 @@ def plain_fused_solver(fleet_solve):
 
     kernel = sqp_fused._solve_kernel
     sqp_fused._solve_kernel = (
-        lambda tables, rows, config, phases, P, xinit, Z:
+        lambda tables, rows, config, consts, P, xinit, Z:
         sqp_fused.fused_fleet_reference(fleet_solve.machinery, config, P,
                                         xinit, Z))
     try:
@@ -195,6 +206,385 @@ def log_launch_plans(dev):
 def spread(times):
     """min / max of a list of ms, for the log."""
     return f"min {min(times):.3f}, max {max(times):.3f}"
+
+
+# ---------------------------------------------------------------------------
+# The planner tick (bench.py::_e2e_tick): Planner -> TMPCOptimizer -> B2
+# ---------------------------------------------------------------------------
+#: 12 crossing pedestrians spaced along the 65 m path, each walking from
+#: (x0, y0) to (x0, -y0).
+TICK_PEDESTRIANS = [(5.0, 3.0), (9.0, -3.0), (13.0, 2.5), (20.0, 3.0),
+                    (24.0, -3.0), (28.0, 2.5), (35.0, 3.0), (39.0, -3.0),
+                    (43.0, 2.5), (50.0, 3.0), (54.0, -3.0), (58.0, 2.5)]
+TICKS, TICK_SKIP, TICK_DT = 124, 4, 0.2
+#: Pipelined ticks run under torch.profiler after the timed ones.
+PROFILED_TICKS = 4
+
+
+def copy_windows(names):
+    """The device trace (op names in start order) cut at B2's launches:
+    ``(uploads, readbacks)`` per window, the first before B2's first
+    launch, the last after its last one. ``len - 1`` is the number of B2
+    launches in the trace."""
+    windows = [[0, 0]]
+    for n in names:
+        if "sqp_fused_kernel<" in n:
+            windows.append([0, 0])
+        windows[-1][0] += "HtoD" in n
+        windows[-1][1] += "DtoH" in n
+    return [tuple(w) for w in windows]
+
+
+class SimClock:
+    """The simulated clock of a tick run, advanced by dt per tick."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def build_tick_planner(dev):
+    """The tick of bench.py::_e2e_tick on ``dev`` at f32: N=20, 3 obstacles,
+    4 guided planners and 1 unguided, the bench operating point; prewarmed
+    (the kernels and the PRM library built)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        build_planner, configuration_tmpc_consistency_cost, prewarm_planner)
+    from oscar_mpc_planner_mr_modification_tpu_torch.modules import (
+        GuidanceConstraintModule)
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    settings = default_settings(N=N_MAIN, max_obstacles=3)
+    model, modules = configuration_tmpc_consistency_cost(settings)
+    clock = SimClock()
+    planner = build_planner(model, modules, settings, dtype=torch.float32,
+                            sqp_config=bench_config(), clock=clock,
+                            device=dev)
+    optimizer = next(m for m in planner.modules
+                     if isinstance(m, GuidanceConstraintModule))._optimizer
+    t = time.perf_counter()
+    prewarm_planner(planner, model, settings)
+    log(f"tick planner built and prewarmed in {time.perf_counter() - t:.2f} s")
+    return planner, model, settings, optimizer, clock
+
+
+def run_ticks(tick, pipelined, capture_at=None, profile_last=False,
+              bench_timing=False):
+    """TICKS ticks of the scenario from its start (the first TICK_SKIP not
+    timed), serial (``solve_mpc``) or pipelined (``solve_mpc_start``, the
+    next tick's pedestrians, data and ``prepare``, ``solve_mpc_finish``).
+    With ``capture_at`` the inputs dispatched at that tick are kept; with
+    ``profile_last`` PROFILED_TICKS more ticks run under torch.profiler.
+    Returns the run's records; a tick's host time is its wall time minus
+    its wait on the device (the fetch).
+
+    The serial loop of bench.py::_e2e_tick steps the pedestrians before it
+    builds a tick's data, so the planner sees them one step ahead of the
+    robot: stage k reads prediction step k-1, and stage 1 meets them where
+    they will be. Its pipelined loop builds the first tick's data before
+    any step, so every tick's data is one step older than the serial
+    loop's. A pipelined run starts from data built after one step, so that
+    both modes run the serial loop's scene; with ``bench_timing`` it starts
+    from bench.py's data instead. The clearance is taken between the robot
+    and the pedestrians at the same time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from oscar_mpc_planner_mr_modification_tpu_torch.planner.data_preparation import (  # noqa: E501
+        define_robot_area, ensure_obstacle_size)
+    from oscar_mpc_planner_mr_modification_tpu_torch.sim import (
+        Pedestrian, PedestrianSimulator)
+    from oscar_mpc_planner_mr_modification_tpu_torch.sim.roadmap import (
+        straight_path)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import State
+    from oscar_mpc_planner_mr_modification_tpu_torch.types import RealTimeData
+
+    planner, model, settings, optimizer, clock = tick
+    N = planner.solver.N
+    planner.reset()
+    clock.t = 0.0
+    state = State(model)
+    state.set("v", 0.8)
+    peds = [Pedestrian(np.array([x0, y0]), np.array([x0, -y0]))
+            for x0, y0 in TICK_PEDESTRIANS]
+    psim = PedestrianSimulator(peds, dt=TICK_DT)
+    ref = straight_path(length=65.0)
+    r_robot = float(settings["robot_radius"])
+    iv = model.state_index("v")
+
+    def build_data(st):
+        d = RealTimeData()
+        d.robot_area = define_robot_area(0.65, 0.65, 1)
+        d.reference_path = ref
+        d.dynamic_obstacles = ensure_obstacle_size(
+            psim.get_obstacles(N), st, settings["max_obstacles"], N, TICK_DT)
+        return d
+
+    last = {}
+    if capture_at is not None:
+        dispatch = optimizer._dispatch_batch
+
+        def spy(params, xinit, warm):
+            last["in"] = (params.copy(), np.array(xinit), warm.copy())
+            return dispatch(params, xinit, warm)
+
+        optimizer._dispatch_batch = spy
+
+    def one_tick(data):
+        if pipelined:
+            planner.solve_mpc_start(state, data)
+            # the pedestrians at the next tick: they stand there now on the
+            # serial loop's scene, one step from here on bench.py's
+            world = [p.position.copy() for p in peds]
+            pred = planner.predicted_next_state(state)
+            psim.step([pred.get_position()])
+            if bench_timing:
+                world = [p.position.copy() for p in peds]
+            nxt = build_data(pred)
+            planner.prepare(pred, nxt)
+            out = planner.solve_mpc_finish()
+        else:
+            psim.step([state.get_position()])
+            world = [p.position.copy() for p in peds]
+            nxt = build_data(state)
+            out = planner.solve_mpc(state, nxt)
+        a = planner.get_solution(0, "a") if out.success else -3.0
+        w = planner.get_solution(0, "w") if out.success else 0.0
+        return out, nxt, a, w, world
+
+    def advance(a, w, world):
+        x = model.discrete_dynamics(
+            torch.as_tensor(state.as_array()),
+            torch.tensor([a, w], dtype=torch.float64), TICK_DT).numpy()
+        x[iv] = max(x[iv], 0.0)
+        state.set_array(x)
+        clock.t += TICK_DT
+        return min(np.linalg.norm(state.get_position() - pos)
+                   - r_robot - p.radius for p, pos in zip(peds, world))
+
+    data = build_data(state)
+    planner.on_data_received(data, "reference_path")
+    if pipelined and not bench_timing:
+        psim.step([state.get_position()])
+        data = build_data(state)
+    x_start = state.get("x")
+    rec = {"tick_ms": [], "host_ms": [], "wait_ms": [], "success": 0,
+           "ticks": 0, "min_clearance": np.inf, "captured": None}
+    gc.collect()
+    try:
+        for i in range(TICKS):
+            gc.disable()
+            t0 = time.perf_counter()
+            out, data, a, w, world = one_tick(data)
+            wall = time.perf_counter() - t0
+            gc.enable()
+            if i >= TICK_SKIP:
+                waited = optimizer.last_fetch_wait
+                rec["tick_ms"].append(wall * 1e3)
+                rec["host_ms"].append((wall - waited) * 1e3)
+                rec["wait_ms"].append(waited * 1e3)
+            rec["success"] += bool(out.success)
+            rec["ticks"] += 1
+            rec["min_clearance"] = min(rec["min_clearance"],
+                                       advance(a, w, world))
+            if i == capture_at:
+                rec["captured"] = last["in"]
+            if i % 16 == 15:
+                gc.collect()
+        if profile_last:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILED_TICKS):
+                    out, data, a, w, world = one_tick(data)
+                    rec["ticks"] += 1
+                    rec["success"] += bool(out.success)
+                    rec["min_clearance"] = min(rec["min_clearance"],
+                                               advance(a, w, world))
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            dev_events = sorted((e for e in prof.events()
+                                 if e.device_type == DeviceType.CUDA),
+                                key=lambda e: e.time_range.start)
+            names = [e.name for e in dev_events]
+            # device busy and span from the first traced B2 launch on (the
+            # trace may have lost the ops before it, see tick_phase)
+            first = next(i for i, n in enumerate(names)
+                         if "sqp_fused_kernel<" in n)
+            spans = [(e.time_range.start, e.time_range.end)
+                     for e in dev_events[first:]]
+            busy, end = 0.0, -1.0
+            for lo, hi in spans:
+                if hi > end:
+                    busy += hi - max(lo, end)
+                    end = hi
+            rec["profile"] = {
+                "device_ops": len(dev_events), "busy_ms": busy / 1e3,
+                "span_ms": (end - spans[0][0]) / 1e3,
+                "wall_ms": wall, "windows": copy_windows(names),
+                "htod": sum("HtoD" in n for n in names),
+                "dtoh": sum("DtoH" in n for n in names),
+                "pageable": sum("Pageable" in n for n in names),
+                "kernels": sorted({n.split("(")[0][:48] for n in names})}
+    finally:
+        gc.enable()
+        optimizer.__dict__.pop("_dispatch_batch", None)
+    rec["progress_m"] = state.get("x") - x_start
+    for k in ("tick_ms", "host_ms", "wait_ms"):
+        rec[k] = np.asarray(rec[k])
+    return rec
+
+
+def tick_phase(dev, card, reset_counts, counts, none):
+    """The planner tick, serial and pipelined on the serial loop's scene,
+    and pipelined on bench.py's (the pedestrians one step older, see
+    ``run_ticks``), each run with the launch counts set to 0 just before
+    it and read just after; B2 held against its plain version at the shape
+    the tick gives it. Every run is held to one B2 launch per tick and
+    nothing else, the fused backend, the C++ PRM and H-signature, success
+    and progress; the first two to no contact with a pedestrian, the third
+    only reports its clearance (the planner meets the pedestrians where
+    they were a step before). Returns the kernel entry's numbers."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        roofline, sqp_fused)
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils.profiling import (
+        BENCHMARKERS)
+
+    tick = build_tick_planner(dev)
+    planner, _, _, optimizer, _ = tick
+    check(optimizer.fleet_backend == "fused",
+          f"tick fleet backend {optimizer.fleet_backend!r} == 'fused'")
+    gg = optimizer.global_guidance
+    check(gg.signature_backend == "cpp", f"guidance H-signature backend "
+          f"{gg.signature_backend!r} == 'cpp'")
+    P = optimizer.n_planners
+    runs = {}
+    for mode in ("serial", "pipelined", "pipelined, bench.py timing"):
+        pipelined = mode != "serial"
+        bench_timing = mode.endswith("timing")
+        BENCHMARKERS.reset()
+        reset_counts()
+        rec = run_ticks(tick, pipelined, capture_at=None if pipelined else 60,
+                        profile_last=mode == "pipelined",
+                        bench_timing=bench_timing)
+        got = counts()
+        rec["b2"] = got["sqp_fused"]
+        runs[mode] = rec
+        check(got == {**none, "sqp_fused": rec["ticks"]},
+              f"{mode} ticks: launches {got} (want one B2 launch per tick, "
+              f"{rec['ticks']}, and no other kernel)")
+        check(gg.ran_backend == "cpp",
+              f"{mode} ticks: guidance PRM backend {gg.ran_backend!r} == 'cpp'")
+        share = rec["success"] / rec["ticks"]
+        check(share >= 0.95, f"{mode} ticks: success {rec['success']}/"
+              f"{rec['ticks']} = {share:.4f} >= 0.95")
+        check(rec["progress_m"] >= 10.0, f"{mode} ticks: progress "
+              f"{rec['progress_m']:.3f} m >= 10 m along the path")
+        clearance = (f"smallest clearance to a pedestrian "
+                     f"{rec['min_clearance']:.4f} m (centre distance minus "
+                     f"robot and pedestrian radii)")
+        if bench_timing:
+            log(f"{mode} ticks (not gated): {clearance}")
+        else:
+            check(rec["min_clearance"] > 0.0, f"{mode} ticks: {clearance} > 0")
+        t_ms, h_ms, w_ms = rec["tick_ms"], rec["host_ms"], rec["wait_ms"]
+        prm = np.asarray(BENCHMARKERS.get("guidance").durations) * 1e3
+        log(f"[{card}] tick ({mode}, {len(t_ms)} timed of {rec['ticks']}, "
+            f"P={P}, N={N_MAIN}, f32): median {np.median(t_ms):.3f} ms, p99 "
+            f"{np.percentile(t_ms, 99):.3f} ms, spike share (> 1.5x median) "
+            f"{np.mean(t_ms > 1.5 * np.median(t_ms)):.4f}; host-serial "
+            f"(tick minus the fetch wait) median {np.median(h_ms):.3f} ms; "
+            f"fetch wait median {np.median(w_ms):.3f} ms; guidance PRM "
+            f"(BENCHMARKERS) median {np.median(prm):.3f} ms over {len(prm)}")
+    prof = runs["pipelined"]["profile"]
+    n = PROFILED_TICKS
+    win = prof["windows"]
+    log(f"[{card}] torch.profiler, {n} pipelined ticks (with the state "
+        f"propagation between them), wall {prof['wall_ms']:.3f} ms: "
+        f"{prof['device_ops']} device ops in the trace ({len(win) - 1} B2, "
+        f"{prof['htod']} HtoD, {prof['dtoh']} DtoH copies, "
+        f"{prof['pageable']} from pageable memory); from the first traced B2 "
+        f"launch to the last op, device busy {prof['busy_ms']:.3f} of "
+        f"{prof['span_ms']:.3f} ms, idle share "
+        f"{1 - prof['busy_ms'] / prof['span_ms']:.4f}; (uploads, readbacks) "
+        f"before B2's first traced launch, between its launches and after "
+        f"its last: {win}; ops: {prof['kernels']}")
+    # After the fleet phases the trace loses the first few device ops of
+    # the profiled run (the first tick's upload, the small kernels before
+    # its B2, at times that B2), which the launch counts saw: a readback
+    # before the first traced B2 launch is a tick whose B2 the trace lost.
+    # Every upload after the first tick's lies in the trace, as does every
+    # readback.
+    lost_b2 = win[0][1]
+    check(prof["pageable"] == 0 and len(win) - 1 + lost_b2 == n
+          and win[0][0] <= 1 and win[0][0] >= lost_b2
+          and all(w == (1, 1) for w in win[1:-1]) and win[-1] == (0, 1),
+          f"profiled ticks: {n} B2 launches, {len(win) - 1} of them in the "
+          f"trace and {lost_b2} before its first op; one pinned upload before "
+          f"each launch after the first tick's, one readback after each "
+          f"launch, no copy from pageable memory (the kernel's tables stay "
+          f"on the card)")
+
+    # B2 at the tick's shape against its plain version
+    params, xinit, warm = runs["serial"]["captured"]
+    ocp = planner.solver.ocp
+    cfg = bench_config()
+    solves = {dt: sqp_fused.make_fused_fleet_solver(ocp, cfg, dtype=dt,
+                                                    device=dev)
+              for dt in (torch.float64, torch.float32)}
+
+    def tick_args(dtype):
+        return (torch.as_tensor(params, dtype=dtype, device=dev),
+                torch.as_tensor(xinit, dtype=dtype, device=dev).expand(P, -1),
+                torch.as_tensor(warm, dtype=dtype, device=dev))
+
+    res_k = solves[torch.float64](*tick_args(torch.float64))
+    res_p = solves[torch.float64].reference(*tick_args(torch.float64))
+    torch.cuda.synchronize()
+    diff = (res_k.z - res_p.z).abs()
+    rel = diff.amax(dim=(1, 2)) / (1.0 + res_p.z.abs().amax(dim=(1, 2)))
+    err = diff.max().item()
+    log(f"f64 B2 at the tick's shape (P={P}, T={N_MAIN + 1}): success "
+        f"{res_k.success.tolist()} (plain {res_p.success.tolist()}), max|dZ| "
+        f"{err:.3e}, max rel {rel.max().item():.3e}")
+    check(bool((res_k.success == res_p.success).all())
+          and rel.max().item() <= FUSED_F64_GATE,
+          f"f64 B2 = plain at the tick's shape: same success, per problem "
+          f"max|dZ| / (1 + max|Z|) <= {FUSED_F64_GATE:g}")
+    a32 = tick_args(torch.float32)
+    r32_k = solves[torch.float32](*a32)
+    r32_p = solves[torch.float32].reference(*a32)
+    torch.cuda.synchronize()
+    rel32 = ((r32_k.z - r32_p.z).abs().amax(dim=(1, 2))
+             / (1.0 + r32_p.z.abs().amax(dim=(1, 2))))
+    log(f"f32 B2 at the tick's shape: per problem rel {rel32.tolist()}")
+    check(rel32.median().item() <= 1e-4,
+          "f32 B2 = plain at the tick's shape: median rel <= 1e-4")
+    k_ms, k_all = cuda_time_ms(lambda: solves[torch.float32](*a32), reps=20)
+    p_ms, _ = cuda_time_ms(lambda: solves[torch.float32].reference(*a32),
+                           reps=5)
+    log(f"[{card}] B2 per tick (P={P}, T={N_MAIN + 1}, f32, CUDA events): "
+        f"{k_ms:.3f} ms (median of 20; {spread(k_all)}), plain "
+        f"fused_fleet_reference {p_ms:.3f} ms (median of 5)")
+    mach = solves[torch.float32].machinery
+    ip_it = roofline.ip_iter_flops(mach.row_meta, mach.stage_mask, ocp.nx,
+                                   mach.nu)
+    check(ip_it == roofline.TICK_IP_ITER_FLOPS,
+          f"IP iteration count at the tick's rows and mask {ip_it} = "
+          f"TICK_IP_ITER_FLOPS {roofline.TICK_IP_ITER_FLOPS} (npar "
+          f"{ocp.npar}, m {mach.stage_mask.shape[1]})")
+    pipe = runs["pipelined"]
+    return dict(launches=pipe["b2"],
+                launches_per_tick=pipe["b2"] / pipe["ticks"],
+                err=err, ms=k_ms, plain_ms=p_ms,
+                flops=roofline.sqp_flops(
+                    P, BENCH_SCHEDULE, lin=roofline.TICK_LIN_FLOPS,
+                    merit=roofline.TICK_MERIT_FLOPS,
+                    ip_iter=roofline.TICK_IP_ITER_FLOPS),
+                n_bytes=roofline.tensor_bytes(*a32, a32[2]) + 8 * P)
 
 
 def check(cond, msg):
@@ -752,6 +1142,9 @@ def main():
             f"{tf / roof['tflops']:.5f} of the measured roof, "
             f"{tf / peak:.5f} of {peak:.0f} TFLOP/s")
 
+    # ---- 14. the planner tick: Planner -> TMPCOptimizer -> one B2 --------
+    tk = tick_phase(dev, card, reset_counts, counts, none)
+
     # ---- the kernels, each with its bound ---------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, flops,
               n_bytes):
@@ -793,6 +1186,10 @@ def main():
         entry("fma_roof", "fma_roof.cu", "tools/bench_roofline.py:85",
               roof_launches, fma_err, fk_ms, fpl_ms,
               roofline.fma_flops(x_r.numel()), 8 * x_r.numel()),
+        {**entry("sqp_fused_tick", "sqp_fused.cu",
+                 f"{jax_ops}/sqp_fused.py:45", tk["launches"], tk["err"],
+                 tk["ms"], tk["plain_ms"], tk["flops"], tk["n_bytes"]),
+         "launches_per_tick": tk["launches_per_tick"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,24 @@
 """Planner configurations: each ``configuration_*`` assembles a (model,
-modules) pair, as the JAX package's ``factory.py`` does for the same names."""
+modules) pair, as the JAX package's ``factory.py`` does for the same names;
+:func:`build_planner` wires the runtime (OCP, Solver, Planner and the T-MPC
+optimizer) and :func:`prewarm_planner` builds the kernels before the first
+control tick."""
 
 from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
 
 from .models import ContouringSecondOrderUnicycleModel
 from .modules import (ConsistencyModule, ContouringModule,
                       EllipsoidConstraintModule, GuidanceConstraintModule,
                       MPCBaseModule, ModuleManager)
+from .ops.sqp import SQPConfig
+from .planner import Planner
+from .solver import Solver, build_ocp
 
 
 def configuration_no_obstacles(settings):
@@ -42,3 +54,61 @@ def configuration_tmpc_consistency_cost(settings, constraint_submodule=None):
     modules.add_module(GuidanceConstraintModule(
         settings, constraint_submodule=constraint_submodule))
     return model, modules
+
+
+def build_planner(model, modules, settings, dtype=torch.float64,
+                  sqp_config: Optional[SQPConfig] = None, clock=None,
+                  device="cuda") -> Planner:
+    """Assemble OCP, Solver and Planner and attach the T-MPC optimizer to a
+    guidance module. The solves run on ``device`` (pass ``"cpu"`` for the
+    plain versions); the optimizer picks its fleet backend from the config
+    and raises here for an OCP its kernels do not cover."""
+    from .parallel.tmpc import TMPCOptimizer
+
+    ocp = build_ocp(model, modules, settings)
+    solver = Solver(ocp, settings, dtype=dtype, sqp_config=sqp_config,
+                    device=device)
+    planner = Planner(solver, modules, settings)
+    for module in modules:
+        if isinstance(module, GuidanceConstraintModule):
+            module.attach_optimizer(TMPCOptimizer(
+                solver, settings, clock=clock or time.monotonic))
+    return planner
+
+
+def prewarm_planner(planner: Planner, model, settings,
+                    start_pose=(0.0, 0.0, 0.0), goal=(5.0, 0.0)) -> None:
+    """Run one tick on a benign synthetic scene, then reset: the kernels and
+    the PRM library build (seconds) before the first real control tick."""
+    from .planner.data_preparation import (define_robot_area,
+                                           get_constant_velocity_prediction)
+    from .solver import State
+    from .types import DynamicObstacle, RealTimeData, ReferencePath
+
+    state = State(model)
+    state.set("x", float(start_pose[0]))
+    state.set("y", float(start_pose[1]))
+    state.set("psi", float(start_pose[2]))
+    state.set("v", 0.1)
+    data = RealTimeData()
+    data.robot_area = define_robot_area(
+        settings["robot"]["length"], settings["robot"]["width"],
+        settings["n_discs"])
+    data.goal = np.asarray(goal, dtype=float)
+    data.goal_received = True
+    far = np.asarray(start_pose[:2], dtype=float) + 50.0
+    obstacles = []
+    for i in range(int(settings["max_obstacles"])):
+        o = DynamicObstacle(index=i, position=far.copy(), radius=0.3)
+        o.prediction = get_constant_velocity_prediction(
+            far, np.zeros(2), planner.solver.dt, planner.solver.N,
+            probabilistic=bool(settings["probabilistic"]["enable"]))
+        obstacles.append(o)
+    data.dynamic_obstacles = obstacles
+    # Path-following configurations also gate on a reference path: a long
+    # straight one through the start pose.
+    xs = [float(start_pose[0]) + 5.0 * k for k in range(11)]
+    data.reference_path = ReferencePath(x=xs, y=[float(start_pose[1])] * 11)
+    planner.on_data_received(data, "reference_path")
+    planner.solve_mpc(state, data)
+    planner.reset(None, None)

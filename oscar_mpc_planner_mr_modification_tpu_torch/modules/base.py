@@ -51,6 +51,27 @@ class Module:
         """Custom optimization hook; EXIT_CODE_NOT_OPTIMIZED_YET = use default solve."""
         return EXIT_CODE_NOT_OPTIMIZED_YET
 
+    # -- pipelined (two-phase) optimize ------------------------------------
+    # A module that owns its optimization may split it so that a driver can
+    # run the next tick's host work while the solve is on the device
+    # (Planner.solve_mpc_start / solve_mpc_finish). optimize_dispatch
+    # returns None (the module does not optimize), an int (resolved without
+    # a solve: the exit code) or True (a solve is in flight: call
+    # optimize_finish).
+    def optimize_dispatch(self, state, data, module_data):
+        return None
+
+    def optimize_finish(self, state, data, module_data) -> int:
+        raise RuntimeError("optimize_finish without a pending dispatch")
+
+    def refresh_state(self, state, module_data) -> None:
+        """Re-derive state-bound quantities for the actual state after a
+        pipelined ``prepare`` ran with a predicted one. Default: nothing."""
+
+    #: True when set_parameters reads the solver's warm start or solution;
+    #: pipelined drivers re-run those fills once the warm start is set.
+    fill_depends_on_solution: bool = False
+
     def reset(self) -> None:
         pass
 

@@ -138,6 +138,19 @@ class ContouringModule(ObjectiveModule):
         if self.add_road_constraints:
             self.construct_road_constraints(data, module_data)
 
+    def refresh_state(self, state, module_data) -> None:
+        """Pipelined hook: ``update`` ran with a predicted state, so re-derive
+        the progress of the actual state (the hint-windowed closest-s search)
+        for xinit. The parameter fill keeps the predicted segment window:
+        segments carry absolute starts, so it stays exact."""
+        if self.spline is None:
+            return
+        pos = np.array([state.get("x"), state.get("y")])
+        s_hint = None
+        if state.has("spline") and self.closest_segment >= 0:
+            s_hint = float(state.get("spline"))
+        state.set("spline", self.spline.closest_s(pos, s_hint=s_hint))
+
     def set_parameters(self, buf, data, module_data) -> None:
         w = self.settings["weights"]
         buf.set("contour", float(w["contour"]))

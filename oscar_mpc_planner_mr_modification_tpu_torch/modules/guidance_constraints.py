@@ -6,12 +6,14 @@ linearized around the guidance trajectory) plus an embedded safety submodule
 (default: ellipsoid constraints). The planner axis (n_paths guided + 1
 unguided) is a batch dimension of the fleet solver
 (:mod:`..parallel.batch`); the per-planner topology parameters are rows of the
-fleet's parameter tensor.
+fleet's parameter tensor. At runtime the module runs the guidance search in
+``update`` and hands ``optimize`` (and its pipelined halves) to the attached
+:class:`..parallel.tmpc.TMPCOptimizer`.
 """
 
 from __future__ import annotations
 
-from .base import ConstraintModule
+from .base import ConstraintModule, EXIT_CODE_NOT_OPTIMIZED_YET
 from .ellipsoid_constraints import EllipsoidConstraintModule
 from .linearized_constraints import LinearizedConstraintModule
 
@@ -32,6 +34,7 @@ class GuidanceConstraintModule(ConstraintModule):
         self.constraint_submodule = submodule_cls(settings)
 
         self.nh = self.topology_constraints.nh + self.constraint_submodule.nh
+        self._optimizer = None  # the TMPCOptimizer, wired by build_planner
 
     # -- symbolic: topology halfspaces + embedded safety constraints -------
     def define_parameters(self, params) -> None:
@@ -53,6 +56,9 @@ class GuidanceConstraintModule(ConstraintModule):
                                                             stage_idx))
 
     # -- runtime -----------------------------------------------------------
+    def attach_optimizer(self, optimizer) -> None:
+        self._optimizer = optimizer
+
     @property
     def solver(self):
         return getattr(self, "_solver", None)
@@ -65,6 +71,8 @@ class GuidanceConstraintModule(ConstraintModule):
 
     def update(self, state, data, module_data) -> None:
         self.constraint_submodule.update(state, data, module_data)
+        if self._optimizer is not None:
+            self._optimizer.update(state, data, module_data)
 
     def set_parameters(self, buf, data, module_data) -> None:
         # Baseline fill: safety constraints + inactive topology halfspaces.
@@ -75,8 +83,25 @@ class GuidanceConstraintModule(ConstraintModule):
             buf.set(f"lin_constraint_{i}_a2", 0.0)
             buf.set(f"lin_constraint_{i}_b", 1.0e4)
 
+    def optimize(self, state, data, module_data) -> int:
+        if self._optimizer is None:
+            return EXIT_CODE_NOT_OPTIMIZED_YET
+        return self._optimizer.optimize(state, data, module_data)
+
+    def optimize_dispatch(self, state, data, module_data):
+        if self._optimizer is None:
+            return None
+        return self._optimizer.optimize_dispatch(state, data, module_data)
+
+    def optimize_finish(self, state, data, module_data) -> int:
+        return self._optimizer.optimize_finish(module_data)
+
     def is_data_ready(self, data) -> bool:
         return self.constraint_submodule.is_data_ready(data)
 
     def missing_data(self, data) -> str:
         return self.constraint_submodule.missing_data(data)
+
+    def reset(self) -> None:
+        if self._optimizer is not None:
+            self._optimizer.reset()

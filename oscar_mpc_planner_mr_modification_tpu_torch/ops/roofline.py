@@ -13,8 +13,10 @@ plain version twice; :func:`fma_roof_emulated` rounds as the kernel does.
 
 :func:`ip_iter_flops` counts the operations of one iteration of the QP
 kernels' interior-point code; ``LIN_FLOPS`` and ``MERIT_FLOPS`` are the
-fused kernel's own counts of a linearization and a merit evaluation. :func:`bound_ms` is the least time the card
-could take for a given work:
+fused kernel's own counts of a linearization and a merit evaluation, at the
+fleet bench's OCP; the ``TICK_`` constants are the same three counts at the
+planner tick's OCP. :func:`bound_ms` is the least time the card could take
+for a given work:
 the larger of bytes over the memory rate and operations over the FP32 rate,
 both the published H100 SXM figures at its 700 W limit.
 """
@@ -68,6 +70,15 @@ LIN_FLOPS = 162321
 #: per problem at the bench OCP, counted the same way (``merit_warp``).
 MERIT_FLOPS = 27822
 
+#: The three counts at the planner tick's OCP (``bench.py::_e2e_tick``:
+#: ``default_settings(N=20, max_obstacles=3)``, npar=88; 6 dense generic
+#: rows and 14 box rows), from the same hand count and counting build; equal
+#: on every planner of the tick's fleet. tests/test_torch_roofline.py
+#: recomputes them.
+TICK_IP_ITER_FLOPS = 80954
+TICK_LIN_FLOPS = 157881
+TICK_MERIT_FLOPS = 27822
+
 
 def fma_flops(n: int) -> float:
     """FLOPs of one roof launch on n elements (one FMA = 2)."""
@@ -116,16 +127,18 @@ def ip_flops(n_problems: int, n_iters: int) -> float:
     return IP_ITER_FLOPS * n_iters * n_problems
 
 
-def sqp_flops(n_problems: int, schedule) -> float:
+def sqp_flops(n_problems: int, schedule, lin=LIN_FLOPS, merit=MERIT_FLOPS,
+              ip_iter=IP_ITER_FLOPS) -> float:
     """Operations of one fused fleet solve on the schedule, as the bench
     runs it (``track_best=False``): one linearization per SQP iteration,
     every interior-point iteration, and the merit terms of the returned
-    iterate. ``ALGO_FLOPS_PER_PROBLEM`` (the JAX bench's convention: XLA's
-    counts, each phase's IP loop once) is a different count that happens to
-    land within 5% of this one."""
+    iterate, each per problem as the OCP's counts give it (by default the
+    fleet bench's). ``ALGO_FLOPS_PER_PROBLEM`` (the JAX bench's convention:
+    XLA's counts, each phase's IP loop once) is a different count that
+    happens to land within 5% of this one."""
     n_lin = sum(n_sqp for n_sqp, _ in schedule)
     n_ip = sum(n_sqp * n_qp for n_sqp, n_qp in schedule)
-    return (LIN_FLOPS * n_lin + MERIT_FLOPS + IP_ITER_FLOPS * n_ip) * n_problems
+    return (lin * n_lin + merit + ip_iter * n_ip) * n_problems
 
 
 def lin_flops(n_problems: int) -> float:

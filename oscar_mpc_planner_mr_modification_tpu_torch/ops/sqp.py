@@ -27,6 +27,10 @@ launch per fleet solve, linearization included). ``backend="lanes"`` keeps
 the batch on the trailing axis: per SQP iteration one launch of the fused
 kernel's linearization (:mod:`.linearize`) and one of the QP kernel on its
 output buffer.
+
+For runtime ticks, :func:`make_buffered_packed_solve` wraps a batched solve
+into one upload, one solve and one readback (:func:`pack_results`,
+:func:`unpack_results`, :func:`fetch_results`).
 """
 
 from __future__ import annotations
@@ -70,6 +74,111 @@ class SQPResult(NamedTuple):
     qp_comp: torch.Tensor  # (B,) last QP complementarity (0 on the fleet paths)
     success: torch.Tensor  # (B,) bool
     exit_code: torch.Tensor  # (B,) 1 = success, 0 = failure
+
+
+def pack_results(res: SQPResult) -> torch.Tensor:
+    """Every SQPResult field of a batch in ONE (B, T*nz + 5) tensor of z's
+    dtype, on z's device: z flattened, then cost, eq_res, qp_comp,
+    exit_code and success, so that the host reads a batch in one copy."""
+    B = res.z.shape[0]
+    flat = res.z.reshape(B, -1)
+    extra = torch.stack([x.to(flat.dtype) for x in (
+        res.cost, res.eq_res, res.qp_comp, res.exit_code, res.success)],
+        dim=1)
+    return torch.cat([flat, extra], dim=1)
+
+
+def unpack_results(packed: np.ndarray, T: int, nz: int) -> SQPResult:
+    """Host-side inverse of :func:`pack_results`: an SQPResult of numpy
+    fields (z (B, T, nz) float, cost / eq_res / qp_comp (B,) float,
+    exit_code (B,) int, success (B,) bool)."""
+    B = packed.shape[0]
+    n = T * nz
+    return SQPResult(
+        z=packed[:, :n].astype(float).reshape(B, T, nz),
+        cost=packed[:, n].astype(float).copy(),
+        eq_res=packed[:, n + 1].astype(float).copy(),
+        qp_comp=packed[:, n + 2].astype(float).copy(),
+        success=packed[:, n + 4] > 0.5,
+        exit_code=np.rint(packed[:, n + 3]).astype(int))
+
+
+def fetch_results(res: SQPResult) -> SQPResult:
+    """A batch result on the host in one device-to-host copy, as numpy
+    fields (:func:`unpack_results`)."""
+    B, T, nz = res.z.shape
+    return unpack_results(pack_results(res).cpu().numpy(), T, nz)
+
+
+def make_buffered_packed_solve(batched_solve, P, N, npar, nx, nz, dtype,
+                               device="cuda"):
+    """A batched solve for runtime ticks: one upload, one solve, one readback.
+
+    ``batched_solve(params (P, N, npar), xinit (nx,), warm (P, N+1, nz))``
+    is any solve that takes tensors on ``device`` and returns an SQPResult.
+    Returns ``solve(params, xinit, warm) -> packed`` (a (P, (N+1)*nz + 5)
+    numpy array, decoded by :func:`unpack_results`) with the halves
+    ``solve.dispatch`` and ``solve.fetch``:
+
+    - ``dispatch`` encodes params, xinit and warm into one host buffer in the
+      solve dtype (pinned when ``device`` is a CUDA device), copies it to the
+      device with one ``non_blocking`` copy, runs the solve, packs the result
+      (:func:`pack_results`) and copies it into a pinned host buffer with one
+      ``non_blocking`` copy, records an event and returns. Nothing in it
+      waits for the device, so the host may do the next tick's work while
+      the solve runs;
+    - ``fetch(handle)`` waits on that event and returns a copy of the packed
+      result.
+
+    The two host buffers are reused from solve to solve. That is safe
+    because exactly one solve is in flight: ``dispatch`` raises while one is
+    pending, and ``fetch`` returns only after the event, which the stream
+    orders after the readback, which it orders after the upload; so when the
+    next ``dispatch`` rewrites the input buffer the last upload from it has
+    finished, and the output buffer is copied out before it is reused. On
+    the CPU the same code runs without pinning, and the copies complete at
+    once."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    T = N + 1
+    n_par, n_warm = P * N * npar, P * T * nz
+    host_in = torch.empty(n_par + nx + n_warm, dtype=dtype, pin_memory=cuda)
+    host_out = torch.empty((P, T * nz + 5), dtype=dtype, pin_memory=cuda)
+    dev_in = torch.empty(host_in.shape, dtype=dtype, device=device)
+    staged = host_in.numpy()
+    in_flight = []  # the pending handle; at most one
+
+    def dispatch(params, xinit, warm):
+        if in_flight:
+            raise RuntimeError("a solve is already in flight; fetch it first")
+        staged[:n_par] = np.asarray(params).reshape(-1)
+        staged[n_par:n_par + nx] = np.asarray(xinit).reshape(-1)
+        staged[n_par + nx:] = np.asarray(warm).reshape(-1)
+        dev_in.copy_(host_in, non_blocking=True)
+        res = batched_solve(dev_in[:n_par].view(P, N, npar),
+                            dev_in[n_par:n_par + nx],
+                            dev_in[n_par + nx:].view(P, T, nz))
+        host_out.copy_(pack_results(res), non_blocking=True)
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+        in_flight.append(done)
+        return done
+
+    def fetch(handle):
+        if not in_flight or in_flight[0] is not handle:
+            raise RuntimeError("fetch of a handle that is not in flight")
+        if handle is not None:
+            handle.synchronize()
+        in_flight.clear()
+        return host_out.numpy().copy()
+
+    def solve(params, xinit, warm):
+        return fetch(dispatch(params, xinit, warm))
+
+    solve.dispatch, solve.fetch = dispatch, fetch
+    return solve
 
 
 class QPData(NamedTuple):

@@ -499,24 +499,24 @@ def linearize(tables: OcpTables, P, xinit, Z):
     return unpack_qp(qp, tables), mo[0], mo[1], mo[2]
 
 
-def _solve_kernel(tables, rows, config, phases, P, xinit, Z, host=False):
+def _solve_kernel(tables, rows, config, consts, P, xinit, Z, host=False):
     """One launch of the solve kernel (CUDA tensors), or with ``host`` the
-    same entry of the host build (f64 CPU tensors)."""
+    same entry of the host build (f64 CPU tensors). ``consts`` are the
+    kernel's int and real tables and its phase list, on Z's device
+    (``make_fused_fleet_solver`` uploads them once per device)."""
     global launches
     B = _shapes(tables, P, xinit, Z)
     dev, dtype = Z.device, Z.dtype
     T, m = tables.T, tables.m
     ins = _lanes_in(P, xinit, Z)
-    itab, rtab = _device_tables(tables, dev)
+    itab, rtab, phases_t = consts
     mask_t, table_t = qp_cuda._row_tables(
         (rows.row_meta, rows.stage_mask.tobytes(), rows.active), T, m, dtype,
         dev)
-    phases_t = torch.as_tensor(np.asarray(phases, dtype=np.int32).reshape(-1),
-                               device=dev)
     out = torch.empty((T * _NZ + 2, B), dtype=dtype, device=dev)
     bufs = (*ins, out, mask_t, table_t, itab, rtab, phases_t)
     args = [t.data_ptr() for t in bufs] + [
-        len(phases), B, T, m, tables.mh,
+        phases_t.numel() // 2, B, T, m, tables.mh,
         int(bool(rows.active)), int(config.track_best), tables.reg,
         _IP["mu0"], config.mu_min, _IP["tau"], config.w_max, _IP["s_floor"],
         _IP["tol_freeze"], rows.n_act]
@@ -558,6 +558,15 @@ def make_fused_fleet_solver(ocp, config: SQPConfig, *, dtype,
     phases = _phases_of(config)
     rows = qp_cuda._rows(mach.stage_mask, mach.row_meta, tables.T, tables.m)
 
+    @functools.lru_cache(maxsize=None)
+    def consts(dev):
+        """The tables and the phase list on ``dev``, uploaded once: a copy
+        from pageable memory waits for the stream, so one per launch would
+        make every launch wait for the work before it."""
+        phases_t = torch.as_tensor(
+            np.asarray(phases, dtype=np.int32).reshape(-1), device=dev)
+        return (*_device_tables(tables, dev), phases_t)
+
     def inputs(all_params, xinit, z_init):
         all_params = torch.as_tensor(all_params, dtype=dtype, device=device)
         P = torch.cat([all_params, all_params[:, -1:]], dim=1)  # stage N reuses N-1
@@ -568,14 +577,16 @@ def make_fused_fleet_solver(ocp, config: SQPConfig, *, dtype,
         P, xinit, Z = inputs(all_params, xinit, z_init)
         if device.type == "cpu":
             return fused_fleet_reference(mach, config, P, xinit, Z)
-        return _solve_kernel(tables, rows, config, phases, P, xinit, Z)
+        return _solve_kernel(tables, rows, config, consts(Z.device), P, xinit,
+                             Z)
 
     solve.reference = lambda *args: fused_fleet_reference(
         mach, config, *inputs(*args))
     # the kernel's per-problem code compiled for the host (f64, CPU solver)
-    solve.host = lambda *args: _solve_kernel(tables, rows, config, phases,
-                                             *inputs(*args), host=True)
-    solve.machinery, solve.tables = mach, tables
+    solve.host = lambda *args: _solve_kernel(
+        tables, rows, config, consts(torch.device("cpu")),
+        *inputs(*args), host=True)
+    solve.machinery, solve.tables, solve.consts = mach, tables, consts
     return solve
 
 

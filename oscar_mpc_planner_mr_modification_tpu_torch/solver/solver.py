@@ -1,0 +1,247 @@
+"""Host-side Solver object: parameter, warm-start and output buffers.
+
+Counterpart of the JAX package's ``solver/solver.py``: name-indexed
+parameter, warm-start and output access, the shift-forward, hold and braking
+warm-start policies, exit-flag semantics, cloning for parallel planners, and
+the budget ladder of SQP iteration counts (``select_iterations``,
+``note_solve_time``). Buffers are numpy; the T-MPC optimizer
+(:mod:`..parallel.tmpc`) stacks them over its planners and solves them on
+the device, then hands the winner back through :meth:`Solver.load_result`.
+
+The JAX Solver also builds a single-instance SQP solve for configurations
+without a custom optimizer; the port has none yet (ROADMAP A12:
+``make_sqp_solver`` on ``ops/qp.py::solve_qp``), so :meth:`Solver.solve`
+raises. The T-MPC planner never calls it: its guidance module claims the
+optimization.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..ops.sqp import SQPConfig, SQPResult, _phases_of
+from .ocp import OCP
+
+
+class Solver:
+    def __init__(self, ocp: OCP, settings=None, dtype=torch.float64,
+                 sqp_config: Optional[SQPConfig] = None, device="cuda"):
+        settings = settings if settings is not None else ocp.settings
+        self.ocp = ocp
+        self.settings = settings
+        self.N = ocp.N
+        self.nu, self.nx, self.nvar = ocp.nu, ocp.nx, ocp.nvar
+        self.dt = ocp.dt
+        self.dtype = dtype
+        self.device = torch.device(device)
+
+        ss = settings.get("solver_settings", {})
+        if sqp_config is None:
+            # qp_iter_schedule: optional [[n_sqp, n_qp_iter], ...] phases of
+            # the inexact-SQP schedule (SQPConfig.qp_iter_schedule).
+            sched = tuple(
+                (int(n), int(q)) for n, q in ss.get("qp_iter_schedule", ()))
+            n_sqp = (sum(n for n, _ in sched) if sched
+                     else int(ss.get("iterations", 10)))
+            sqp_config = SQPConfig(
+                n_sqp=n_sqp,
+                n_qp_iter=int(ss.get("qp_iterations", 18)),
+                qp_iter_schedule=sched,
+            )
+        self.config = sqp_config
+
+        # Budget-adaptive iteration control: a ladder of SQP iteration counts
+        # (full, half, quarter); the largest one predicted to fit the
+        # remaining budget runs. The per-iteration time is an EMA fed by
+        # whoever solved last.
+        self.adaptive_iterations = bool(ss.get("adaptive_iterations", True))
+        n_full = sum(n for n, _ in _phases_of(sqp_config))
+        self._iter_ladder = sorted(
+            {n_full, max(1, n_full // 2), max(1, n_full // 4)}, reverse=True)
+        self._iter_time_ema = 0.0  # seconds per SQP iteration (0 = unknown)
+        self.last_iterations_run = 0
+
+        # Parameter buffer (N, npar)
+        self.params = ocp.registry.new_buffer(self.N)
+        # Warm-start buffer x0: (N+1, nvar) = (u, x) per stage
+        self._x0 = np.zeros((self.N + 1, self.nvar))
+        self._loaded_warmstart = np.zeros((self.N + 1, self.nvar))
+        # Output
+        self._output_z = np.zeros((self.N + 1, self.nvar))
+        self._xinit = np.zeros(self.nx)
+        self.info = {"pobj": float("inf"), "eq_res": float("inf"), "qp_comp": 0.0}
+        self.solver_timeout = 0.0  # the tick's remaining budget, seconds
+        self._exit_code = 0
+
+    # -- cloning -----------------------------------------------------------
+    def clone(self) -> "Solver":
+        out = Solver.__new__(Solver)
+        out.__dict__.update(self.__dict__)
+        out.params = self.params.copy()
+        out._x0 = self._x0.copy()
+        out._loaded_warmstart = self._loaded_warmstart.copy()
+        out._output_z = self._output_z.copy()
+        out._xinit = self._xinit.copy()
+        out.info = dict(self.info)
+        return out
+
+    def reset(self) -> None:
+        self.params = self.ocp.registry.new_buffer(self.N)
+        self._x0[...] = 0.0
+        self._output_z[...] = 0.0
+        self.info = {"pobj": float("inf"), "eq_res": float("inf"), "qp_comp": 0.0}
+
+    # -- parameters --------------------------------------------------------
+    def set_parameter(self, k: int, name: str, value: float) -> None:
+        self.params.set_stage(k, name, value)
+
+    def get_parameter(self, k: int, name: str) -> float:
+        return float(self.params.data[k, self.params.reg.index(name)])
+
+    def has_parameter(self, name: str) -> bool:
+        return self.params.reg.has_parameter(name)
+
+    # -- initial state -----------------------------------------------------
+    def set_xinit(self, state) -> None:
+        self._xinit = state.as_array()
+
+    # -- ego prediction (warm-start buffer) access -------------------------
+    def set_ego_prediction(self, k: int, name: str, value: float) -> None:
+        self._x0[k, self.ocp.model.var_index(name)] = value
+
+    def get_ego_prediction(self, k: int, name: str) -> float:
+        return float(self._x0[k, self.ocp.model.var_index(name)])
+
+    def set_ego_prediction_position(self, k: int, pos) -> None:
+        self.set_ego_prediction(k, "x", pos[0])
+        self.set_ego_prediction(k, "y", pos[1])
+
+    def get_ego_prediction_trajectory(self) -> np.ndarray:
+        """(N+1, 2) positions of the current warm start."""
+        ix = self.ocp.model.var_index("x")
+        iy = self.ocp.model.var_index("y")
+        return self._x0[:, [ix, iy]].copy()
+
+    # -- warm-start policies -----------------------------------------------
+    def initialize_with_state(self, state) -> None:
+        x = state.as_array()
+        self._x0[:, : self.nu] = 0.0
+        self._x0[:, self.nu :] = x[None, :]
+
+    def initialize_with_braking(self, state) -> None:
+        """Braking ramp: decelerate at ``deceleration_at_infeasible`` along
+        the current heading until stopped."""
+        self.initialize_with_state(state)
+        decel = abs(float(self.settings["deceleration_at_infeasible"]))
+        model = self.ocp.model
+        x = state.get("x")
+        y = state.get("y")
+        psi = state.get("psi")
+        v = state.get("v")
+        spline = state.get("spline") if "spline" in model.states else None
+        a = -decel
+        dt = self.dt
+
+        def put(k, vx, vy, vpsi, vv, vspline):
+            self.set_ego_prediction(k, "x", vx)
+            self.set_ego_prediction(k, "y", vy)
+            self.set_ego_prediction(k, "psi", vpsi)
+            self.set_ego_prediction(k, "v", vv)
+            if vspline is not None:
+                self.set_ego_prediction(k, "spline", vspline)
+            if "a" in model.inputs:
+                self.set_ego_prediction(k, "a", a)
+            if "w" in model.inputs:
+                self.set_ego_prediction(k, "w", 0.0)
+
+        put(0, x, y, psi, v, spline)
+        for k in range(1, self.N + 1):
+            x += v * dt * np.cos(psi)
+            y += v * dt * np.sin(psi)
+            if spline is not None:
+                spline += v * dt
+            v = max(v + a * dt, 0.0)
+            put(k, x, y, psi, v, spline)
+
+    def initialize_warmstart(self, state, shift_forward: bool) -> None:
+        """Shift-forward or hold warm start from the previous output."""
+        names = list(self.ocp.model.inputs) + list(self.ocp.model.states)
+        if shift_forward:
+            for k in range(self.N + 1):
+                for name in names:
+                    if k == 0:
+                        val = (state.get(name) if name in self.ocp.model.states
+                               else self.get_output(0, name))
+                    elif k >= self.N - 1:
+                        val = self.get_output(self.N - 1, name)
+                    else:
+                        val = self.get_output(k + 1, name)
+                    self.set_ego_prediction(k, name, val)
+        else:
+            for k in range(self.N):
+                for name in names:
+                    self.set_ego_prediction(k, name, self.get_output(k, name))
+            for name in names:
+                self.set_ego_prediction(self.N, name, self.get_output(self.N, name))
+
+    def load_warmstart(self) -> None:
+        """Latch the warm-start buffer as the solve's initial guess."""
+        self._loaded_warmstart = self._x0.copy()
+
+    # -- the iteration ladder ----------------------------------------------
+    def select_iterations(self) -> int:
+        """Largest ladder iteration count predicted to fit solver_timeout.
+
+        Without a budget (``solver_timeout <= 0``, as with a simulated
+        clock), without a timing yet, or with ``adaptive_iterations`` off,
+        the full count. Never less than the smallest ladder entry."""
+        full = self._iter_ladder[0]
+        if (not self.adaptive_iterations or self._iter_time_ema <= 0.0
+                or self.solver_timeout <= 0.0):
+            return full
+        for n in self._iter_ladder:
+            if n * self._iter_time_ema <= self.solver_timeout:
+                return n
+        return self._iter_ladder[-1]
+
+    def note_solve_time(self, n: int, elapsed: float,
+                        compile_call: bool) -> None:
+        """Feed a measured solve of ``n`` SQP iterations into the
+        per-iteration EMA; a first call (``compile_call``) is not fed."""
+        self.last_iterations_run = n
+        if compile_call:
+            return
+        per_iter = elapsed / n
+        self._iter_time_ema = (per_iter if self._iter_time_ema <= 0.0
+                               else 0.8 * self._iter_time_ema
+                               + 0.2 * per_iter)
+
+    # -- solve -------------------------------------------------------------
+    def solve(self) -> int:
+        raise NotImplementedError(
+            "the single-instance solve (make_sqp_solver on ops/qp.py::"
+            "solve_qp) is not ported yet (ROADMAP A12); planners whose "
+            "guidance module claims the optimization (T-MPC) do not need it")
+
+    def load_result(self, result: SQPResult) -> int:
+        """Store one problem's result (numpy fields or 0-d values), e.g. the
+        winner of a batched solve."""
+        self._output_z = np.asarray(result.z, dtype=float)
+        self.info = {
+            "pobj": float(result.cost),
+            "eq_res": float(result.eq_res),
+            "qp_comp": float(result.qp_comp),
+        }
+        self._exit_code = int(result.exit_code)
+        return self._exit_code
+
+    # -- output ------------------------------------------------------------
+    def get_output(self, k: int, name: str) -> float:
+        return float(self._output_z[k, self.ocp.model.var_index(name)])
+
+    def get_output_trajectory(self) -> np.ndarray:
+        """(N+1, nvar) full primal solution."""
+        return self._output_z.copy()

@@ -230,6 +230,64 @@ def test_linearization_flops_match_the_kernel_count(count_lib):
         assert int(merit.sum()) == roofline.MERIT_FLOPS, merit
 
 
+def test_tick_ocp_flops_match_the_kernel_count(count_lib):
+    """The TICK_ constants are the hand count and the fused kernel's own
+    counts at the planner tick's OCP (``default_settings(N=20,
+    max_obstacles=3)``, as ``factory.build_planner`` builds it), equal on
+    every planner of two fleets of two seeds each, and ``sqp_flops`` takes
+    them in place of the fleet's."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.benchmarks import (
+        build_tmpc_fleet)
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        configuration_tmpc_consistency_cost)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        _make_machinery)
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel.batch import (
+        to_torch_fleet)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import build_ocp
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools.common import (
+        BENCH_SCHEDULE, bench_config)
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    settings = default_settings(N=20, max_obstacles=3)
+    ocp = build_ocp(*configuration_tmpc_consistency_cost(settings), settings)
+    assert ocp.npar == 88
+    mach = _make_machinery(ocp, bench_config(), torch.float64, "cpu")
+    tables = sqp_fused.ocp_tables(ocp, bench_config())
+    itab = np.ascontiguousarray(tables.ints)
+    rtab = np.ascontiguousarray(tables.reals)
+    nx = ocp.nx
+    for seed in (0, 1):
+        params, xinit, z_init, _ = to_torch_fleet(
+            *build_tmpc_fleet(ocp, settings, 2, seed=seed), device="cpu",
+            dtype=torch.float64)
+        assert params.shape[1] == 5  # 4 guided planners and 1 unguided
+        for fleet in range(2):
+            P = torch.cat([params[fleet], params[fleet][:, -1:]], dim=1)
+            x0 = xinit[fleet:fleet + 1].expand(P.shape[0], -1)
+            qp = mach.build_qp(z_init[fleet], P, x0)
+            ins = sqp_fused._lanes_in(P, x0, z_init[fleet])
+            for b in range(P.shape[0]):
+                one = tsqp.QPData(*(x[b:b + 1] for x in qp))
+                assert _check_iteration_count(
+                    count_lib, one, mach.stage_mask, mach.row_meta, nx,
+                    mach.nu) == roofline.TICK_IP_ITER_FLOPS
+                cols = [np.ascontiguousarray(x[:, b].numpy()) for x in ins]
+                lin, merit = np.zeros(5, np.int64), np.zeros(5, np.int64)
+                count_lib.tmpc_count_ops(
+                    *[c.ctypes.data for c in cols], itab.ctypes.data,
+                    rtab.ctypes.data, tables.T, tables.npar, tables.m,
+                    tables.mh, tables.reg, lin.ctypes.data, merit.ctypes.data)
+                assert int(lin.sum()) == roofline.TICK_LIN_FLOPS, lin
+                assert int(merit.sum()) == roofline.TICK_MERIT_FLOPS, merit
+    tick = roofline.sqp_flops(5, BENCH_SCHEDULE, lin=roofline.TICK_LIN_FLOPS,
+                              merit=roofline.TICK_MERIT_FLOPS,
+                              ip_iter=roofline.TICK_IP_ITER_FLOPS)
+    assert tick == 5 * (4 * 157881 + 27822 + 24 * 80954)
+    assert tick < roofline.sqp_flops(5, BENCH_SCHEDULE)
+
+
 def test_linearization_flops_match_cost_analysis():
     """The fused kernel's count of a linearization plus a merit evaluation
     against XLA's cost analysis of the JAX package's lane linearizer plus
