@@ -35,8 +35,20 @@ and no other per tick, the fused backend, the C++ guidance PRM and
 H-signature, success, progress and (on the first two) clearance to the
 pedestrians; holds B2 at the tick's shape against its plain version and
 times the ticks, the host share, B2 and the PRM, and profiles three pipelined
-ticks. Any failed phase raises, so the script exits
-non-zero and prints no result. The last line is the JSON result
+ticks. Then the single-instance solve (plain PyTorch, no kernel of the
+port) and BASELINE config 2 (contouring with ellipsoidal obstacles), each
+run with the launch counts set to 0 just before it: the contouring_2obs
+golden through make_sqp_solver at f64 (atol 1e-6, rtol 1e-8; ms and device
+ops per solve); BASELINE's f32 gate (max |U32 - U64| <= 1e-3 against
+tests/golden/validate_contouring_U64.npy) through B1 and through B2, with
+B1 at the gate's QPs against its plain version; the configuration_basic
+planner tick at default_settings (N=30, f64; Planner -> Solver.solve) on
+the card, its first tick against the same solve on the CPU; and the
+contouring evaluator of tools/bench_rollout.py (4096 episodes, 60 ticks,
+f32, one B2 launch per tick, nothing read back between ticks, f64 kernel
+against plain on a short rollout, B2 on its first tick against plain at
+f64, every problem, and at f32). Any
+failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 each with its bound. Needs one CUDA device; without one it exits with code 2.
 """
@@ -585,6 +597,541 @@ def tick_phase(dev, card, reset_counts, counts, none):
                     merit=roofline.TICK_MERIT_FLOPS,
                     ip_iter=roofline.TICK_IP_ITER_FLOPS),
                 n_bytes=roofline.tensor_bytes(*a32, a32[2]) + 8 * P)
+
+
+# ---------------------------------------------------------------------------
+# The single-instance solve (plain PyTorch) and BASELINE config 2
+# ---------------------------------------------------------------------------
+#: The golden's config (tests/test_golden.py) and BASELINE's f32 operating
+#: point (examples/validate_tpu.py).
+GOLDEN_CFG = dict(n_sqp=30, n_qp_iter=20, mu_min=1e-10)
+GATE_CFG = dict(n_sqp=25, n_qp_iter=15, mu_min=1e-6, w_max=1e6, reg_eps=1e-4,
+                regularization="gershgorin")
+GATE_B = 4
+#: The contouring evaluator at tools/bench_rollout.py's shape.
+ROLLOUT_B, ROLLOUT_N, ROLLOUT_TICKS, ROLLOUT_OBS = 4096, 20, 60, 3
+BASIC_TICKS = 5
+#: Share of the evaluator's first-tick problems on which f32 B2 must lie
+#: within 1e-4 (per problem, relative) of its plain version: 0.995117 on an
+#: H100 80GB HBM3 (700 W); a fault on one warp slot of a 2-warp block would
+#: take half the problems.
+F32_ROLLOUT_SHARE = 0.98
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def device_trace(fn):
+    """The device ops (kernels, copies, fills) of one call of fn in start
+    order, by a torch.profiler trace of the device alone (a trace of the
+    host's ops too costs seconds for a few thousand launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for activities in ([ProfilerActivity.CUDA],
+                       [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        sync()
+        with profile(activities=activities) as prof:
+            fn()
+            sync()
+        ops = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if ops:
+            return ops
+        log("a trace of the device alone held no device op; tracing the "
+            "host's ops too")
+    return ops
+
+
+def solve_launches(make, args, config):
+    """Device ops of one solve at ``config``, from three profiled short
+    solves: the plain solve has no data-dependent branch, so its ops are
+    base + per_sqp * (SQP iterations) + per_ip * (IP iterations). ``make``
+    builds the solve of a config; it is called with ``args``."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        _phases_of)
+
+    def ops(n_sqp, n_qp):
+        fn = make(config._replace(n_sqp=n_sqp, n_qp_iter=n_qp,
+                                  qp_iter_schedule=()))
+        return len(device_trace(lambda: fn(*args)))
+
+    l11, l12, l21 = ops(1, 1), ops(1, 2), ops(2, 1)
+    check(0 < l11 < l12 and l11 < l21, f"profiled short solves traced "
+          f"{l11}, {l12}, {l21} device ops")
+    per_ip = l12 - l11
+    per_sqp = l21 - l11 - per_ip
+    base = l11 - per_sqp - per_ip
+    phases = _phases_of(config)
+    return dict(total=base + per_sqp * sum(n for n, _ in phases)
+                + per_ip * sum(n * q for n, q in phases),
+                base=base, per_sqp=per_sqp, per_ip=per_ip)
+
+
+def host_syncs(fn):
+    """The calls in fn() that wait for the device, as torch's sync debug
+    mode reports them: ``file:line`` of each (the Python line that called
+    the op)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def basic_ocp(N, n_obstacles):
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        configuration_basic)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import build_ocp
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    settings = default_settings(N=N, max_obstacles=n_obstacles)
+    return build_ocp(*configuration_basic(settings), settings)
+
+
+def golden_single_phase(dev, card, reset_counts, counts, none):
+    """(a) The contouring_2obs golden through make_sqp_solver on the card at
+    f64 (plain PyTorch, no kernel): Z within atol 1e-6, cost within rtol
+    1e-8, success; its ms and device ops per solve; which of its parts wait
+    for the device. Returns the solution Z (numpy)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import qp as qp_ip
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        SQPConfig, make_sqp_solver)
+
+    gold = np.load(os.path.join(ROOT, "tests", "golden", "contouring_2obs.npz"))
+    ocp = basic_ocp(15, 2)
+    cfg = SQPConfig(**GOLDEN_CFG)
+    solve = make_sqp_solver(ocp, cfg, dtype=torch.float64, device=dev)
+    args = (gold["P"], gold["x0"], gold["z_init"])
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = solve(*args)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    check(got == none, f"single-instance golden solve launched no kernel of "
+          f"the port ({got})")
+    check(res.z.device.type == "cuda", f"solution on {res.z.device}")
+    zerr = float(np.abs(res.z.cpu().numpy() - gold["Z"]).max())
+    cost = float(res.cost)
+    log(f"single-instance golden (f64, cuda): max|Z - Z_gold| {zerr:.3e}, "
+        f"cost {cost:.12f} vs {float(gold['cost']):.12f}, eq_res "
+        f"{float(res.eq_res):.3e}, qp_comp {float(res.qp_comp):.3e}")
+    check(bool(res.success), "single-instance golden solve succeeded")
+    check(zerr <= 1e-6, "single-instance golden Z within atol 1e-6")
+    check(abs(cost - float(gold["cost"])) <= 1e-8 * abs(float(gold["cost"])),
+          "single-instance golden cost within rtol 1e-8")
+    ops = solve_launches(lambda c: make_sqp_solver(
+        ocp, c, dtype=torch.float64, device=dev), args, cfg)
+    # Which parts wait for the device ("mirror" regularization's eigh reads
+    # its convergence flags back to the host).
+    mach = solve.machinery
+    P = torch.as_tensor(gold["P"], device=dev)[None]
+    P = torch.cat([P, P[:, -1:]], dim=1)
+    Z = torch.as_tensor(gold["Z"], device=dev)[None]
+    x0 = torch.as_tensor(gold["x0"], device=dev)[None]
+    qp = mach.build_qp(Z, P, x0)
+    qpd = qp_ip.QPData(qp.H, qp.g, qp.A, qp.B, qp.c, qp.D, qp.e,
+                       torch.as_tensor(mach.stage_mask, device=dev), qp.r0)
+    sync()
+    waits = {"solve_qp (20 IP iterations)": host_syncs(
+                 lambda: qp_ip.solve_qp(qpd, nu=ocp.nu, n_iters=20)),
+             "build_qp, mirror": host_syncs(lambda: mach.build_qp(Z, P, x0)),
+             "merit_of": host_syncs(lambda: mach.merit_of(Z, P, x0))}
+    g_mach = make_sqp_solver(ocp, cfg._replace(regularization="gershgorin"),
+                             dtype=torch.float64, device=dev).machinery
+    waits["build_qp, gershgorin"] = host_syncs(lambda: g_mach.build_qp(Z, P,
+                                                                      x0))
+    log(f"calls that wait for the device (sync debug mode), per call: "
+        f"{ {k: len(v) for k, v in waits.items()} }, at {waits}")
+    log(f"[{card}] single-instance solve (N=15, {cfg.n_sqp} x {cfg.n_qp_iter},"
+        f" f64, plain PyTorch): {ms:.1f} ms per solve; "
+        f"{ops['total']} device ops per solve ({ops['per_ip']} per IP "
+        f"iteration, {ops['per_sqp']} per SQP iteration besides, "
+        f"{ops['base']} once; from three profiled short solves)")
+    return res.z.cpu().numpy()
+
+
+def baseline_gate_phase(dev, card, reset_counts, counts, none, golden_z):
+    """(b) BASELINE's f32 gate, contouring flavour (examples/validate_tpu.py):
+    the golden's problem tiled to B=4 at the f32 operating point through B1
+    (``"pallas"``) and through B2 (``"fused"``), each run with the launch
+    counts set to 0 before it; max |U32 - U64| <= 1e-3 against
+    tests/golden/validate_contouring_U64.npy for each; beside it the port's
+    f64 make_sqp_solver on the card, ``golden_z`` from
+    :func:`golden_single_phase` (the golden's config, mu_min 1e-10, where
+    examples/validate_tpu.py's cross-check solves again at 1e-9). Then B1 at the gate's QPs against its plain
+    version. Returns B1's kernel entry numbers."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        qp_cuda, roofline)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        SQPConfig, _f32_safe, _make_machinery, make_fleet_sqp_solver)
+
+    gold = np.load(os.path.join(ROOT, "tests", "golden", "contouring_2obs.npz"))
+    U64 = np.load(os.path.join(ROOT, "tests", "golden",
+                               "validate_contouring_U64.npy"))
+    ocp = basic_ocp(15, 2)
+    nu = ocp.nu
+    cfg = SQPConfig(**GATE_CFG)
+    tiled = (np.tile(gold["P"][None], (GATE_B, 1, 1)),
+             np.tile(gold["x0"][None], (GATE_B, 1)),
+             np.tile(gold["z_init"][None], (GATE_B, 1, 1)))
+    U_ref = golden_z[:-1, :nu]
+    want = {"pallas": {**none, "qp_ip": cfg.n_sqp},
+            "fused": {**none, "sqp_fused": 1}}
+    launches = {}
+    for backend in ("pallas", "fused"):
+        fleet = make_fleet_sqp_solver(ocp, cfg, dtype=torch.float32,
+                                      device=dev, backend=backend)
+        reset_counts()
+        out = fleet(*tiled)
+        sync()
+        got = counts()
+        launches[backend] = got
+        check(got == want[backend], f"f32 gate through {backend!r}: launches "
+              f"{got} (want {want[backend]})")
+        U32 = out.z.cpu().numpy()[:, :-1, :nu]
+        err = float(np.abs(U32 - U64[None]).max())
+        log(f"[{card}] BASELINE f32 gate, contouring+ellipsoid, {backend!r}: "
+            f"max|U32 - U64| {err:.3e} over {GATE_B} problems (gate 1e-3), "
+            f"success {out.success.tolist()}; vs the port's f64 "
+            f"make_sqp_solver on the card (the golden phase's solve) "
+            f"{np.abs(U32 - U_ref).max():.3e}; golden vs that solve "
+            f"{np.abs(U64 - U_ref).max():.3e}")
+        check(err <= 1e-3, f"BASELINE f32 gate through {backend!r}: "
+              f"max|U32 - U64| {err:.3e} <= 1e-3")
+        check(bool(out.success.all()), f"f32 gate through {backend!r} succeeded")
+    # B1 at the gate's QPs (the golden's problem linearized at its start):
+    # held to its plain version at f64, its f32 gap reported
+    def gate_qps(dtype):
+        mach = _make_machinery(ocp, _f32_safe(cfg, dtype), dtype, dev)
+        P, x0, Z = (torch.as_tensor(a, dtype=dtype, device=dev) for a in tiled)
+        qp = mach.build_qp(Z, torch.cat([P, P[:, -1:]], dim=1), x0)
+        kw = dict(nu=nu, n_iters=cfg.n_qp_iter, mu_min=1e-6, w_max=1e6,
+                  row_meta=mach.row_meta)
+        return (qp.H, qp.g, qp.A, qp.B, qp.c, qp.D, qp.e, mach.stage_mask,
+                qp.r0), kw, mach
+
+    for dtype in (torch.float64, torch.float32):
+        qa, kw, mach = gate_qps(dtype)
+        dz_k = qp_cuda.solve_qp_batched(*qa, **kw)
+        dz_p = qp_cuda.ip_solve_reference(*qa, **kw)
+        sync()
+        err = (dz_k - dz_p).abs().max().item()
+        scale = 1.0 + dz_p.abs().max().item()
+        log(f"{str(dtype)[6:]} B1 at the gate's QPs ({GATE_B} problems, "
+            f"T={qa[0].shape[1]}, m={qa[5].shape[2]}, {cfg.n_qp_iter} "
+            f"iterations): max|ddz| {err:.3e}, max|dz| {scale - 1:.3e}")
+        if dtype == torch.float64:
+            check(err <= QP_F64_GATE * scale, f"f64 B1 = plain at the gate's "
+                  f"QPs: max|ddz| <= {QP_F64_GATE:g} (1 + max|dz|)")
+    k_ms, k_all = cuda_time_ms(lambda: qp_cuda.solve_qp_batched(*qa, **kw),
+                               reps=20)
+    p_ms, _ = cuda_time_ms(lambda: qp_cuda.ip_solve_reference(*qa, **kw),
+                           reps=5)
+    log(f"[{card}] B1 at the gate's QPs: {k_ms:.4f} ms per launch (median of "
+        f"20; {spread(k_all)}), plain {p_ms:.3f} ms")
+    T, m = qa[0].shape[1], qa[5].shape[2]
+    mh = sum(meta[0] == "h" for meta in mach.row_meta)
+    check(roofline.ip_iter_flops(mach.row_meta, mach.stage_mask, ocp.nx, nu)
+          == roofline.GATE_IP_ITER_FLOPS, "IP iteration count at the gate's "
+          f"rows and mask = GATE_IP_ITER_FLOPS {roofline.GATE_IP_ITER_FLOPS}")
+    return dict(launches=launches["pallas"]["qp_ip"], err=err, ms=k_ms,
+                plain_ms=p_ms,
+                flops=roofline.ip_flops(GATE_B, cfg.n_qp_iter,
+                                        ip_iter=roofline.GATE_IP_ITER_FLOPS),
+                n_bytes=roofline.qp_bytes(T, ocp.nx, nu, m, mh, GATE_B, 4))
+
+
+def basic_tick_phase(dev, card, reset_counts, counts, none):
+    """(c) The configuration_basic planner tick (BASELINE config 2) at
+    default_settings (N=30, 4 obstacles, 10 x 18 SQP, f64) on the card:
+    Planner.solve_mpc -> Solver.solve, BASIC_TICKS ticks on a straight path
+    among the tick phase's crossing pedestrians, on a simulated clock (no
+    budget: the full ladder entry every tick), the launch counts set to 0
+    before them. Every tick succeeds, no contact, the solver's tensors on
+    the card, no kernel of the port, and the first tick equals the same
+    solve on the CPU within atol 1e-6."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        build_planner, configuration_basic)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        fetch_result_single, make_sqp_solver)
+    from oscar_mpc_planner_mr_modification_tpu_torch.planner.data_preparation import (  # noqa: E501
+        define_robot_area, ensure_obstacle_size)
+    from oscar_mpc_planner_mr_modification_tpu_torch.sim import (
+        Pedestrian, PedestrianSimulator)
+    from oscar_mpc_planner_mr_modification_tpu_torch.sim.roadmap import (
+        straight_path)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import State
+    from oscar_mpc_planner_mr_modification_tpu_torch.types import RealTimeData
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils.profiling import (
+        BENCHMARKERS)
+
+    settings = default_settings()
+    model, modules = configuration_basic(settings)
+    planner = build_planner(model, modules, settings, dtype=torch.float64,
+                            device=dev)
+    solver = planner.solver
+    check(solver.device.type == "cuda", f"basic planner's solver on "
+          f"{solver.device}")
+    N = solver.N
+    r_robot = float(settings["robot_radius"])
+    iv = model.state_index("v")
+    ref = straight_path(length=65.0)
+    state = State(model)
+    state.set("v", 0.8)
+    peds = [Pedestrian(np.array([x0, y0]), np.array([x0, -y0]))
+            for x0, y0 in TICK_PEDESTRIANS]
+    psim = PedestrianSimulator(peds, dt=TICK_DT)
+
+    def tick(first):
+        psim.step([state.get_position()])
+        data = RealTimeData()
+        data.robot_area = define_robot_area(0.65, 0.65, 1)
+        data.reference_path = ref
+        data.dynamic_obstacles = ensure_obstacle_size(
+            psim.get_obstacles(N), state, settings["max_obstacles"], N,
+            TICK_DT)
+        if first:
+            planner.on_data_received(data, "reference_path")
+        out = planner.solve_mpc(state, data)
+        a = planner.get_solution(0, "a") if out.success else -3.0
+        w = planner.get_solution(0, "w") if out.success else 0.0
+        x = model.discrete_dynamics(torch.as_tensor(state.as_array()),
+                                    torch.tensor([a, w], dtype=torch.float64),
+                                    TICK_DT).numpy()
+        x[iv] = max(x[iv], 0.0)
+        state.set_array(x)
+        return out, min(np.linalg.norm(state.get_position() - p.position)
+                        - r_robot - p.radius for p in peds)
+
+    full = solver._iter_ladder[0]
+    solve_full, devices = solver._ladder_fn(full), set()
+
+    def spy(*args):
+        res = solve_full(*args)
+        devices.add(res.z.device.type)
+        return res
+
+    solver._ladder_fns[full] = spy
+    BENCHMARKERS.reset()
+    reset_counts()
+    tick_ms, clearance, ladder, first_in, first_z = [], np.inf, set(), None, None
+    for i in range(BASIC_TICKS):
+        sync()
+        t0 = time.perf_counter()
+        out, clear = tick(i == 0)
+        sync()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        check(out.success, f"basic planner tick {i} succeeded")
+        clearance = min(clearance, clear)
+        ladder.add(solver.last_iterations_run)
+        if i == 0:
+            first_in = (solver.params.data.copy(), solver._xinit.copy(),
+                        solver._loaded_warmstart.copy())
+            first_z = solver.get_output_trajectory()
+    got = counts()
+    check(got == none, f"basic planner ticks launched no kernel of the port "
+          f"({got})")
+    check(clearance > 0.0, f"basic planner ticks: smallest clearance to a "
+          f"pedestrian {clearance:.4f} m > 0")
+    solver._ladder_fns[full] = solve_full
+    check(ladder == {full}, f"every tick ran the full ladder entry "
+          f"({sorted(ladder)} == [{full}])")
+    check(devices == {"cuda"}, f"the ticks' solves returned tensors on "
+          f"{devices}")
+    cpu = fetch_result_single(make_sqp_solver(
+        solver.ocp, solver.config, dtype=torch.float64, device="cpu")(
+            *first_in))
+    gap = float(np.abs(cpu.z - first_z).max())
+    log(f"basic planner's first tick vs the same solve on the CPU (f64): "
+        f"max|dZ| {gap:.3e}")
+    check(gap <= 1e-6, "basic planner's first tick = the CPU solve within "
+          "atol 1e-6")
+    solve_ms = np.asarray(BENCHMARKERS.get("optimization").durations) * 1e3
+    # device ops per tick: Solver.solve's (uploads, solve, one readback),
+    # extrapolated from short solves; the modules' work is on the host
+    ops = solve_launches(lambda c: (lambda *a: fetch_result_single(
+        make_sqp_solver(solver.ocp, c, dtype=torch.float64, device=dev)(
+            *a))), first_in, solver.config)
+    log(f"[{card}] basic planner tick (configuration_basic, N={N}, "
+        f"{solver.config.n_sqp} x {solver.config.n_qp_iter}, f64, "
+        f"{BASIC_TICKS} ticks, ladder entry {full}): tick "
+        f"{np.median(tick_ms):.1f} ms median ({[round(t, 1) for t in tick_ms]}"
+        f"), solve {np.median(solve_ms):.1f} ms median; "
+        f"{ops['total']} device ops per tick's solve ({ops['per_ip']} per IP "
+        f"iteration, {ops['per_sqp']} per SQP iteration besides); smallest "
+        f"clearance {clearance:.4f} m; progress "
+        f"{state.get('x'):.3f} m")
+    return dict(tick_ms=float(np.median(tick_ms)),
+                solve_ms=float(np.median(solve_ms)),
+                ops=ops["total"])
+
+
+def read_metrics(m):
+    """Every metric of a rollout in one device-to-host copy."""
+    flat = torch.cat([x.reshape(x.shape[0], -1).to(torch.float64)
+                      for x in m], dim=1).cpu().numpy()
+    out, col = {}, 0
+    for name, x in zip(m._fields, m):
+        n = x[0].numel()
+        out[name] = flat[:, col:col + n].reshape(x.shape)
+        col += n
+    return out
+
+
+def contouring_rollout_phase(dev, card, reset_counts, counts, none):
+    """(d) The contouring evaluator at tools/bench_rollout.py's shape
+    (B=4096 episodes, N=20, 60 ticks, 3 obstacles, f32), ``"auto"`` ->
+    ``"fused"``: exactly one B2 launch per tick and nothing else; one
+    profiled rollout has no copy between its B2 launches and one readback
+    after the last; f64 kernel = plain (``fused_fleet_reference``) on a B=8,
+    5-tick rollout, every metric within 1e-8; B2 alone on the evaluator's
+    first tick (4096 problems) against plain: at f64 every problem within
+    FUSED_F64_GATE, at f32 the median on each warp slot and the share of
+    problems within 1e-4. Returns B2's kernel entry."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import roofline
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        _phases_of, make_fleet_sqp_solver)
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel.rollout import (
+        contouring_scenes, make_contouring_rollout)
+
+    rollout, ocp = make_contouring_rollout(
+        n_obstacles=ROLLOUT_OBS, N=ROLLOUT_N, n_ticks=ROLLOUT_TICKS,
+        dtype=torch.float32, device=dev)
+    check(rollout.backend == "fused", f"evaluator backend "
+          f"{rollout.backend!r} == 'fused' ('auto' on cuda)")
+    B = ROLLOUT_B
+    reset_counts()
+    m = read_metrics(rollout(*contouring_scenes(B, ROLLOUT_OBS, seed=0)))
+    got = counts()
+    want = {**none, "sqp_fused": ROLLOUT_TICKS}
+    check(got == want, f"evaluator: launches {got} (want one B2 launch per "
+          f"tick, {ROLLOUT_TICKS}, and nothing else)")
+    check(np.isfinite(m["final_state"]).all()
+          and m["final_state"].shape == (B, ocp.nx),
+          f"evaluator final state finite, shape {m['final_state'].shape}")
+    wall = []
+    for seed in (1, 2):
+        scenes = contouring_scenes(B, ROLLOUT_OBS, seed=seed)
+        sync()
+        t0 = time.perf_counter()
+        m = read_metrics(rollout(*scenes))
+        wall.append(time.perf_counter() - t0)
+    success = float(m["solve_success_rate"].mean())
+    log(f"[{card}] contouring evaluator (B={B}, N={ROLLOUT_N}, "
+        f"{ROLLOUT_TICKS} ticks, {ROLLOUT_OBS} obstacles, f32, fused): "
+        f"{B / np.median(wall):.1f} episodes/s ({[round(w, 3) for w in wall]}"
+        f" s per batch, inputs uploaded and metrics read back inside), "
+        f"{B * ROLLOUT_TICKS / np.median(wall):.0f} closed-loop ticks/s; "
+        f"mean progress {m['progress'].mean():.3f} m, collision rate "
+        f"{m['collided'].mean():.4f}, solve success {success:.4f}")
+    check(success >= 0.9, f"evaluator solve success {success:.4f} >= 0.9")
+
+    # one profiled rollout: nothing crosses between ticks
+    scenes = contouring_scenes(B, ROLLOUT_OBS, seed=3)
+    names = [e.name for e in device_trace(
+        lambda: read_metrics(rollout(*scenes)))]
+    win = copy_windows(names)
+    log(f"evaluator, one profiled rollout: {len(names)} device ops, "
+        f"{len(win) - 1} B2 launches in the trace; (uploads, readbacks) "
+        f"before the first, between launches, after the last: "
+        f"{sorted(set(win[1:-1]))} between, {win[0]} before, {win[-1]} after")
+    check(len(win) - 1 >= ROLLOUT_TICKS - 1
+          and all(w == (0, 0) for w in win[1:-1]) and win[-1] == (0, 1),
+          "evaluator: no copy between B2 launches and one readback after "
+          "the last")
+
+    # f64 kernel = plain on a short rollout
+    small, _ = make_contouring_rollout(
+        n_obstacles=ROLLOUT_OBS, N=ROLLOUT_N, n_ticks=5, dtype=torch.float64,
+        device=dev, backend="fused")
+    s_scenes = contouring_scenes(8, ROLLOUT_OBS, seed=4)
+    mk = read_metrics(small(*s_scenes))
+    with plain_fused_solver(small.fleet_solve):
+        n0 = counts()["sqp_fused"]
+        mp = read_metrics(small(*s_scenes))
+        check(counts()["sqp_fused"] == n0, "plain evaluator launched no B2")
+    worst = max(float(np.abs(mk[k] - mp[k]).max()) for k in mk)
+    log(f"f64 evaluator (B=8, 5 ticks), kernel vs plain: max|d| over every "
+        f"metric {worst:.3e}")
+    check(worst <= 1e-8, "f64 evaluator kernel = plain: every metric within "
+          "1e-8")
+
+    # B2 alone at the evaluator's shape: its first tick
+    x0, obs0, vel = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                     for a in contouring_scenes(B, ROLLOUT_OBS, seed=0))
+    P = rollout.first_tick_params(x0, obs0, vel)
+    x = x0.clone()
+    x[:, ocp.model.state_index("spline")] = torch.clamp(x0[:, 0], 0.0, 50.0)
+    Z = torch.cat([torch.zeros(B, ROLLOUT_N + 1, ocp.nu, device=dev),
+                   x[:, None].expand(-1, ROLLOUT_N + 1, -1)], dim=2)
+    fs = rollout.fleet_solve
+    # f64 at full width, every problem held to the plain version
+    fs64 = make_fleet_sqp_solver(ocp, rollout.config, dtype=torch.float64,
+                                 device=dev, backend="fused")
+    a64 = tuple(a.double() for a in (P, x, Z))
+    r64k, r64p = fs64(*a64), fs64.reference(*a64)
+    sync()
+    rel64 = ((r64k.z - r64p.z).abs().amax(dim=(1, 2))
+             / (1.0 + r64p.z.abs().amax(dim=(1, 2))))
+    log(f"f64 B2 at the evaluator's first tick ({B} problems): max|dZ| "
+        f"{(r64k.z - r64p.z).abs().max().item():.3e}, max rel "
+        f"{rel64.max().item():.3e}, success "
+        f"{r64k.success.float().mean().item():.6f} (plain "
+        f"{r64p.success.float().mean().item():.6f})")
+    check(bool((r64k.success == r64p.success).all())
+          and rel64.max().item() <= FUSED_F64_GATE,
+          f"f64 B2 = plain at the evaluator's shape: same success, every "
+          f"problem max|dZ| / (1 + max|Z|) <= {FUSED_F64_GATE:g}")
+    del fs64, a64, r64k, r64p
+    # f32: per problem, by warp slot (problem b runs on warp b % W of its
+    # block, W = 1, 2 or 4) and over all problems
+    rk, rp = fs(P, x, Z), fs.reference(P, x, Z)
+    sync()
+    err = (rk.z - rp.z).abs().max().item()
+    rel = ((rk.z - rp.z).abs().amax(dim=(1, 2))
+           / (1.0 + rp.z.abs().amax(dim=(1, 2))))
+    slot_med = [rel[s::4].median().item() for s in range(4)]
+    share = (rel <= 1e-4).float().mean().item()
+    q = torch.quantile(rel.double(), torch.tensor(
+        [0.5, 0.9, 0.99, 0.999], dtype=torch.float64, device=dev)).tolist()
+    log(f"f32 B2 at the evaluator's first tick ({B} problems): max|dZ| "
+        f"{err:.3e}; per problem rel: median, p90, p99, p999 "
+        f"{[f'{v:.3e}' for v in q]}, max {rel.max().item():.3e}; median by "
+        f"problem mod 4 {[f'{v:.3e}' for v in slot_med]}; share <= 1e-4 "
+        f"{share:.6f}")
+    check(max(slot_med) <= 1e-4, "f32 B2 = plain at the evaluator's shape: "
+          "median rel <= 1e-4 on each of the problems mod 4")
+    check(share >= F32_ROLLOUT_SHARE, f"f32 B2 = plain at the evaluator's "
+          f"shape: share of problems with rel <= 1e-4 {share:.6f} >= "
+          f"{F32_ROLLOUT_SHARE}")
+    k_ms, k_all = cuda_time_ms(lambda: fs(P, x, Z), reps=10)
+    p_ms, _ = cuda_time_ms(lambda: fs.reference(P, x, Z), reps=2, warmup=0)
+    log(f"[{card}] B2 per evaluator tick ({B} problems, T={ROLLOUT_N + 1}, "
+        f"f32): {k_ms:.3f} ms (median of 10; {spread(k_all)}), plain "
+        f"fused_fleet_reference {p_ms:.1f} ms")
+    sched = _phases_of(rollout.config)
+    return dict(launches=got["sqp_fused"], err=err, ms=k_ms, plain_ms=p_ms,
+                episodes_per_s=B / float(np.median(wall)),
+                flops=roofline.sqp_flops(
+                    B, sched, lin=roofline.ROLLOUT_LIN_FLOPS,
+                    merit=roofline.ROLLOUT_MERIT_FLOPS,
+                    ip_iter=roofline.ROLLOUT_IP_ITER_FLOPS),
+                n_bytes=roofline.tensor_bytes(
+                    torch.cat([P, P[:, -1:]], dim=1), x, Z, Z) + 8 * B)
 
 
 def check(cond, msg):
@@ -1145,6 +1692,13 @@ def main():
     # ---- 14. the planner tick: Planner -> TMPCOptimizer -> one B2 --------
     tk = tick_phase(dev, card, reset_counts, counts, none)
 
+    # ---- 15-18. the single-instance solve and BASELINE config 2 ----------
+    golden_z = golden_single_phase(dev, card, reset_counts, counts, none)
+    gate = baseline_gate_phase(dev, card, reset_counts, counts, none,
+                               golden_z)
+    basic_tick_phase(dev, card, reset_counts, counts, none)
+    ro = contouring_rollout_phase(dev, card, reset_counts, counts, none)
+
     # ---- the kernels, each with its bound ---------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, flops,
               n_bytes):
@@ -1190,6 +1744,12 @@ def main():
                  f"{jax_ops}/sqp_fused.py:45", tk["launches"], tk["err"],
                  tk["ms"], tk["plain_ms"], tk["flops"], tk["n_bytes"]),
          "launches_per_tick": tk["launches_per_tick"]},
+        entry("qp_ip_gate", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
+              gate["launches"], gate["err"], gate["ms"], gate["plain_ms"],
+              gate["flops"], gate["n_bytes"]),
+        entry("sqp_fused_rollout", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", ro["launches"], ro["err"],
+              ro["ms"], ro["plain_ms"], ro["flops"], ro["n_bytes"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

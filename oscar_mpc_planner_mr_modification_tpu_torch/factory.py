@@ -46,6 +46,14 @@ def configuration_basic(settings):
     return model, modules
 
 
+def configuration_tmpc(settings, constraint_submodule=None):
+    """T-MPC++ without the consistency cost."""
+    model, modules = configuration_no_obstacles(settings)
+    modules.add_module(GuidanceConstraintModule(
+        settings, constraint_submodule=constraint_submodule))
+    return model, modules
+
+
 def configuration_tmpc_consistency_cost(settings, constraint_submodule=None):
     """The T-MPC++ configuration with the consistency cost (the bench OCP)."""
     model, modules = configuration_no_obstacles(settings)

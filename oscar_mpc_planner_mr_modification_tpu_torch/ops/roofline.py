@@ -14,8 +14,9 @@ plain version twice; :func:`fma_roof_emulated` rounds as the kernel does.
 :func:`ip_iter_flops` counts the operations of one iteration of the QP
 kernels' interior-point code; ``LIN_FLOPS`` and ``MERIT_FLOPS`` are the
 fused kernel's own counts of a linearization and a merit evaluation, at the
-fleet bench's OCP; the ``TICK_`` constants are the same three counts at the
-planner tick's OCP. :func:`bound_ms` is the least time the card could take
+fleet bench's OCP; the ``TICK_``, ``ROLLOUT_`` and ``GATE_`` constants are
+the same three counts at the planner tick's OCP, the contouring evaluator's
+and the BASELINE f32 gate's. :func:`bound_ms` is the least time the card could take
 for a given work:
 the larger of bytes over the memory rate and operations over the FP32 rate,
 both the published H100 SXM figures at its 700 W limit.
@@ -79,6 +80,22 @@ TICK_IP_ITER_FLOPS = 80954
 TICK_LIN_FLOPS = 157881
 TICK_MERIT_FLOPS = 27822
 
+#: The three counts at the contouring evaluator's OCP
+#: (``parallel/rollout.py::make_contouring_rollout`` at N=20, 3 obstacles,
+#: npar=76; 3 ellipsoid rows and 14 box rows), which B2 runs there; the
+#: same hand count and counting build, equal on every episode.
+ROLLOUT_IP_ITER_FLOPS = 66392
+ROLLOUT_LIN_FLOPS = 144435
+ROLLOUT_MERIT_FLOPS = 27675
+
+#: The three counts at the BASELINE f32 gate's OCP
+#: (``factory.configuration_basic`` at N=15, 2 obstacles, npar=69; 2
+#: ellipsoid rows and 14 box rows), which B1 and B2 run in
+#: ``chip_smoke.py``'s gate phase.
+GATE_IP_ITER_FLOPS = 46298
+GATE_LIN_FLOPS = 106665
+GATE_MERIT_FLOPS = 21040
+
 
 def fma_flops(n: int) -> float:
     """FLOPs of one roof launch on n elements (one FMA = 2)."""
@@ -121,10 +138,11 @@ def ip_iter_flops(row_meta, stage_mask, nx: int, nu: int) -> int:
     return int(per_row[active].sum() + stages + 10)
 
 
-def ip_flops(n_problems: int, n_iters: int) -> float:
+def ip_flops(n_problems: int, n_iters: int, ip_iter=IP_ITER_FLOPS) -> float:
     """Algorithmic FLOPs of ``n_iters`` interior-point iterations on
-    ``n_problems`` bench-shape QPs."""
-    return IP_ITER_FLOPS * n_iters * n_problems
+    ``n_problems`` QPs of ``ip_iter`` operations per iteration (by default
+    the bench's)."""
+    return ip_iter * n_iters * n_problems
 
 
 def sqp_flops(n_problems: int, schedule, lin=LIN_FLOPS, merit=MERIT_FLOPS,

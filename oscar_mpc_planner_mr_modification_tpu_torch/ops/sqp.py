@@ -26,7 +26,9 @@ condition) is <= ``res_eq_tol`` and everything is finite.
 launch per fleet solve, linearization included). ``backend="lanes"`` keeps
 the batch on the trailing axis: per SQP iteration one launch of the fused
 kernel's linearization (:mod:`.linearize`) and one of the QP kernel on its
-output buffer.
+output buffer. ``backend="xla"`` (the JAX package's name for its reference
+path) solves the QPs with :func:`.qp.solve_qp`, the plain PyTorch
+interior-point solver, as :func:`make_sqp_solver` does for one problem.
 
 For runtime ticks, :func:`make_buffered_packed_solve` wraps a batched solve
 into one upload, one solve and one readback (:func:`pack_results`,
@@ -43,6 +45,7 @@ import torch
 from torch.func import grad, jacfwd, vmap
 
 from . import qp_cuda
+from . import qp as qp_ip
 
 
 class SQPConfig(NamedTuple):
@@ -108,6 +111,16 @@ def fetch_results(res: SQPResult) -> SQPResult:
     fields (:func:`unpack_results`)."""
     B, T, nz = res.z.shape
     return unpack_results(pack_results(res).cpu().numpy(), T, nz)
+
+
+def fetch_result_single(res: SQPResult) -> SQPResult:
+    """:func:`fetch_results` for a batchless result (z (T, nz), 0-d fields):
+    one device-to-host copy; z a numpy array, the rest Python scalars."""
+    batched = fetch_results(SQPResult(*(x[None] for x in res)))
+    return SQPResult(
+        z=batched.z[0], cost=float(batched.cost[0]),
+        eq_res=float(batched.eq_res[0]), qp_comp=float(batched.qp_comp[0]),
+        success=bool(batched.success[0]), exit_code=int(batched.exit_code[0]))
 
 
 def make_buffered_packed_solve(batched_solve, P, N, npar, nx, nz, dtype,
@@ -196,10 +209,19 @@ class QPData(NamedTuple):
 
 
 def _mirror_regularize(H, eps):
-    """Project the symmetric H to V |diag| V^T with eigenvalue floor eps."""
-    w, V = torch.linalg.eigh(H)
+    """Project the symmetric H to V |diag| V^T with eigenvalue floor eps.
+
+    A matrix with a non-finite entry comes out NaN, as JAX's ``eigh`` gives
+    it, instead of making ``torch.linalg.eigh`` raise: it is decomposed as
+    the identity and then replaced. (``eigh`` still reads its convergence
+    flags back to the host, so on a CUDA device every call waits for the
+    device.)"""
+    bad = ~torch.isfinite(H).all(dim=-1).all(dim=-1)[..., None, None]
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    w, V = torch.linalg.eigh(torch.where(bad, eye, H))
     w = torch.clamp(torch.abs(w), min=eps)
-    return (V * w[..., None, :]) @ V.transpose(-1, -2)
+    return torch.where(bad, float("nan"),
+                       (V * w[..., None, :]) @ V.transpose(-1, -2))
 
 
 def _f32_safe(config: SQPConfig, dtype) -> SQPConfig:
@@ -234,6 +256,10 @@ def _make_machinery(ocp, config: SQPConfig, dtype, device):
 
     idx = {kind: [i for (k, i) in row_spec if k == kind]
            for kind in ("hl", "hu", "zl", "zu")}
+    # the same row selections as index tensors on the device: a list index
+    # would be copied from the host at every use, waiting for the device
+    sel = {kind: torch.as_tensor(rows, dtype=torch.long, device=device)
+           for kind, rows in idx.items()}
     lh, uh = const(ocp.lh[idx["hl"]]), const(ocp.uh[idx["hu"]])
     lbz, ubz = const(ocp.lbz[idx["zl"]]), const(ocp.ubz[idx["zu"]])
     unit = np.eye(nvar)
@@ -324,10 +350,10 @@ def _make_machinery(ocp, config: SQPConfig, dtype, device):
         c = f - Z[:, 1:, nu:]
 
         h, C = ineq_lin_v(Z, P)
-        D = torch.cat([C[:, :, idx["hl"]], -C[:, :, idx["hu"]],
+        D = torch.cat([C[:, :, sel["hl"]], -C[:, :, sel["hu"]],
                        unit_rows.expand(Bb, N + 1, -1, -1)], dim=2)
-        e = torch.cat([h[:, :, idx["hl"]] - lh, uh - h[:, :, idx["hu"]],
-                       Z[:, :, idx["zl"]] - lbz, ubz - Z[:, :, idx["zu"]]],
+        e = torch.cat([h[:, :, sel["hl"]] - lh, uh - h[:, :, sel["hu"]],
+                       Z[:, :, sel["zl"]] - lbz, ubz - Z[:, :, sel["zu"]]],
                       dim=2)
         return QPData(H=H, g=g, A=J[..., nu:], B=J[..., :nu], c=c, D=D, e=e,
                       r0=xinit - Z[:, 0, nu:])
@@ -384,6 +410,77 @@ def fleet_result(z, cost, eq_res, finite, config: SQPConfig) -> SQPResult:
                      exit_code=success.to(torch.int32))
 
 
+def _make_reference_solver(ocp, config: SQPConfig, dtype, device):
+    """The single-instance SQP of the JAX package's ``make_sqp_solver`` over a
+    leading batch axis: ``solve(all_params (B, N, npar), xinit (B, nx),
+    z_init (B, N+1, nvar)) -> SQPResult``, every QP through
+    :func:`.qp.solve_qp`. Per problem, as JAX's vmap of it: one SQP loop per
+    schedule phase, a full step kept back where it is NaN, the best-merit
+    iterate (merit with the initial-condition residual) with ``track_best``,
+    success from the final equality residual, and ``qp_comp`` the last QP's
+    complementarity. Plain PyTorch on ``device``."""
+    device = torch.device(device)
+    config = _f32_safe(config, dtype)
+    mach = _make_machinery(ocp, config, dtype, device)
+    nu = mach.nu
+    row_mask = torch.as_tensor(mach.stage_mask, dtype=dtype, device=device)
+
+    def iteration(Z, best_Z, best_merit, P, xinit, n_iters):
+        qp = mach.build_qp(Z, P, xinit)
+        sol = qp_ip.solve_qp(
+            qp_ip.QPData(qp.H, qp.g, qp.A, qp.B, qp.c, qp.D, qp.e, row_mask,
+                         qp.r0),
+            nu=nu, n_iters=n_iters, mu_min=config.mu_min, w_max=config.w_max)
+        Z_new = Z + sol.z
+        # A NaN step (failed QP) keeps the previous iterate.
+        bad = torch.any(torch.isnan(Z_new), dim=(1, 2), keepdim=True)
+        Z_new = torch.where(bad, Z, Z_new)
+        if not config.track_best:
+            return Z_new, Z_new, best_merit, sol.comp
+        merit = mach.merit_of(Z_new, P, xinit)[0]
+        better = merit < best_merit
+        return (Z_new, torch.where(better[:, None, None], Z_new, best_Z),
+                torch.where(better, merit, best_merit), sol.comp)
+
+    def solve(all_params, xinit, z_init) -> SQPResult:
+        all_params = torch.as_tensor(all_params, dtype=dtype, device=device)
+        P = torch.cat([all_params, all_params[:, -1:]], dim=1)  # stage N reuses N-1
+        Z = torch.as_tensor(z_init, dtype=dtype, device=device)
+        xinit = torch.as_tensor(xinit, dtype=dtype, device=device)
+        best_Z, comp = Z, None
+        best_merit = (mach.merit_of(Z, P, xinit)[0] if config.track_best
+                      else None)
+        for n_sqp, n_qp in _phases_of(config):
+            for _ in range(n_sqp):
+                Z, best_Z, best_merit, comp = iteration(
+                    Z, best_Z, best_merit, P, xinit, n_qp)
+        _, cost, eq_res, finite = mach.merit_of(best_Z, P, xinit)
+        return fleet_result(best_Z, cost, eq_res, finite,
+                            config)._replace(qp_comp=comp)
+
+    solve.machinery = mach
+    return solve
+
+
+def make_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
+                    device="cuda"):
+    """The single-instance SQP solve: ``solve(all_params (N, npar),
+    xinit (nx,), z_init (N+1, nvar)) -> SQPResult`` with batchless fields
+    on ``device`` (0-d cost, eq_res, qp_comp, success, exit_code), the JAX
+    package's ``make_sqp_solver``. Inputs may be numpy arrays or tensors.
+    It is plain PyTorch (:func:`.qp.solve_qp`): no kernel of this package.
+    ``solve.batched`` solves a leading batch of problems, each as alone."""
+    batched = _make_reference_solver(ocp, config, dtype, device)
+
+    def solve(all_params, xinit, z_init) -> SQPResult:
+        res = batched(*(torch.as_tensor(x, dtype=dtype, device=device)[None]
+                        for x in (all_params, xinit, z_init)))
+        return SQPResult(*(x[0] for x in res))
+
+    solve.batched, solve.machinery = batched, batched.machinery
+    return solve
+
+
 def make_fleet_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
                           device="cuda", backend: str = "pallas"):
     """Batched fleet solver.
@@ -398,7 +495,12 @@ def make_fleet_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
     SQP iteration one launch of the fused kernel's linearization and one of
     the QP kernel on its output (:func:`_make_lane_fleet_solver`). The fused
     and lane backends raise for an OCP or regularization the fused kernel
-    does not cover, and for ``n_qp_iter_warm > 0``.
+    does not cover, and for ``n_qp_iter_warm > 0``. ``backend="xla"``: the
+    reference path, every problem as :func:`make_sqp_solver` solves it
+    (plain PyTorch, no kernel) but with ``qp_comp`` 0, as the JAX fleet
+    backends return it; it too raises for ``n_qp_iter_warm > 0``.
+    ``"pallas"`` raises ``ValueError`` at build on a CUDA device when the QP
+    kernel is not compiled for the OCP's (nx, nu).
 
     Returns ``solve(all_params (B, N, npar), xinit (B, nx),
     z_init (B, N+1, nvar)) -> SQPResult``; inputs are moved to ``device`` and
@@ -409,15 +511,31 @@ def make_fleet_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
         return make_fused_fleet_solver(ocp, config, dtype=dtype, device=device)
     if backend == "lanes":
         return _make_lane_fleet_solver(ocp, config, dtype=dtype, device=device)
+    if backend == "xla":
+        if config.n_qp_iter_warm > 0:
+            raise ValueError("backend='xla' solves its QPs cold; "
+                             "n_qp_iter_warm needs backend='pallas'")
+        reference = _make_reference_solver(ocp, config, dtype, device)
+
+        def solve(all_params, xinit, z_init) -> SQPResult:
+            res = reference(all_params, xinit, z_init)
+            return res._replace(qp_comp=torch.zeros_like(res.cost))
+
+        solve.machinery = reference.machinery
+        return solve
     if backend != "pallas":
         raise ValueError(f"unknown backend {backend!r}; expected 'fused', "
-                         "'lanes' or 'pallas'")
+                         "'lanes', 'pallas' or 'xla'")
     dual_warm = config.n_qp_iter_warm > 0
     if dual_warm and config.qp_iter_schedule:
         raise ValueError(
             "qp_iter_schedule and n_qp_iter_warm are mutually exclusive "
             "(the warm path has its own per-iteration budget)")
     device = torch.device(device)
+    if device.type == "cuda":
+        # Before anything touches the device: the kernel would refuse these
+        # sizes at its first launch.
+        qp_cuda.check_instantiated(ocp.nx, ocp.nu)
     config = _f32_safe(config, dtype)
     mach = _make_machinery(ocp, config, dtype, device)
     kw = dict(nu=mach.nu, mu_min=config.mu_min, w_max=config.w_max,

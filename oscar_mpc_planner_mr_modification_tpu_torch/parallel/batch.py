@@ -1,6 +1,11 @@
 """Batched T-MPC step (torch): a (B instances x P planners) fleet of SQP
 solves plus per-plan best-planner selection, counterpart of the JAX package's
-``parallel/batch.py``."""
+``parallel/batch.py``.
+
+The backend ``"auto"`` is resolved from the device when the step is built,
+never on an exception: ``"pallas"`` (the QP kernel) on a CUDA device,
+``"xla"`` (the plain single-instance solve) on the CPU. The built step
+records it as ``plan_step.backend``."""
 
 from __future__ import annotations
 
@@ -21,6 +26,34 @@ class TMPCStepResult(NamedTuple):
     all_success: torch.Tensor  # (B, P)
 
 
+def resolve_backend(backend: str, device) -> str:
+    """``"auto"`` -> ``"pallas"`` on a CUDA device, ``"xla"`` elsewhere;
+    any other name is returned as it is."""
+    if backend != "auto":
+        return backend
+    return "pallas" if torch.device(device).type == "cuda" else "xla"
+
+
+def make_plan_fn(ocp, config: SQPConfig, *, dtype, device="cuda"):
+    """One T-MPC plan: P solves of the single-instance SQP
+    (:func:`..ops.sqp.make_sqp_solver`, all P in one batch) and the argmin,
+    i.e. the ``"xla"`` step of :func:`make_batched_tmpc_step` on a batch of
+    one plan.
+
+    plan(params (P, N, npar), xinit (nx,), z_init (P, N+1, nvar),
+    disabled (P,) bool) -> TMPCStepResult without the B axis: a successful,
+    enabled planner's cost, inf otherwise; ``all_success`` is that mask."""
+    step = make_batched_tmpc_step(ocp, config, dtype=dtype, device=device,
+                                  backend="xla")
+
+    def plan(params, xinit, z_init, disabled) -> TMPCStepResult:
+        out = step(*(torch.as_tensor(x)[None]
+                     for x in (params, xinit, z_init, disabled)))
+        return TMPCStepResult(*(x[0] for x in out))
+
+    return plan
+
+
 def make_batched_tmpc_step(ocp, config: SQPConfig, *, dtype, device="cuda",
                            backend: str = "pallas"):
     """(B, P)-batched T-MPC step on the fleet solver of ``backend``
@@ -29,8 +62,12 @@ def make_batched_tmpc_step(ocp, config: SQPConfig, *, dtype, device="cuda",
     plan_step(params (B,P,N,npar), xinit (B,nx), z_init (B,P,N+1,nvar),
     disabled (B,P) bool) -> TMPCStepResult with leading B axis. The B*P solves
     run as one fleet; each plan picks its cheapest successful, enabled planner
-    (the first on ties, planner 0 when none succeeded)."""
+    (the first on ties, planner 0 when none succeeded). ``"xla"`` solves
+    every problem as :func:`..ops.sqp.make_sqp_solver` does, as the JAX
+    package's vmap of :func:`make_plan_fn`; ``"auto"`` resolves by
+    :func:`resolve_backend`."""
     device = torch.device(device)
+    backend = resolve_backend(backend, device)
     fleet_solve = make_fleet_sqp_solver(ocp, config, dtype=dtype, device=device,
                                         backend=backend)
 
@@ -56,7 +93,7 @@ def make_batched_tmpc_step(ocp, config: SQPConfig, *, dtype, device="cuda",
             any_success=torch.isfinite(best_cost), all_costs=costs,
             all_success=torch.isfinite(costs))
 
-    plan_step.fleet_solve = fleet_solve
+    plan_step.fleet_solve, plan_step.backend = fleet_solve, backend
     return plan_step
 
 

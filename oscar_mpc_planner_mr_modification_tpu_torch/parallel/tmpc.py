@@ -170,6 +170,12 @@ class TMPCOptimizer:
             pending["n"], now - pending["t0"], compile_call=pending["first"])
         return unpack_results(out, T, nz)
 
+    def _solve_batch(self, params, xinit, warmstarts) -> SQPResult:
+        """The batched solve, synchronously: :meth:`_dispatch_batch`, then
+        :meth:`_fetch_batch`."""
+        self._dispatch_batch(params, xinit, warmstarts)
+        return self._fetch_batch()
+
     # ------------------------------------------------------------------
     def update(self, state, data, module_data) -> None:
         """Load obstacles, start and goals into the guidance planner and run

@@ -1,28 +1,33 @@
-"""Host-side Solver object: parameter, warm-start and output buffers.
+"""Host-side Solver object: parameter, warm-start and output buffers, and
+the single-instance solve.
 
 Counterpart of the JAX package's ``solver/solver.py``: name-indexed
 parameter, warm-start and output access, the shift-forward, hold and braking
 warm-start policies, exit-flag semantics, cloning for parallel planners, and
 the budget ladder of SQP iteration counts (``select_iterations``,
-``note_solve_time``). Buffers are numpy; the T-MPC optimizer
-(:mod:`..parallel.tmpc`) stacks them over its planners and solves them on
-the device, then hands the winner back through :meth:`Solver.load_result`.
+``note_solve_time``). Buffers are numpy.
 
-The JAX Solver also builds a single-instance SQP solve for configurations
-without a custom optimizer; the port has none yet (ROADMAP A12:
-``make_sqp_solver`` on ``ops/qp.py::solve_qp``), so :meth:`Solver.solve`
-raises. The T-MPC planner never calls it: its guidance module claims the
-optimization.
+:meth:`Solver.solve` runs the single-instance SQP
+(:func:`..ops.sqp.make_sqp_solver`, plain PyTorch on the solver's device)
+at the ladder entry that fits the tick's budget, with one device-to-host
+copy of the result; it serves configurations whose modules do not claim the
+optimization (``factory.configuration_basic``). The T-MPC optimizer
+(:mod:`..parallel.tmpc`) instead stacks the buffers over its planners,
+solves them as one fleet and hands the winner back through
+:meth:`Solver.load_result`. The solve of each ladder entry is built on its
+first selection and shared by every clone.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..ops.sqp import SQPConfig, SQPResult, _phases_of
+from ..ops.sqp import (SQPConfig, SQPResult, _phases_of, fetch_result_single,
+                       make_sqp_solver, scale_iterations)
 from .ocp import OCP
 
 
@@ -52,15 +57,20 @@ class Solver:
                 qp_iter_schedule=sched,
             )
         self.config = sqp_config
+        self._solve_fn = make_sqp_solver(ocp, sqp_config, dtype=dtype,
+                                         device=self.device)
 
         # Budget-adaptive iteration control: a ladder of SQP iteration counts
         # (full, half, quarter); the largest one predicted to fit the
         # remaining budget runs. The per-iteration time is an EMA fed by
-        # whoever solved last.
+        # whoever solved last. The full count's solve is built above, the
+        # others on their first selection.
         self.adaptive_iterations = bool(ss.get("adaptive_iterations", True))
         n_full = sum(n for n, _ in _phases_of(sqp_config))
         self._iter_ladder = sorted(
             {n_full, max(1, n_full // 2), max(1, n_full // 4)}, reverse=True)
+        self._ladder_fns = {n_full: self._solve_fn}
+        self._timed_variants = set()  # ladder entries past their first solve
         self._iter_time_ema = 0.0  # seconds per SQP iteration (0 = unknown)
         self.last_iterations_run = 0
 
@@ -87,6 +97,12 @@ class Solver:
         out._xinit = self._xinit.copy()
         out.info = dict(self.info)
         return out
+
+    def copy_params_from(self, other: "Solver") -> None:
+        """The reference's ``operator=``: copy the parameters and the
+        warm-start buffer only."""
+        self.params = other.params.copy()
+        self._x0 = other._x0.copy()
 
     def reset(self) -> None:
         self.params = self.ocp.registry.new_buffer(self.N)
@@ -207,6 +223,15 @@ class Solver:
                 return n
         return self._iter_ladder[-1]
 
+    def _ladder_fn(self, n: int):
+        """The solve of ladder entry ``n`` (``n`` SQP iterations), built on
+        first use."""
+        if n not in self._ladder_fns:
+            self._ladder_fns[n] = make_sqp_solver(
+                self.ocp, scale_iterations(self.config, n), dtype=self.dtype,
+                device=self.device)
+        return self._ladder_fns[n]
+
     def note_solve_time(self, n: int, elapsed: float,
                         compile_call: bool) -> None:
         """Feed a measured solve of ``n`` SQP iterations into the
@@ -221,10 +246,21 @@ class Solver:
 
     # -- solve -------------------------------------------------------------
     def solve(self) -> int:
-        raise NotImplementedError(
-            "the single-instance solve (make_sqp_solver on ops/qp.py::"
-            "solve_qp) is not ported yet (ROADMAP A12); planners whose "
-            "guidance module claims the optimization (T-MPC) do not need it")
+        """Solve the loaded problem at the ladder entry that fits the
+        budget, store the result (one device-to-host copy) and return the
+        exit code. A ladder entry's first solve is not fed into the
+        per-iteration time."""
+        n = self.select_iterations()
+        fn = self._ladder_fn(n)
+        first_call = n not in self._timed_variants
+        t0 = time.perf_counter()
+        result = fn(self.params.data, self._xinit, self._loaded_warmstart)
+        self.load_result(fetch_result_single(result))
+        elapsed = time.perf_counter() - t0
+        if first_call:
+            self._timed_variants.add(n)
+        self.note_solve_time(n, elapsed, compile_call=first_call)
+        return self._exit_code
 
     def load_result(self, result: SQPResult) -> int:
         """Store one problem's result (numpy fields or 0-d values), e.g. the
@@ -245,3 +281,30 @@ class Solver:
     def get_output_trajectory(self) -> np.ndarray:
         """(N+1, nvar) full primal solution."""
         return self._output_z.copy()
+
+    def explain_exit_flag(self, code: Optional[int] = None) -> str:
+        code = self._exit_code if code is None else code
+        return {
+            1: "Success",
+            0: "Failure (no more information)",
+            2: "Failure (maximum number of iterations reached)",
+            3: "Failure (minimum step size reached)",
+        }.get(code, f"Unknown exit code; code: {code}")
+
+    def print_if_bound_limited(self) -> list:
+        """(stage, name, "lower" | "upper") for every output within 1e-2 of
+        a bound (states at stage 0 excluded)."""
+        hits = []
+        lb, ub = self.ocp.model.bounds_arrays()
+        names = list(self.ocp.model.inputs) + list(self.ocp.model.states)
+        for k in range(self.N):
+            for name in names:
+                i = self.ocp.model.var_index(name)
+                if k == 0 and name in self.ocp.model.states:
+                    continue
+                v = self._output_z[k, i]
+                if abs(v - lb[i]) < 1e-2:
+                    hits.append((k, name, "lower"))
+                if abs(v - ub[i]) < 1e-2:
+                    hits.append((k, name, "upper"))
+        return hits

@@ -24,9 +24,10 @@ def haar_difference_without_abs(angle1, angle2):
 
     The constants are tensors of the angle's dtype: under ``torch.func``
     forward-over-reverse, a 0-d f32 tensor minus a Python float gives f64
-    second derivatives."""
+    second derivatives. They are filled on the device, not copied there
+    (a copy from the host waits for the device)."""
     d = angle1 - angle2
-    pi = torch.as_tensor(math.pi, dtype=d.dtype, device=d.device)
+    pi = torch.full((), math.pi, dtype=d.dtype, device=d.device)
     return torch.fmod(d + pi, 2.0 * pi) - pi
 
 

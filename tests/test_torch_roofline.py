@@ -288,6 +288,70 @@ def test_tick_ocp_flops_match_the_kernel_count(count_lib):
     assert tick < roofline.sqp_flops(5, BENCH_SCHEDULE)
 
 
+@pytest.mark.parametrize("which", ["rollout", "gate"])
+def test_contouring_ocp_flops_match_the_kernel_count(count_lib, which):
+    """The ROLLOUT_ and GATE_ constants are the hand count and the fused
+    kernel's own counts at the contouring evaluator's OCP (N=20, 3
+    obstacles) and at the BASELINE f32 gate's (configuration_basic, N=15,
+    2 obstacles), equal on every problem: 8 evaluator episodes at their
+    first tick; the golden's problem at its start and at its solution."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        configuration_basic)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        SQPConfig, _make_machinery)
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel import (
+        rollout)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import build_ocp
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    f64 = torch.float64
+    if which == "rollout":
+        ro, ocp = rollout.make_contouring_rollout(N=20, n_ticks=1, dtype=f64,
+                                                  device="cpu")
+        cfg = rollout._default_rollout_config()
+        x0, obs0, vel = rollout.contouring_scenes(8, 3, seed=0)
+        P = ro.first_tick_params(x0, obs0, vel)
+        x0 = torch.as_tensor(x0, dtype=f64)
+        Z = x0[:, None].expand(-1, 21, -1)
+        Z = torch.cat([torch.zeros(8, 21, 2, dtype=f64), Z], dim=2)
+        want = (roofline.ROLLOUT_IP_ITER_FLOPS, roofline.ROLLOUT_LIN_FLOPS,
+                roofline.ROLLOUT_MERIT_FLOPS, 76)
+    else:
+        gold = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                                    "contouring_2obs.npz"))
+        settings = default_settings(N=15, max_obstacles=2)
+        ocp = build_ocp(*configuration_basic(settings), settings)
+        cfg = SQPConfig(n_sqp=25, n_qp_iter=15, mu_min=1e-6, w_max=1e6,
+                        reg_eps=1e-4, regularization="gershgorin")
+        P = torch.as_tensor(gold["P"])[None].expand(2, -1, -1)
+        x0 = torch.as_tensor(gold["x0"])[None].expand(2, -1)
+        Z = torch.stack([torch.as_tensor(gold["z_init"]),
+                         torch.as_tensor(gold["Z"])])
+        want = (roofline.GATE_IP_ITER_FLOPS, roofline.GATE_LIN_FLOPS,
+                roofline.GATE_MERIT_FLOPS, 69)
+    assert ocp.npar == want[3]
+    P = torch.cat([P, P[:, -1:]], dim=1).contiguous()
+    mach = _make_machinery(ocp, cfg, f64, "cpu")
+    tables = sqp_fused.ocp_tables(ocp, cfg)
+    itab = np.ascontiguousarray(tables.ints)
+    rtab = np.ascontiguousarray(tables.reals)
+    qp = mach.build_qp(Z, P, x0)
+    ins = sqp_fused._lanes_in(P, x0, Z)
+    for b in range(P.shape[0]):
+        one = tsqp.QPData(*(x[b:b + 1] for x in qp))
+        assert _check_iteration_count(count_lib, one, mach.stage_mask,
+                                      mach.row_meta, ocp.nx,
+                                      mach.nu) == want[0]
+        cols = [np.ascontiguousarray(x[:, b].numpy()) for x in ins]
+        lin, merit = np.zeros(5, np.int64), np.zeros(5, np.int64)
+        count_lib.tmpc_count_ops(
+            *[c.ctypes.data for c in cols], itab.ctypes.data,
+            rtab.ctypes.data, tables.T, tables.npar, tables.m, tables.mh,
+            tables.reg, lin.ctypes.data, merit.ctypes.data)
+        assert (int(lin.sum()), int(merit.sum())) == want[1:3]
+
+
 def test_linearization_flops_match_cost_analysis():
     """The fused kernel's count of a linearization plus a merit evaluation
     against XLA's cost analysis of the JAX package's lane linearizer plus
@@ -331,6 +395,7 @@ def test_sqp_flops_count_linearizations_and_ip_iterations():
             + 24 * roofline.IP_ITER_FLOPS)
     assert roofline.sqp_flops(10, sched) == pytest.approx(10 * want)
     assert roofline.ip_flops(10, 8) == pytest.approx(80 * roofline.IP_ITER_FLOPS)
+    assert roofline.ip_flops(2, 3, ip_iter=100) == 600
     assert roofline.lin_flops(3) == 3 * (roofline.LIN_FLOPS
                                          + roofline.MERIT_FLOPS)
     # T=2, nx=1, nu=1, m=1, no generic row (one D slot): H 2*3 + g 2*2 +

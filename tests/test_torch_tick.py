@@ -448,8 +448,11 @@ def test_iteration_ladder_under_budget():
         assert solver.select_iterations() == want
     solver.adaptive_iterations = False
     assert solver.select_iterations() == 8
-    with pytest.raises(NotImplementedError, match="A12"):
-        solver.solve()
+    # The single-instance solve runs the selected entry; its first solve
+    # does not feed the per-iteration time.
+    assert solver.solve() in (0, 1)
+    assert solver.last_iterations_run == 8 and 8 in solver._timed_variants
+    assert solver._iter_time_ema == pytest.approx(0.01)
 
     # Through a planner: a budgeted tick runs the half-count entry.
     clock = FakeClock()
