@@ -9,7 +9,7 @@ cold, duals/warm and field-layout entries), the fused whole-SQP kernel
 (csrc/sqp_fused.cu, with its linearize entry) and the FP32 roof kernel
 (csrc/fma_roof.cu). B1 and B2 run one warp per problem with its state in
 shared memory: for every entry it prints the launch plan at the bench shape
-(warps per block, dynamic shared memory per block, problems resident per
+and at BASELINE config 1's goal OCP (warps per block, dynamic shared memory per block, problems resident per
 SM, registers and local memory per thread). Holds each against its plain PyTorch version: the QP
 kernel on the bench QPs (cold; cold with duals out, then warm from them on
 the re-linearized QPs; on the linearize entry's buffer), the fused kernel's
@@ -47,7 +47,20 @@ the card, its first tick against the same solve on the CPU; and the
 contouring evaluator of tools/bench_rollout.py (4096 episodes, 60 ticks,
 f32, one B2 launch per tick, nothing read back between ticks, f64 kernel
 against plain on a short rollout, B2 on its first tick against plain at
-f64, every problem, and at f32). Any
+f64, every problem, and at f32). Then BASELINE config 1 (goal tracking on
+SecondOrderUnicycleModel, nx=4, with 3 ellipsoids) and the other
+evaluators, each run with the launch counts set to 0 just before it:
+(e) its f32 gate against tests/golden/validate_goal_U64.npy through B1's
+(4, 2) instance and through B2's goal model, B1 at the gate's QPs against
+its plain version and B2 on them at f64 (the contouring gate runs the same
+B2 check); (f) the goal evaluator (4096 episodes), (g) the multi-robot
+evaluator (1024 episodes x 4 robots, comm="always", then "triggered" with
+its comm_rate) and (h) the T-MPC evaluator (819 episodes x 5 planners, 4
+obstacles), all at tools/bench_rollout.py's shape (N=20, 60 ticks, f32),
+with the contouring evaluator's checks: one B2 launch per tick and nothing
+else, no copy between ticks (profiled once), success >= 0.9, f64 kernel =
+plain on a short rollout, B2 on the first tick against plain at f64 and
+by per-problem medians at f32, episodes/s. Any
 failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 each with its bound. Needs one CUDA device; without one it exits with code 2.
@@ -185,16 +198,24 @@ def plain_qp_solver():
 
 
 def log_launch_plans(dev):
-    """Every B1 and B2 entry's launch plan at the bench shape, f32 and f64."""
-    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
-        qp_cuda, sqp_fused)
+    """Every B1 and B2 entry's launch plan at the bench shape ((nx, nu) =
+    (5, 2)) and at BASELINE config 1's goal OCP ((4, 2), N=20, 3
+    obstacles), f32 and f64."""
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
         make_fleet_sqp_solver)
 
-    ocp, _ = bench_fleet(1, torch.float32, "cpu")
-    solve = make_fleet_sqp_solver(ocp, bench_config(), dtype=torch.float32,
-                                  device="cpu", backend="fused")
-    tables = solve.tables
+    bench_ocp, _ = bench_fleet(1, torch.float32, "cpu")
+    for ocp in (bench_ocp, goal_ocp()):
+        solve = make_fleet_sqp_solver(ocp, bench_config(),
+                                      dtype=torch.float32, device="cpu",
+                                      backend="fused")
+        log_plans(dev, ocp, solve.tables)
+
+
+def log_plans(dev, ocp, tables):
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        qp_cuda, sqp_fused)
+
     with torch.cuda.device(dev):
         for dtype in (torch.float32, torch.float64):
             plans = {
@@ -206,7 +227,8 @@ def log_launch_plans(dev):
                 sqp_fused.launch_info(dtype, tables))
             for name, p in plans.items():
                 log(f"launch plan {name} {str(dtype)[6:]} at T={tables.T}, "
-                    f"m={tables.m}: {p['warps_per_block']} warps (problems) "
+                    f"m={tables.m}, (nx, nu) = ({ocp.nx}, {ocp.nu}): "
+                    f"{p['warps_per_block']} warps (problems) "
                     f"per block, {p['smem_bytes_per_block']} B dynamic shared "
                     f"memory per block, {p['problems_per_sm']} problems "
                     f"resident per SM, {p['registers']} registers and "
@@ -608,14 +630,24 @@ GOLDEN_CFG = dict(n_sqp=30, n_qp_iter=20, mu_min=1e-10)
 GATE_CFG = dict(n_sqp=25, n_qp_iter=15, mu_min=1e-6, w_max=1e6, reg_eps=1e-4,
                 regularization="gershgorin")
 GATE_B = 4
-#: The contouring evaluator at tools/bench_rollout.py's shape.
-ROLLOUT_B, ROLLOUT_N, ROLLOUT_TICKS, ROLLOUT_OBS = 4096, 20, 60, 3
+#: The evaluators at tools/bench_rollout.py's shape (its defaults: 4096
+#: episodes of the goal and contouring evaluators, 1024 x 4 robots, 819 x 5
+#: T-MPC planners).
+ROLLOUT_N, ROLLOUT_TICKS = 20, 60
 BASIC_TICKS = 5
-#: Share of the evaluator's first-tick problems on which f32 B2 must lie
-#: within 1e-4 (per problem, relative) of its plain version: 0.995117 on an
-#: H100 80GB HBM3 (700 W); a fault on one warp slot of a 2-warp block would
-#: take half the problems.
+#: Share of the contouring evaluator's first-tick problems on which f32 B2
+#: must lie within 1e-4 (per problem, relative) of its plain version:
+#: 0.995117 on an H100 80GB HBM3 (700 W); a fault on one warp slot of a
+#: 2-warp block would take half the problems.
 F32_ROLLOUT_SHARE = 0.98
+#: The multi-robot and T-MPC evaluators' f64 kernel-vs-plain rollouts are
+#: held to the fused kernel's per-problem gate, not to 1e-8: each carries
+#: from tick to tick a decision that round-off can tip, a QP frozen at its
+#: residual tolerance (1e-5) one iteration sooner or later, whose plan the
+#: other robots then read, or the selection among guided planners that
+#: converge to one trajectory. The multi-robot rollout parted by 1.5e-8 on
+#: an H100 80GB HBM3 (700 W).
+COUPLED_F64_ROLLOUT_GATE = FUSED_F64_GATE
 
 
 def sync():
@@ -762,55 +794,79 @@ def golden_single_phase(dev, card, reset_counts, counts, none):
     return res.z.cpu().numpy()
 
 
-def baseline_gate_phase(dev, card, reset_counts, counts, none, golden_z):
-    """(b) BASELINE's f32 gate, contouring flavour (examples/validate_tpu.py):
-    the golden's problem tiled to B=4 at the f32 operating point through B1
-    (``"pallas"``) and through B2 (``"fused"``), each run with the launch
-    counts set to 0 before it; max |U32 - U64| <= 1e-3 against
-    tests/golden/validate_contouring_U64.npy for each; beside it the port's
-    f64 make_sqp_solver on the card, ``golden_z`` from
-    :func:`golden_single_phase` (the golden's config, mu_min 1e-10, where
-    examples/validate_tpu.py's cross-check solves again at 1e-9). Then B1 at the gate's QPs against its plain
-    version. Returns B1's kernel entry numbers."""
+def goal_ocp():
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel.rollout import (
+        _goal_ellipsoid_ocp)
+
+    return _goal_ellipsoid_ocp(3, 20)[0]
+
+
+#: BASELINE's f32 gate by flavour: the golden (inputs and CPU-f64 solve),
+#: the committed CPU-f64 controls, the OCP and its operation counts (the
+#: roofline constants of its IP iteration, linearization and merit).
+GATE_FLAVOURS = {
+    "contouring": ("contouring_2obs.npz", "validate_contouring_U64.npy",
+                   lambda: basic_ocp(15, 2), "GATE"),
+    "goal": ("goal_tracking_3obs.npz", "validate_goal_U64.npy", goal_ocp,
+             "GOAL"),
+}
+
+
+def baseline_gate_phase(dev, card, reset_counts, counts, none, flavour,
+                        ref_z=None):
+    """BASELINE's f32 gate of one flavour (examples/validate_tpu.py;
+    ``GATE_FLAVOURS``): the golden's problem tiled to B=4 at the f32
+    operating point through B1 (``"pallas"``) and through B2 (``"fused"``),
+    each run with the launch counts set to 0 before it; max |U32 - U64| <=
+    1e-3 against the committed CPU-f64 controls for each; beside it, where
+    given, ``ref_z``, an f64 solve of the golden (the port's make_sqp_solver
+    on the card, the golden's config, mu_min 1e-10, where
+    examples/validate_tpu.py's cross-check solves again at 1e-9). Then B1
+    at the gate's QPs against its plain version, and B2 on the tiled
+    problems against its plain version at f64. Returns B1's and B2's
+    kernel entry numbers."""
     from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
         qp_cuda, roofline)
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
-        SQPConfig, _f32_safe, _make_machinery, make_fleet_sqp_solver)
+        SQPConfig, _f32_safe, _make_machinery, _phases_of,
+        make_fleet_sqp_solver)
 
-    gold = np.load(os.path.join(ROOT, "tests", "golden", "contouring_2obs.npz"))
-    U64 = np.load(os.path.join(ROOT, "tests", "golden",
-                               "validate_contouring_U64.npy"))
-    ocp = basic_ocp(15, 2)
+    golden, u64, make_ocp, consts = GATE_FLAVOURS[flavour]
+    gold = np.load(os.path.join(ROOT, "tests", "golden", golden))
+    U64 = np.load(os.path.join(ROOT, "tests", "golden", u64))
+    ocp = make_ocp()
     nu = ocp.nu
     cfg = SQPConfig(**GATE_CFG)
     tiled = (np.tile(gold["P"][None], (GATE_B, 1, 1)),
              np.tile(gold["x0"][None], (GATE_B, 1)),
              np.tile(gold["z_init"][None], (GATE_B, 1, 1)))
-    U_ref = golden_z[:-1, :nu]
     want = {"pallas": {**none, "qp_ip": cfg.n_sqp},
             "fused": {**none, "sqp_fused": 1}}
-    launches = {}
+    launches, fleets = {}, {}
     for backend in ("pallas", "fused"):
-        fleet = make_fleet_sqp_solver(ocp, cfg, dtype=torch.float32,
-                                      device=dev, backend=backend)
+        fleet = fleets[backend] = make_fleet_sqp_solver(
+            ocp, cfg, dtype=torch.float32, device=dev, backend=backend)
         reset_counts()
         out = fleet(*tiled)
         sync()
         got = counts()
         launches[backend] = got
-        check(got == want[backend], f"f32 gate through {backend!r}: launches "
-              f"{got} (want {want[backend]})")
+        check(got == want[backend], f"{flavour} f32 gate through {backend!r}: "
+              f"launches {got} (want {want[backend]})")
         U32 = out.z.cpu().numpy()[:, :-1, :nu]
         err = float(np.abs(U32 - U64[None]).max())
-        log(f"[{card}] BASELINE f32 gate, contouring+ellipsoid, {backend!r}: "
-            f"max|U32 - U64| {err:.3e} over {GATE_B} problems (gate 1e-3), "
-            f"success {out.success.tolist()}; vs the port's f64 "
-            f"make_sqp_solver on the card (the golden phase's solve) "
-            f"{np.abs(U32 - U_ref).max():.3e}; golden vs that solve "
-            f"{np.abs(U64 - U_ref).max():.3e}")
-        check(err <= 1e-3, f"BASELINE f32 gate through {backend!r}: "
-              f"max|U32 - U64| {err:.3e} <= 1e-3")
-        check(bool(out.success.all()), f"f32 gate through {backend!r} succeeded")
+        ref = "" if ref_z is None else (
+            f"; vs the port's f64 make_sqp_solver on the card (the golden "
+            f"phase's solve) {np.abs(U32 - ref_z[:-1, :nu]).max():.3e}; "
+            f"golden vs that solve {np.abs(U64 - ref_z[:-1, :nu]).max():.3e}")
+        log(f"[{card}] BASELINE f32 gate, {flavour}+ellipsoid (nx={ocp.nx}), "
+            f"{backend!r}: max|U32 - U64| {err:.3e} over {GATE_B} problems "
+            f"(gate 1e-3), success {out.success.tolist()}{ref}")
+        check(err <= 1e-3, f"BASELINE f32 gate, {flavour}, through "
+              f"{backend!r}: max|U32 - U64| {err:.3e} <= 1e-3")
+        check(bool(out.success.all()), f"{flavour} f32 gate through "
+              f"{backend!r} succeeded")
+
     # B1 at the gate's QPs (the golden's problem linearized at its start):
     # held to its plain version at f64, its f32 gap reported
     def gate_qps(dtype):
@@ -829,28 +885,63 @@ def baseline_gate_phase(dev, card, reset_counts, counts, none, golden_z):
         sync()
         err = (dz_k - dz_p).abs().max().item()
         scale = 1.0 + dz_p.abs().max().item()
-        log(f"{str(dtype)[6:]} B1 at the gate's QPs ({GATE_B} problems, "
-            f"T={qa[0].shape[1]}, m={qa[5].shape[2]}, {cfg.n_qp_iter} "
-            f"iterations): max|ddz| {err:.3e}, max|dz| {scale - 1:.3e}")
+        log(f"{str(dtype)[6:]} B1 at the {flavour} gate's QPs ({GATE_B} "
+            f"problems, T={qa[0].shape[1]}, nx={ocp.nx}, m={qa[5].shape[2]},"
+            f" {cfg.n_qp_iter} iterations): max|ddz| {err:.3e}, max|dz| "
+            f"{scale - 1:.3e}")
         if dtype == torch.float64:
-            check(err <= QP_F64_GATE * scale, f"f64 B1 = plain at the gate's "
-                  f"QPs: max|ddz| <= {QP_F64_GATE:g} (1 + max|dz|)")
+            check(err <= QP_F64_GATE * scale, f"f64 B1 = plain at the "
+                  f"{flavour} gate's QPs: max|ddz| <= {QP_F64_GATE:g} "
+                  f"(1 + max|dz|)")
     k_ms, k_all = cuda_time_ms(lambda: qp_cuda.solve_qp_batched(*qa, **kw),
                                reps=20)
     p_ms, _ = cuda_time_ms(lambda: qp_cuda.ip_solve_reference(*qa, **kw),
                            reps=5)
-    log(f"[{card}] B1 at the gate's QPs: {k_ms:.4f} ms per launch (median of "
-        f"20; {spread(k_all)}), plain {p_ms:.3f} ms")
+    log(f"[{card}] B1 at the {flavour} gate's QPs: {k_ms:.4f} ms per launch "
+        f"(median of 20; {spread(k_all)}), plain {p_ms:.3f} ms")
     T, m = qa[0].shape[1], qa[5].shape[2]
     mh = sum(meta[0] == "h" for meta in mach.row_meta)
+    ip_iter, lin, merit = (getattr(roofline, f"{consts}_{kind}_FLOPS")
+                           for kind in ("IP_ITER", "LIN", "MERIT"))
     check(roofline.ip_iter_flops(mach.row_meta, mach.stage_mask, ocp.nx, nu)
-          == roofline.GATE_IP_ITER_FLOPS, "IP iteration count at the gate's "
-          f"rows and mask = GATE_IP_ITER_FLOPS {roofline.GATE_IP_ITER_FLOPS}")
-    return dict(launches=launches["pallas"]["qp_ip"], err=err, ms=k_ms,
-                plain_ms=p_ms,
-                flops=roofline.ip_flops(GATE_B, cfg.n_qp_iter,
-                                        ip_iter=roofline.GATE_IP_ITER_FLOPS),
-                n_bytes=roofline.qp_bytes(T, ocp.nx, nu, m, mh, GATE_B, 4))
+          == ip_iter, f"IP iteration count at the {flavour} gate's rows and "
+          f"mask = {consts}_IP_ITER_FLOPS {ip_iter}")
+    b1 = dict(launches=launches["pallas"]["qp_ip"], err=err, ms=k_ms,
+              plain_ms=p_ms,
+              flops=roofline.ip_flops(GATE_B, cfg.n_qp_iter, ip_iter=ip_iter),
+              n_bytes=roofline.qp_bytes(T, ocp.nx, nu, m, mh, GATE_B, 4))
+
+    # B2 on the tiled problems: f64 against its plain version, f32 timed
+    fs64 = make_fleet_sqp_solver(ocp, cfg, dtype=torch.float64, device=dev,
+                                 backend="fused")
+    r_k, r_p = fs64(*tiled), fs64.reference(*tiled)
+    sync()
+    rel = ((r_k.z - r_p.z).abs().amax(dim=(1, 2))
+           / (1.0 + r_p.z.abs().amax(dim=(1, 2))))
+    b2_err = (r_k.z - r_p.z).abs().max().item()
+    log(f"f64 B2 at the {flavour} gate ({GATE_B} problems, {cfg.n_sqp} x "
+        f"{cfg.n_qp_iter}): max|dZ| {b2_err:.3e}, max rel "
+        f"{rel.max().item():.3e}")
+    check(bool((r_k.success == r_p.success).all())
+          and rel.max().item() <= FUSED_F64_GATE, f"f64 B2 = plain at the "
+          f"{flavour} gate: same success, per problem max|dZ| / (1 + max|Z|) "
+          f"<= {FUSED_F64_GATE:g}")
+    fs = fleets["fused"]
+    a32 = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in tiled)
+    f_ms, f_all = cuda_time_ms(lambda: fs(*a32), reps=10)
+    fp_ms, _ = cuda_time_ms(lambda: fs.reference(*a32), reps=1, warmup=0)
+    log(f"[{card}] B2 at the {flavour} gate ({GATE_B} problems, f32): "
+        f"{f_ms:.3f} ms per launch (median of 10; {spread(f_all)}), plain "
+        f"fused_fleet_reference {fp_ms:.1f} ms")
+    b2 = dict(launches=launches["fused"]["sqp_fused"], err=b2_err, ms=f_ms,
+              plain_ms=fp_ms,
+              flops=roofline.sqp_flops(GATE_B, _phases_of(cfg), lin=lin,
+                                       merit=merit, ip_iter=ip_iter),
+              n_bytes=roofline.tensor_bytes(
+                  torch.cat([a32[0], a32[0][:, -1:]], dim=1), a32[1], a32[2],
+                  a32[2]) + 8 * GATE_B)
+    return dict(b1=b1, b2=b2)
 
 
 def basic_tick_phase(dev, card, reset_counts, counts, none):
@@ -980,106 +1071,88 @@ def basic_tick_phase(dev, card, reset_counts, counts, none):
                 ops=ops["total"])
 
 
-def read_metrics(m):
-    """Every metric of a rollout in one device-to-host copy."""
-    flat = torch.cat([x.reshape(x.shape[0], -1).to(torch.float64)
-                      for x in m], dim=1).cpu().numpy()
-    out, col = {}, 0
-    for name, x in zip(m._fields, m):
-        n = x[0].numel()
-        out[name] = flat[:, col:col + n].reshape(x.shape)
-        col += n
-    return out
-
-
-def contouring_rollout_phase(dev, card, reset_counts, counts, none):
-    """(d) The contouring evaluator at tools/bench_rollout.py's shape
-    (B=4096 episodes, N=20, 60 ticks, 3 obstacles, f32), ``"auto"`` ->
-    ``"fused"``: exactly one B2 launch per tick and nothing else; one
-    profiled rollout has no copy between its B2 launches and one readback
-    after the last; f64 kernel = plain (``fused_fleet_reference``) on a B=8,
-    5-tick rollout, every metric within 1e-8; B2 alone on the evaluator's
-    first tick (4096 problems) against plain: at f64 every problem within
-    FUSED_F64_GATE, at f32 the median on each warp slot and the share of
-    problems within 1e-4. Returns B2's kernel entry."""
+def evaluator_phase(dev, card, reset_counts, counts, none, ev,
+                    short_ticks=3, f64_gate=1e-8, f32_share=None):
+    """One evaluator of tools/bench_rollout.py (``ev``, its
+    ``evaluators()`` description) at the tool's shape, f32, ``"auto"`` ->
+    ``"fused"``: exactly one B2 launch per tick and nothing else, the
+    launch counts set to 0 before the run; success >= 0.9 (any planner's,
+    for the T-MPC evaluator); episodes/s by the host clock over two batches
+    (inputs uploaded and metrics read back inside); one profiled rollout
+    has no copy between its B2 launches and one readback after the last;
+    f64 kernel = plain (``fused_fleet_reference``) on an 8-episode,
+    ``short_ticks``-tick rollout, every metric within ``f64_gate``; B2 alone
+    on the evaluator's first tick against plain: at f64 every problem
+    within FUSED_F64_GATE, at f32 the median on each warp slot within 1e-4
+    (and, with ``f32_share``, the share of problems within 1e-4). Returns
+    B2's kernel entry numbers."""
     from oscar_mpc_planner_mr_modification_tpu_torch.ops import roofline
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
         _phases_of, make_fleet_sqp_solver)
-    from oscar_mpc_planner_mr_modification_tpu_torch.parallel.rollout import (
-        contouring_scenes, make_contouring_rollout)
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools.bench_rollout import (  # noqa: E501
+        read_metrics, throughput)
 
-    rollout, ocp = make_contouring_rollout(
-        n_obstacles=ROLLOUT_OBS, N=ROLLOUT_N, n_ticks=ROLLOUT_TICKS,
-        dtype=torch.float32, device=dev)
-    check(rollout.backend == "fused", f"evaluator backend "
+    rollout, ocp = ev.make(ROLLOUT_TICKS, torch.float32, dev)
+    check(rollout.backend == "fused", f"{ev.name} evaluator backend "
           f"{rollout.backend!r} == 'fused' ('auto' on cuda)")
-    B = ROLLOUT_B
+    B, n = ev.batch, ev.batch * ev.planners
     reset_counts()
-    m = read_metrics(rollout(*contouring_scenes(B, ROLLOUT_OBS, seed=0)))
+    m = read_metrics(rollout(*ev.scenes(B, 0)))
     got = counts()
     want = {**none, "sqp_fused": ROLLOUT_TICKS}
-    check(got == want, f"evaluator: launches {got} (want one B2 launch per "
-          f"tick, {ROLLOUT_TICKS}, and nothing else)")
-    check(np.isfinite(m["final_state"]).all()
-          and m["final_state"].shape == (B, ocp.nx),
-          f"evaluator final state finite, shape {m['final_state'].shape}")
-    wall = []
-    for seed in (1, 2):
-        scenes = contouring_scenes(B, ROLLOUT_OBS, seed=seed)
-        sync()
-        t0 = time.perf_counter()
-        m = read_metrics(rollout(*scenes))
-        wall.append(time.perf_counter() - t0)
-    success = float(m["solve_success_rate"].mean())
-    log(f"[{card}] contouring evaluator (B={B}, N={ROLLOUT_N}, "
-        f"{ROLLOUT_TICKS} ticks, {ROLLOUT_OBS} obstacles, f32, fused): "
-        f"{B / np.median(wall):.1f} episodes/s ({[round(w, 3) for w in wall]}"
-        f" s per batch, inputs uploaded and metrics read back inside), "
-        f"{B * ROLLOUT_TICKS / np.median(wall):.0f} closed-loop ticks/s; "
-        f"mean progress {m['progress'].mean():.3f} m, collision rate "
-        f"{m['collided'].mean():.4f}, solve success {success:.4f}")
-    check(success >= 0.9, f"evaluator solve success {success:.4f} >= 0.9")
+    check(got == want, f"{ev.name} evaluator: launches {got} (want one B2 "
+          f"launch per tick, {ROLLOUT_TICKS}, and nothing else)")
+    final = m["final_states" if "final_states" in m else "final_state"]
+    check(np.isfinite(final).all() and final.shape[0] == B,
+          f"{ev.name} evaluator final state finite, shape {final.shape}")
+    m, wall = throughput(ev, rollout, seeds=(1, 2))
+    summary = ev.summary(m)
+    eps = B / float(np.median(wall))
+    log(f"[{card}] {ev.name} evaluator (B={B} x {ev.planners} = {n} problems "
+        f"per tick, N={ROLLOUT_N}, {ROLLOUT_TICKS} ticks, f32, fused): "
+        f"{eps:.1f} episodes/s ({[round(w, 3) for w in wall]} s per batch, "
+        f"inputs uploaded and metrics read back inside), "
+        f"{n * ROLLOUT_TICKS / float(np.median(wall)):.0f} problems solved "
+        f"per s; {summary}")
+    key = "plan_success" if "plan_success" in summary else "solve_success"
+    check(summary[key] >= 0.9, f"{ev.name} evaluator {key} "
+          f"{summary[key]:.4f} >= 0.9")
 
     # one profiled rollout: nothing crosses between ticks
-    scenes = contouring_scenes(B, ROLLOUT_OBS, seed=3)
+    scenes = ev.scenes(B, 3)
     names = [e.name for e in device_trace(
         lambda: read_metrics(rollout(*scenes)))]
     win = copy_windows(names)
-    log(f"evaluator, one profiled rollout: {len(names)} device ops, "
-        f"{len(win) - 1} B2 launches in the trace; (uploads, readbacks) "
+    log(f"{ev.name} evaluator, one profiled rollout: {len(names)} device "
+        f"ops, {len(win) - 1} B2 launches in the trace; (uploads, readbacks) "
         f"before the first, between launches, after the last: "
         f"{sorted(set(win[1:-1]))} between, {win[0]} before, {win[-1]} after")
     check(len(win) - 1 >= ROLLOUT_TICKS - 1
           and all(w == (0, 0) for w in win[1:-1]) and win[-1] == (0, 1),
-          "evaluator: no copy between B2 launches and one readback after "
-          "the last")
+          f"{ev.name} evaluator: no copy between B2 launches and one "
+          f"readback after the last")
 
     # f64 kernel = plain on a short rollout
-    small, _ = make_contouring_rollout(
-        n_obstacles=ROLLOUT_OBS, N=ROLLOUT_N, n_ticks=5, dtype=torch.float64,
-        device=dev, backend="fused")
-    s_scenes = contouring_scenes(8, ROLLOUT_OBS, seed=4)
+    small, _ = ev.make(short_ticks, torch.float64, dev, "fused")
+    s_scenes = ev.scenes(8, 4)
     mk = read_metrics(small(*s_scenes))
     with plain_fused_solver(small.fleet_solve):
         n0 = counts()["sqp_fused"]
         mp = read_metrics(small(*s_scenes))
-        check(counts()["sqp_fused"] == n0, "plain evaluator launched no B2")
+        check(counts()["sqp_fused"] == n0,
+              f"plain {ev.name} evaluator launched no B2")
     worst = max(float(np.abs(mk[k] - mp[k]).max()) for k in mk)
-    log(f"f64 evaluator (B=8, 5 ticks), kernel vs plain: max|d| over every "
-        f"metric {worst:.3e}")
-    check(worst <= 1e-8, "f64 evaluator kernel = plain: every metric within "
-          "1e-8")
+    log(f"f64 {ev.name} evaluator (B=8 x {ev.planners}, {short_ticks} "
+        f"ticks), kernel vs plain: max|d| over every metric {worst:.3e}")
+    check(worst <= f64_gate, f"f64 {ev.name} evaluator kernel = plain: "
+          f"every metric within {f64_gate:g}")
 
     # B2 alone at the evaluator's shape: its first tick
-    x0, obs0, vel = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-                     for a in contouring_scenes(B, ROLLOUT_OBS, seed=0))
-    P = rollout.first_tick_params(x0, obs0, vel)
-    x = x0.clone()
-    x[:, ocp.model.state_index("spline")] = torch.clamp(x0[:, 0], 0.0, 50.0)
-    Z = torch.cat([torch.zeros(B, ROLLOUT_N + 1, ocp.nu, device=dev),
-                   x[:, None].expand(-1, ROLLOUT_N + 1, -1)], dim=2)
+    args = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in ev.scenes(B, 0))
+    P, x, Z = ev.first_tick(rollout, ocp, args)
     fs = rollout.fleet_solve
-    # f64 at full width, every problem held to the plain version
+    # f64, every problem held to the plain version
     fs64 = make_fleet_sqp_solver(ocp, rollout.config, dtype=torch.float64,
                                  device=dev, backend="fused")
     a64 = tuple(a.double() for a in (P, x, Z))
@@ -1087,15 +1160,15 @@ def contouring_rollout_phase(dev, card, reset_counts, counts, none):
     sync()
     rel64 = ((r64k.z - r64p.z).abs().amax(dim=(1, 2))
              / (1.0 + r64p.z.abs().amax(dim=(1, 2))))
-    log(f"f64 B2 at the evaluator's first tick ({B} problems): max|dZ| "
-        f"{(r64k.z - r64p.z).abs().max().item():.3e}, max rel "
+    log(f"f64 B2 at the {ev.name} evaluator's first tick ({n} problems): "
+        f"max|dZ| {(r64k.z - r64p.z).abs().max().item():.3e}, max rel "
         f"{rel64.max().item():.3e}, success "
         f"{r64k.success.float().mean().item():.6f} (plain "
         f"{r64p.success.float().mean().item():.6f})")
     check(bool((r64k.success == r64p.success).all())
           and rel64.max().item() <= FUSED_F64_GATE,
-          f"f64 B2 = plain at the evaluator's shape: same success, every "
-          f"problem max|dZ| / (1 + max|Z|) <= {FUSED_F64_GATE:g}")
+          f"f64 B2 = plain at the {ev.name} evaluator's shape: same success, "
+          f"every problem max|dZ| / (1 + max|Z|) <= {FUSED_F64_GATE:g}")
     del fs64, a64, r64k, r64p
     # f32: per problem, by warp slot (problem b runs on warp b % W of its
     # block, W = 1, 2 or 4) and over all problems
@@ -1108,30 +1181,63 @@ def contouring_rollout_phase(dev, card, reset_counts, counts, none):
     share = (rel <= 1e-4).float().mean().item()
     q = torch.quantile(rel.double(), torch.tensor(
         [0.5, 0.9, 0.99, 0.999], dtype=torch.float64, device=dev)).tolist()
-    log(f"f32 B2 at the evaluator's first tick ({B} problems): max|dZ| "
-        f"{err:.3e}; per problem rel: median, p90, p99, p999 "
+    log(f"f32 B2 at the {ev.name} evaluator's first tick ({n} problems): "
+        f"max|dZ| {err:.3e}; per problem rel: median, p90, p99, p999 "
         f"{[f'{v:.3e}' for v in q]}, max {rel.max().item():.3e}; median by "
         f"problem mod 4 {[f'{v:.3e}' for v in slot_med]}; share <= 1e-4 "
-        f"{share:.6f}")
-    check(max(slot_med) <= 1e-4, "f32 B2 = plain at the evaluator's shape: "
-          "median rel <= 1e-4 on each of the problems mod 4")
-    check(share >= F32_ROLLOUT_SHARE, f"f32 B2 = plain at the evaluator's "
-          f"shape: share of problems with rel <= 1e-4 {share:.6f} >= "
-          f"{F32_ROLLOUT_SHARE}")
+        f"{share:.6f}; success {rk.success.float().mean().item():.6f} "
+        f"(plain {rp.success.float().mean().item():.6f})")
+    check(max(slot_med) <= 1e-4, f"f32 B2 = plain at the {ev.name} "
+          f"evaluator's shape: median rel <= 1e-4 on each of the problems "
+          f"mod 4")
+    if f32_share is not None:
+        check(share >= f32_share, f"f32 B2 = plain at the {ev.name} "
+              f"evaluator's shape: share of problems with rel <= 1e-4 "
+              f"{share:.6f} >= {f32_share}")
     k_ms, k_all = cuda_time_ms(lambda: fs(P, x, Z), reps=10)
     p_ms, _ = cuda_time_ms(lambda: fs.reference(P, x, Z), reps=2, warmup=0)
-    log(f"[{card}] B2 per evaluator tick ({B} problems, T={ROLLOUT_N + 1}, "
-        f"f32): {k_ms:.3f} ms (median of 10; {spread(k_all)}), plain "
-        f"fused_fleet_reference {p_ms:.1f} ms")
-    sched = _phases_of(rollout.config)
+    log(f"[{card}] B2 per {ev.name} evaluator tick ({n} problems, "
+        f"T={ROLLOUT_N + 1}, f32): {k_ms:.3f} ms (median of 10; "
+        f"{spread(k_all)}), plain fused_fleet_reference {p_ms:.1f} ms; B2's "
+        f"share of a tick {k_ms * ROLLOUT_TICKS / 1e3 / float(np.median(wall)):.3f}")
+    lin, merit, ip_iter = ev.counts
     return dict(launches=got["sqp_fused"], err=err, ms=k_ms, plain_ms=p_ms,
-                episodes_per_s=B / float(np.median(wall)),
-                flops=roofline.sqp_flops(
-                    B, sched, lin=roofline.ROLLOUT_LIN_FLOPS,
-                    merit=roofline.ROLLOUT_MERIT_FLOPS,
-                    ip_iter=roofline.ROLLOUT_IP_ITER_FLOPS),
+                episodes_per_s=eps,
+                flops=roofline.sqp_flops(n, _phases_of(rollout.config),
+                                         lin=lin, merit=merit,
+                                         ip_iter=ip_iter),
                 n_bytes=roofline.tensor_bytes(
-                    torch.cat([P, P[:, -1:]], dim=1), x, Z, Z) + 8 * B)
+                    torch.cat([P, P[:, -1:]], dim=1), x, Z, Z) + 8 * n)
+
+
+def triggered_phase(dev, card, reset_counts, counts, none, ev):
+    """The multi-robot evaluator at ``ev``'s shape with event-triggered
+    communication (``comm="triggered"``): one B2 launch per tick and
+    nothing else, the counts set to 0 before the run; success >= 0.9; the
+    realized broadcast rate ``comm_rate`` strictly between 0 and 1."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel.rollout import (
+        make_multirobot_rollout)
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools.bench_rollout import (  # noqa: E501
+        read_metrics, throughput)
+
+    rollout, _ = make_multirobot_rollout(
+        n_robots=ev.planners, N=ROLLOUT_N, n_ticks=ROLLOUT_TICKS,
+        dtype=torch.float32, device=dev, comm="triggered")
+    reset_counts()
+    read_metrics(rollout(*ev.scenes(ev.batch, 0)))
+    got = counts()
+    check(got == {**none, "sqp_fused": ROLLOUT_TICKS}, f"triggered "
+          f"multi-robot evaluator: launches {got} (want {ROLLOUT_TICKS} B2)")
+    m, wall = throughput(ev, rollout, seeds=(1,))
+    summary = ev.summary(m)
+    log(f"[{card}] multirobot evaluator, comm='triggered' (B={ev.batch} x "
+        f"{ev.planners}, {ROLLOUT_TICKS} ticks, f32): "
+        f"{ev.batch / wall[0]:.1f} episodes/s; {summary}")
+    check(summary["solve_success"] >= 0.9, f"triggered multi-robot solve "
+          f"success {summary['solve_success']:.4f} >= 0.9")
+    check(0.0 < summary["comm_rate"] < 1.0, f"triggered multi-robot "
+          f"comm_rate {summary['comm_rate']:.4f} in (0, 1)")
+    return summary
 
 
 def check(cond, msg):
@@ -1693,15 +1799,33 @@ def main():
     tk = tick_phase(dev, card, reset_counts, counts, none)
 
     # ---- 15-18. the single-instance solve and BASELINE config 2 ----------
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools.bench_rollout import (  # noqa: E501
+        evaluators)
+
+    evs = evaluators(N=ROLLOUT_N, n_ticks=ROLLOUT_TICKS)
     golden_z = golden_single_phase(dev, card, reset_counts, counts, none)
     gate = baseline_gate_phase(dev, card, reset_counts, counts, none,
-                               golden_z)
+                               "contouring", golden_z)
     basic_tick_phase(dev, card, reset_counts, counts, none)
-    ro = contouring_rollout_phase(dev, card, reset_counts, counts, none)
+    ro = evaluator_phase(dev, card, reset_counts, counts, none,
+                         evs["contouring"], short_ticks=5,
+                         f32_share=F32_ROLLOUT_SHARE)
+
+    # ---- 19-22. BASELINE config 1 and the other evaluators ---------------
+    goal_gate = baseline_gate_phase(dev, card, reset_counts, counts, none,
+                                    "goal")
+    goal_ro = evaluator_phase(dev, card, reset_counts, counts, none,
+                              evs["goal"])
+    mr_ro = evaluator_phase(dev, card, reset_counts, counts, none,
+                            evs["multirobot"],
+                            f64_gate=COUPLED_F64_ROLLOUT_GATE)
+    triggered_phase(dev, card, reset_counts, counts, none, evs["multirobot"])
+    tmpc_ro = evaluator_phase(dev, card, reset_counts, counts, none,
+                              evs["tmpc"], f64_gate=COUPLED_F64_ROLLOUT_GATE)
 
     # ---- the kernels, each with its bound ---------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, flops,
-              n_bytes):
+              n_bytes, **_):
         bound, by = roofline.bound_ms(flops, n_bytes)
         return {"name": name, "route": "cuda",
                 "source": f"oscar_mpc_planner_mr_modification_tpu_torch/csrc/{source}",
@@ -1720,7 +1844,8 @@ def main():
           f"IP_ITER_FLOPS {roofline.IP_ITER_FLOPS}")
     ip8 = roofline.ip_flops(n_problems, 8)
     lin_b = roofline.tensor_bytes(*lin_in) + 4 * n_problems * (
-        sqp_fused.qp_layout(T_b, m_b, tables.mh)["total"] + 3)
+        sqp_fused.qp_layout(T_b, m_b, tables.mh, tables.nx,
+                            tables.nu)["total"] + 3)
     print(json.dumps({"kernels": [
         entry("qp_ip", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
               main_launches, max_abs_err, k_ms, p_ms, ip8, qp_b),
@@ -1745,11 +1870,21 @@ def main():
                  tk["ms"], tk["plain_ms"], tk["flops"], tk["n_bytes"]),
          "launches_per_tick": tk["launches_per_tick"]},
         entry("qp_ip_gate", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
-              gate["launches"], gate["err"], gate["ms"], gate["plain_ms"],
-              gate["flops"], gate["n_bytes"]),
+              **gate["b1"]),
+        entry("sqp_fused_gate", "sqp_fused.cu", f"{jax_ops}/sqp_fused.py:45",
+              **gate["b2"]),
         entry("sqp_fused_rollout", "sqp_fused.cu",
-              f"{jax_ops}/sqp_fused.py:45", ro["launches"], ro["err"],
-              ro["ms"], ro["plain_ms"], ro["flops"], ro["n_bytes"]),
+              f"{jax_ops}/sqp_fused.py:45", **ro),
+        entry("qp_ip_goal_gate", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
+              **goal_gate["b1"]),
+        entry("sqp_fused_goal_gate", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **goal_gate["b2"]),
+        entry("sqp_fused_goal_rollout", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **goal_ro),
+        entry("sqp_fused_multirobot_rollout", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **mr_ro),
+        entry("sqp_fused_tmpc_rollout", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **tmpc_ro),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,8 +28,8 @@
 // the work is in its file comment), and writes z (and the multipliers) back
 // into its column. Nothing of the iteration touches global memory. The state
 // and input dimensions are template parameters, instantiated for
-// (nx, nu) = (5, 2), the port's unicycle model; the wrapper raises for any
-// other.
+// (nx, nu) = (5, 2) and (4, 2), the port's two unicycle models
+// (qp_ip.cuh::with_dims); the wrapper raises for any other.
 //
 // What bounds it: latency along each problem's sequential chain, not
 // arithmetic (it runs at about 1% of the FP32 roof). An iteration runs the

@@ -16,7 +16,7 @@
 // tests/test_torch_roofline.py builds it and calls qp_ip_count_ops on one
 // problem in the kernel's field-major layout (Bt = 1) with the kernel's own
 // row tables (ops/qp_cuda.py::_row_tables), and tmpc_count_ops on one
-// problem of the bench OCP with its tables (ops/sqp_fused.py::ocp_tables).
+// problem of a fused OCP with its tables (ops/sqp_fused.py::ocp_tables).
 
 #include <math.h>
 
@@ -115,7 +115,7 @@ extern "C" {
 
 // One problem's solve with n_iters iterations; inputs as the QP kernel takes
 // them (f64, Bt = 1), the scalars as qp_ip.cu's launch derives them.
-// (nx, nu) in {(5, 2), (3, 1), (4, 3)}. out[0..4]: additions and
+// (nx, nu) in {(5, 2), (4, 2), (3, 1), (4, 3)}. out[0..4]: additions and
 // subtractions, multiplications, divisions, negations, transcendentals
 // (square roots). Returns -3 for another (nx, nu).
 int qp_ip_count_ops(const double* H, const double* g, const double* A,
@@ -134,6 +134,8 @@ int qp_ip_count_ops(const double* H, const double* g, const double* A,
   int ret = 0;
   if (nx == 5 && nu == 2)
     count_ip<5, 2>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
+  else if (nx == 4 && nu == 2)
+    count_ip<4, 2>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
   else if (nx == 3 && nu == 1)
     count_ip<3, 1>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
   else if (nx == 4 && nu == 3)
@@ -145,35 +147,40 @@ int qp_ip_count_ops(const double* H, const double* g, const double* A,
 }
 
 // The linearization (lin_out) and the merit terms (merit_out) of one
-// problem of the fused kernel's OCP at Z, as the kernel runs them (lane
-// group, 32 emulated lanes); P (npar*T), x0 (nx), Z (T*nz) as the
-// kernel's field-major columns with Bt = 1. Each out as qp_ip_count_ops'.
-void tmpc_count_ops(const double* P, const double* x0, const double* Z,
-                    const int* itab, const double* rtab, int T, int npar,
-                    int m, int mh, int reg, long long* lin_out,
-                    long long* merit_out) {
-  const tmpc::QpLayout L(T, m, mh);
-  R* Pr = lift(P, npar * T);
-  R* xr = lift(x0, tmpc::NX);
-  R* Zr = lift(Z, T * tmpc::NZ);
-  R* qp = new R[L.total];
-  R* red = new R[linearize_red(T)];
-  const tmpc::Ocp o{itab, rtab};
-  const tmpc::Col<const R> Pc{Pr, 1, 0}, xc{xr, 1, 0}, Zc{Zr, 1, 0};
-  reset();
-  tmpc::linearize_warp<R>(Lanes{}, o, Pc, xc, Zc, tmpc::Col<R>{qp, 1, 0}, L,
-                          reg);
-  report(lin_out);
-  R mv, cost, eq;
-  reset();
-  tmpc::merit_warp<R>(Lanes{}, o, Pc, xc, Zc, T, red,
-                      (linearize_red(T) - 1) / 3, &mv, &cost, &eq);
-  report(merit_out);
-  delete[] Pr;
-  delete[] xr;
-  delete[] Zr;
-  delete[] qp;
-  delete[] red;
+// problem of the fused kernel's OCP (model id `model`) at Z, as the kernel
+// runs them (lane group, 32 emulated lanes); P (npar*T), x0 (nx), Z (T*nz)
+// as the kernel's field-major columns with Bt = 1. Each out as
+// qp_ip_count_ops'. Returns -3 for a model with no instantiation.
+int tmpc_count_ops(const double* P, const double* x0, const double* Z,
+                   const int* itab, const double* rtab, int T, int npar,
+                   int m, int mh, int model, int reg, long long* lin_out,
+                   long long* merit_out) {
+  return tmpc::with_model(model, [&](auto mdl) {
+    using M = decltype(mdl);
+    const tmpc::QpLayout<M> L(T, m, mh);
+    R* Pr = lift(P, npar * T);
+    R* xr = lift(x0, M::NX);
+    R* Zr = lift(Z, T * M::NZ);
+    R* qp = new R[L.total];
+    R* red = new R[linearize_red(T)];
+    const tmpc::Ocp o{itab, rtab};
+    const tmpc::Col<const R> Pc{Pr, 1, 0}, xc{xr, 1, 0}, Zc{Zr, 1, 0};
+    reset();
+    tmpc::linearize_warp<M, R>(Lanes{}, o, Pc, xc, Zc,
+                               tmpc::Col<R>{qp, 1, 0}, L, reg);
+    report(lin_out);
+    R mv, cost, eq;
+    reset();
+    tmpc::merit_warp<M, R>(Lanes{}, o, Pc, xc, Zc, T, red,
+                           (linearize_red(T) - 1) / 3, &mv, &cost, &eq);
+    report(merit_out);
+    delete[] Pr;
+    delete[] xr;
+    delete[] Zr;
+    delete[] qp;
+    delete[] red;
+    return 0;
+  });
 }
 
 }  // extern "C"

@@ -1,15 +1,18 @@
-// The bench OCP's stage functions and their derivatives, for the fused
-// whole-SQP kernel (sqp_fused.cu) and its host build (tmpc_ocp_host.cpp).
+// The stage functions and their derivatives of the OCPs that the fused
+// whole-SQP kernel (sqp_fused.cu) and its host build (tmpc_ocp_host.cpp)
+// cover.
 //
 // Transcribes, from the package's torch modules (the JAX package's
 // counterparts carry the same names):
-// - models/dynamics.py: ContouringSecondOrderUnicycleModel, RK4 x 3 sub-steps;
+// - models/dynamics.py: ContouringSecondOrderUnicycleModel and
+//   SecondOrderUnicycleModel, RK4 x 3 sub-steps;
 // - ops/spline.py: sigmoid-blended cubic segments and the normalized tangent;
 // - modules/contouring.py: contour and lag error, and at the terminal stage
 //   the path-angle error through utils/math.py::haar_difference_without_abs
 //   (fmod passes a derivative of 1);
-// - modules/mpc_base.py: w_a a^2, w_w w^2 and w_v (v - v_ref)^2;
+// - modules/mpc_base.py: w_a a^2, w_w w^2 and (where weighed) w_v (v - v_ref)^2;
 // - modules/consistency_module.py;
+// - modules/goal_module.py: w_g |p - g|^2 / (|g|^2 + 0.01);
 // - modules/guidance_constraints.py: the topology halfspaces of
 //   linearized_constraints.py and the ellipsoid rows of
 //   ellipsoid_constraints.py with base.py::ego_disc_position.
@@ -21,18 +24,22 @@
 // (generic D rows 0, e 1).
 //
 // A kernel has no autodiff. Every function is a template on its scalar type
-// S and runs with S = real for values, S = Jet<real, 7, 0> (value and
+// S and runs with S = real for values, S = Jet<real, NZ, 0> (value and
 // gradient: forward mode) for the dynamics and constraint Jacobians, and
-// S = Jet<real, 7, 28> (value, gradient and packed upper-triangular Hessian:
-// second-order forward mode) for the cost's gradient and Hessian. Functions
+// S = Jet<real, NZ, NZ (NZ + 1) / 2> (value, gradient and packed
+// upper-triangular Hessian: second-order forward mode) for the cost's
+// gradient and Hessian. Functions
 // of the spline progress s alone (the path point, its normalized tangent and
 // angle) run in the one-variable Jet<real, 1, 1> and are lifted onto z by the
 // chain rule.
 //
-// Only the model is compiled in: z = (a, w, x, y, psi, v, s). Everything else
-// (parameter indices, segment, obstacle, disc and halfspace counts, the QP row
-// order, bounds, dt) comes from two small tables that
-// ops/sqp_fused.py::ocp_tables builds; the layout below is the contract.
+// Only the model is compiled in, as a template parameter M (a struct below:
+// its sizes, the z index of each named variable, -1 where it has none, and
+// its vector field); with_model() is the one switch from the model id of the
+// int table (TB_MODEL) to the type. Everything else (parameter indices,
+// segment, obstacle, disc and halfspace counts, the QP row order, bounds, dt)
+// comes from two small tables that ops/sqp_fused.py::ocp_tables builds; the
+// layout below is the contract.
 //
 // Field-major arrays: every per-problem array is (fields, Bt), problem b in
 // column b (Col). P holds field par * T + t, Z field t * NZ + i.
@@ -64,8 +71,6 @@
 
 namespace tmpc {
 
-constexpr int NU = 2, NX = 5, NZ = 7, NTRI = NZ * (NZ + 1) / 2;
-enum { Z_A = 0, Z_W, Z_X, Z_Y, Z_PSI, Z_V, Z_S };
 constexpr double PI = 3.14159265358979323846;
 
 // ---- int table ------------------------------------------------------------
@@ -75,12 +80,18 @@ enum {
   TB_CONTOUR, TB_LAG, TB_TANGLE, TB_TCONT,     // contouring weights
   TB_CONS_W, TB_PREV_X, TB_PREV_Y,             // consistency
   TB_DISC_R,                                   // ego_disc_radius
+  TB_MODEL,                                    // MODEL_* below
+  TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y,             // goal
   TB_OFF_SPLINE,  // -> n_seg x 9: x_a x_b x_c x_d y_a y_b y_c y_d start
   TB_OFF_H,       // -> nh x 9: one constraint h_i each (HK_* below)
   TB_OFF_ROWS,    // -> m x 2: QP row kind (ROW_*), h or z index
   TB_HEADER
 };
-enum { FL_BASE = 1, FL_CONTOUR = 2, FL_CONSIST = 4, FL_BODY_TERMINAL = 8 };
+enum {
+  FL_BASE = 1, FL_CONTOUR = 2, FL_CONSIST = 4, FL_BODY_TERMINAL = 8,
+  FL_GOAL = 16
+};
+enum { MODEL_CONTOURING_UNICYCLE = 0, MODEL_UNICYCLE = 1 };
 // h rows: HK_HALFSPACE a1 a2 b | HK_ELLIPSOID x y psi major minor chi r offset
 enum { HK_HALFSPACE = 0, HK_ELLIPSOID = 1, H_W = 9 };
 enum { ROW_HL = 0, ROW_HU, ROW_ZL, ROW_ZU };
@@ -325,6 +336,45 @@ TMPC_JET TMPC_HD TMPC_J lift_s(const Jet<R, 1, 1>& f, const TMPC_J& s) {
   return lift(s, f.v, f.g[0], f.h[0]);
 }
 
+// ---- the models: sizes, named z indices, the vector field ------------------
+// z = (a, w, x, y, psi, v, s): ContouringSecondOrderUnicycleModel.
+struct ContouringUnicycle {
+  static constexpr int NU = 2, NX = 5, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
+  static constexpr int A = 0, W = 1, X = 2, Y = 3, PSI = 4, V = 5, S = 6;
+  template <typename T>
+  static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
+    dx[0] = x[3] * tcos(x[2]);
+    dx[1] = x[3] * tsin(x[2]);
+    dx[2] = u[1];
+    dx[3] = u[0];
+    dx[4] = x[3];
+  }
+};
+
+// z = (a, w, x, y, psi, v): SecondOrderUnicycleModel, no spline state.
+struct Unicycle {
+  static constexpr int NU = 2, NX = 4, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
+  static constexpr int A = 0, W = 1, X = 2, Y = 3, PSI = 4, V = 5, S = -1;
+  template <typename T>
+  static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
+    dx[0] = x[3] * tcos(x[2]);
+    dx[1] = x[3] * tsin(x[2]);
+    dx[2] = u[1];
+    dx[3] = u[0];
+  }
+};
+
+// The one place that decides which models the kernels are compiled for:
+// f(M{}) for the model id `model` (TB_MODEL), -3 for any other. A model adds
+// its struct above and a line here (ops/sqp_fused.py::MODELS names the same
+// ids).
+template <class F>
+int with_model(int model, F&& f) {
+  if (model == MODEL_CONTOURING_UNICYCLE) return f(ContouringUnicycle{});
+  if (model == MODEL_UNICYCLE) return f(Unicycle{});
+  return -3;
+}
+
 // ---- field-major columns ----------------------------------------------------
 template <typename T>
 struct Col {
@@ -386,23 +436,28 @@ TMPC_FN void path_at(const Ocp& o, const Par<R>& p, R s_val, bool angle,
 }
 
 // ---- objective (modules' get_value, summed as ModuleManager.objective) ----
-template <typename S, typename R>
+// MPCBase weighs a and w, and v where TB_VEL is a parameter index (not -1).
+// Contouring needs the model's spline state; ocp_tables sets FL_CONTOUR only
+// for a model that has one.
+template <class M, typename S, typename R>
 TMPC_FN S stage_cost(const Ocp& o, const Par<R>& p, const S* z, bool terminal) {
   const int* it = o.it;
   const int flags = it[TB_FLAGS];
   S cost = Make<S>::constant(R(0));
   if (flags & FL_BASE) {
-    const S dv = z[Z_V] - p[it[TB_VREF]];
-    cost = cost + p[it[TB_ACC]] * (z[Z_A] * z[Z_A]);
-    cost = cost + p[it[TB_ANGVEL]] * (z[Z_W] * z[Z_W]);
-    cost = cost + p[it[TB_VEL]] * (dv * dv);
+    cost = cost + p[it[TB_ACC]] * (z[M::A] * z[M::A]);
+    cost = cost + p[it[TB_ANGVEL]] * (z[M::W] * z[M::W]);
+    if (it[TB_VEL] >= 0) {
+      const S dv = z[M::V] - p[it[TB_VREF]];
+      cost = cost + p[it[TB_VEL]] * (dv * dv);
+    }
   }
-  if (flags & FL_CONTOUR) {
+  if constexpr (M::S >= 0) if (flags & FL_CONTOUR) {
     Jet<R, 1, 1> q[5];
-    path_at(o, p, value(z[Z_S]), terminal, q);
-    const S ex = z[Z_X] - lift_s(q[0], z[Z_S]);
-    const S ey = z[Z_Y] - lift_s(q[1], z[Z_S]);
-    const S dxn = lift_s(q[2], z[Z_S]), dyn = lift_s(q[3], z[Z_S]);
+    path_at(o, p, value(z[M::S]), terminal, q);
+    const S ex = z[M::X] - lift_s(q[0], z[M::S]);
+    const S ey = z[M::Y] - lift_s(q[1], z[M::S]);
+    const S dxn = lift_s(q[2], z[M::S]), dyn = lift_s(q[3], z[M::S]);
     const S contour = dyn * ex - dxn * ey;
     const S lag = dxn * ex + dyn * ey;
     const R cw = p[it[TB_CONTOUR]], lw = p[it[TB_LAG]];
@@ -411,7 +466,7 @@ TMPC_FN S stage_cost(const Ocp& o, const Par<R>& p, const S* z, bool terminal) {
     c = c + cw * contour2;
     if (terminal) {
       const R tc = p[it[TB_TCONT]];
-      const S err = haar(z[Z_PSI] - lift_s(q[4], z[Z_S]));
+      const S err = haar(z[M::PSI] - lift_s(q[4], z[M::S]));
       c = c + p[it[TB_TANGLE]] * (err * err);
       c = c + (tc * lw) * lag2;
       c = c + (tc * cw) * contour2;
@@ -419,38 +474,37 @@ TMPC_FN S stage_cost(const Ocp& o, const Par<R>& p, const S* z, bool terminal) {
     cost = cost + c;
   }
   if (flags & FL_CONSIST) {
-    const S ex = z[Z_X] - p[it[TB_PREV_X]];
-    const S ey = z[Z_Y] - p[it[TB_PREV_Y]];
+    const S ex = z[M::X] - p[it[TB_PREV_X]];
+    const S ey = z[M::Y] - p[it[TB_PREV_Y]];
     cost = cost + p[it[TB_CONS_W]] * (ex * ex + ey * ey);
+  }
+  if (flags & FL_GOAL) {
+    const R gx = p[it[TB_GOAL_X]], gy = p[it[TB_GOAL_Y]];
+    const S ex = z[M::X] - gx;
+    const S ey = z[M::Y] - gy;
+    const R norm = (gx * gx + gy * gy) + R(0.01);
+    cost = cost + (p[it[TB_GOAL_W]] * (ex * ex + ey * ey)) / norm;
   }
   return cost;
 }
 
-// ---- dynamics: continuous unicycle, RK4 x 3 over dt ----------------------
-template <typename S>
-TMPC_FN void continuous(const S* x, const S* u, S* dx) {
-  dx[0] = x[3] * tcos(x[2]);
-  dx[1] = x[3] * tsin(x[2]);
-  dx[2] = u[1];
-  dx[3] = u[0];
-  dx[4] = x[3];
-}
-
-template <typename S>
+// ---- dynamics: the model's vector field, RK4 x 3 over dt ------------------
+template <class M, typename S>
 TMPC_FN void rk4(const S* x, const S* u, double dt, S* out) {
   using R = typename Real<S>::type;
+  constexpr int NX = M::NX;
   const double h = dt / 3.0;
   const R half_h = R(0.5 * h), full_h = R(h), sixth_h = R(h / 6.0);
   S xi[NX], k1[NX], k2[NX], k3[NX], k4[NX], tmp[NX];
   TMPC_UNROLL for (int i = 0; i < NX; ++i) xi[i] = x[i];
   for (int step = 0; step < 3; ++step) {
-    continuous(xi, u, k1);
+    M::continuous(xi, u, k1);
     TMPC_UNROLL for (int i = 0; i < NX; ++i) tmp[i] = xi[i] + half_h * k1[i];
-    continuous(tmp, u, k2);
+    M::continuous(tmp, u, k2);
     TMPC_UNROLL for (int i = 0; i < NX; ++i) tmp[i] = xi[i] + half_h * k2[i];
-    continuous(tmp, u, k3);
+    M::continuous(tmp, u, k3);
     TMPC_UNROLL for (int i = 0; i < NX; ++i) tmp[i] = xi[i] + full_h * k3[i];
-    continuous(tmp, u, k4);
+    M::continuous(tmp, u, k4);
     TMPC_UNROLL for (int i = 0; i < NX; ++i)
       xi[i] = xi[i] +
               sixth_h * (((k1[i] + R(2) * k2[i]) + R(2) * k3[i]) + k4[i]);
@@ -458,12 +512,12 @@ TMPC_FN void rk4(const S* x, const S* u, double dt, S* out) {
   TMPC_UNROLL for (int i = 0; i < NX; ++i) out[i] = xi[i];
 }
 
-// ---- constraints: h_i(z) ----------------------------------------------------
-template <typename S, typename R>
+// ---- constraints: h_i(z), over the model's x, y and psi --------------------
+template <class M, typename S, typename R>
 TMPC_FN S h_row(const Ocp& o, const Par<R>& p, const S* z, int i) {
   const int* q = o.it + o.it[TB_OFF_H] + H_W * i;
   if (q[0] == HK_HALFSPACE)
-    return (p[q[1]] * z[Z_X] + p[q[2]] * z[Z_Y]) - p[q[3]];
+    return (p[q[1]] * z[M::X] + p[q[2]] * z[M::Y]) - p[q[3]];
   // Ellipsoid: (p - c)^T R^T diag(a11, a22) R (p - c), semi-axes inflated by
   // sqrt(chi) plus the disc and obstacle radii.
   const R root_chi = m_sqrt(p[q[6]]);
@@ -476,8 +530,8 @@ TMPC_FN S h_row(const Ocp& o, const Par<R>& p, const S* z, int i) {
   const R e22 = a11 * s * s + a22 * c * c;
   const R e12 = (a22 - a11) * c * s;
   const R offset = p[q[8]];
-  const S dx = (z[Z_X] + tcos(z[Z_PSI]) * offset) - p[q[1]];
-  const S dy = (z[Z_Y] + tsin(z[Z_PSI]) * offset) - p[q[2]];
+  const S dx = (z[M::X] + tcos(z[M::PSI]) * offset) - p[q[1]];
+  const S dy = (z[M::Y] + tsin(z[M::PSI]) * offset) - p[q[2]];
   return ((e11 * dx) * dx + ((R(2) * e12) * dx) * dy) + (e22 * dy) * dy;
 }
 
@@ -485,8 +539,10 @@ TMPC_FN S h_row(const Ocp& o, const Par<R>& p, const S* z, int i) {
 // Field offsets of one problem's QP, in the (fields, Bt) layout of the IP
 // solve (qp_ip.cuh): H upper triangle (T, NTRI), g (T, NZ), A (T-1, NX, NX),
 // B (T-1, NX, NU), c (T-1, NX), generic D rows (T, max(mh, 1), NZ), e (T, m),
-// r0 (NX).
+// r0 (NX), for model M.
+template <class M>
 struct QpLayout {
+  static constexpr int NU = M::NU, NX = M::NX, NZ = M::NZ, NTRI = M::NTRI;
   int T, m, mh, mhp, H, g, A, B, c, D, e, r0, total;
   TMPC_HD QpLayout(int T_, int m_, int mh_) : T(T_), m(m_), mh(mh_) {
     mhp = mh > 0 ? mh : 1;
@@ -509,7 +565,7 @@ struct QpLayout {
 };
 
 // Regularize the symmetric (NZ, NZ) block and store its upper triangle.
-template <typename R>
+template <int NZ, typename R>
 TMPC_FN void store_hessian(R* Hs, int reg, double reg_eps, double levenberg,
                            const Col<R>& qp, int f0) {
   if (reg == REG_GERSHGORIN) {
@@ -534,10 +590,11 @@ TMPC_FN void store_hessian(R* Hs, int reg, double reg_eps, double levenberg,
 
 // Linearize stage t of one problem at its iterate Z: the stage's fields of
 // QpLayout (all but r0).
-template <typename R>
+template <class M, typename R>
 TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
                                const Col<const R>& Z, const Col<R>& qp,
-                               const QpLayout& L, int reg, int t) {
+                               const QpLayout<M>& L, int reg, int t) {
+  constexpr int NU = M::NU, NX = M::NX, NZ = M::NZ, NTRI = M::NTRI;
   using J2 = Jet<R, NZ, NTRI>;
   using J1 = Jet<R, NZ, 0>;
   const int T = L.T, N = T - 1, m = L.m;
@@ -555,7 +612,7 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
   {
     J2 zj[NZ];
     TMPC_UNROLL for (int i = 0; i < NZ; ++i) zj[i] = jet_seed<R, NZ, NTRI>(z[i], i);
-    const J2 cost = stage_cost(o, p, zj, t < N ? body_terminal : true);
+    const J2 cost = stage_cost<M>(o, p, zj, t < N ? body_terminal : true);
     R Hs[NZ * NZ];
     int k = 0;
     TMPC_UNROLL for (int i = 0; i < NZ; ++i)
@@ -573,7 +630,7 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
     }
     TMPC_UNROLL for (int i = 0; i < NZ; ++i)
       qp[L.g + t * NZ + i] = (t == N && i < NU) ? R(0) : cost.g[i];
-    store_hessian(Hs, reg, reg_eps, lev, qp, L.H + t * NTRI);
+    store_hessian<NZ>(Hs, reg, reg_eps, lev, qp, L.H + t * NTRI);
   }
 
   if (t == N) {
@@ -589,7 +646,7 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
   // Dynamics: A = dF/dx, B = dF/du, c = F(z_t) - x_{t+1}.
   {
     J1 F[NX];
-    rk4(zd + NU, zd, dt, F);
+    rk4<M>(zd + NU, zd, dt, F);
     TMPC_UNROLL for (int i = 0; i < NX; ++i) {
       TMPC_UNROLL for (int j = 0; j < NX; ++j)
         qp[L.A + (t * NX + i) * NX + j] = F[i].g[NU + j];
@@ -606,7 +663,7 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
     const R bound = R(o.rt[RT_BOUNDS + r]);
     R e;
     if (kind == ROW_HL || kind == ROW_HU) {
-      const J1 h = h_row(o, p, zd, idx);
+      const J1 h = h_row<M>(o, p, zd, idx);
       const int d0 = L.D + (t * L.mhp + slot) * NZ;
       TMPC_UNROLL for (int j = 0; j < NZ; ++j) qp[d0 + j] = kind == ROW_HL ? h.g[j] : -h.g[j];
       e = kind == ROW_HL ? h.v - bound : bound - h.v;
@@ -622,28 +679,29 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
 }
 
 // The initial-condition residual r0 = x0 - x_0.
-template <typename R>
+template <class M, typename R>
 TMPC_HD void linearize_r0(const Col<const R>& x0, const Col<const R>& Z,
-                          const Col<R>& qp, const QpLayout& L) {
-  TMPC_UNROLL for (int i = 0; i < NX; ++i) qp[L.r0 + i] = x0[i] - Z[NU + i];
+                          const Col<R>& qp, const QpLayout<M>& L) {
+  TMPC_UNROLL for (int i = 0; i < M::NX; ++i)
+    qp[L.r0 + i] = x0[i] - Z[M::NU + i];
 }
 
 // Every field of QpLayout, stage after stage: the host's serial form.
-template <typename R>
+template <class M, typename R>
 TMPC_HD void linearize(const Ocp& o, const Col<const R>& P,
                        const Col<const R>& x0, const Col<const R>& Z,
-                       const Col<R>& qp, const QpLayout& L, int reg) {
+                       const Col<R>& qp, const QpLayout<M>& L, int reg) {
   for (int t = 0; t < L.T; ++t) linearize_stage(o, P, Z, qp, L, reg, t);
   linearize_r0(x0, Z, qp, L);
 }
 
 // Every field of QpLayout with one lane group: lane t linearizes stage t,
 // lane 0 writes r0.
-template <typename R>
+template <class M, typename R>
 TMPC_WARP void linearize_warp(const warp::Lanes& lanes, const Ocp& o,
                               const Col<const R>& P, const Col<const R>& x0,
                               const Col<const R>& Z, const Col<R>& qp,
-                              const QpLayout& L, int reg) {
+                              const QpLayout<M>& L, int reg) {
   lanes.run([&](int l) {
     for (int t = l; t < L.T; t += warp::WIDTH)
       linearize_stage(o, P, Z, qp, L, reg, t);
@@ -653,10 +711,11 @@ TMPC_WARP void linearize_warp(const warp::Lanes& lanes, const Ocp& o,
 
 // Stage t's merit terms: its cost, its largest dynamics defect
 // max_i |F(z_t) - x_{t+1}| (0 at stage N) and whether its z is finite (1/0).
-template <typename R>
+template <class M, typename R>
 TMPC_ONCE void merit_stage(const Ocp& o, const Col<const R>& P,
                            const Col<const R>& Z, int T, int t, R* cost_out,
                            R* eq_out, R* finite_out) {
+  constexpr int NU = M::NU, NX = M::NX, NZ = M::NZ;
   const int N = T - 1;
   const Par<R> p = stage_params(P, t, T);
   const bool body_terminal = (o.it[TB_FLAGS] & FL_BODY_TERMINAL) != 0;
@@ -668,26 +727,25 @@ TMPC_ONCE void merit_stage(const Ocp& o, const Col<const R>& P,
   }
   R eq = R(0);
   if (t == N) {
-    z[Z_A] = R(0);
-    z[Z_W] = R(0);
-    *cost_out = stage_cost(o, p, z, true);
+    TMPC_UNROLL for (int i = 0; i < NU; ++i) z[i] = R(0);
+    *cost_out = stage_cost<M>(o, p, z, true);
   } else {
     R F[NX];
-    rk4(z + NU, z, o.rt[RT_DT], F);
+    rk4<M>(z + NU, z, o.rt[RT_DT], F);
     TMPC_UNROLL for (int i = 0; i < NX; ++i)
       eq = nanmax(eq, m_abs(F[i] - Z[(t + 1) * NZ + NU + i]));
-    *cost_out = stage_cost(o, p, z, body_terminal);
+    *cost_out = stage_cost<M>(o, p, z, body_terminal);
   }
   *eq_out = eq;
   *finite_out = z_finite ? R(1) : R(0);
 }
 
 // |x0 - x_0| at its largest.
-template <typename R>
+template <class M, typename R>
 TMPC_HD R initial_defect(const Col<const R>& x0, const Col<const R>& Z) {
   R eq = R(0);
-  TMPC_UNROLL for (int i = 0; i < NX; ++i)
-    eq = nanmax(eq, m_abs(x0[i] - Z[NU + i]));
+  TMPC_UNROLL for (int i = 0; i < M::NX; ++i)
+    eq = nanmax(eq, m_abs(x0[i] - Z[M::NU + i]));
   return eq;
 }
 
@@ -714,31 +772,31 @@ struct MeritSum {
 };
 
 // The merit terms at Z, stage after stage: the host's serial form.
-template <typename R>
+template <class M, typename R>
 TMPC_HD void merit(const Ocp& o, const Col<const R>& P, const Col<const R>& x0,
                    const Col<const R>& Z, int T, R* merit_out, R* cost_out,
                    R* eq_out) {
   MeritSum<R> sum;
   for (int t = 0; t < T; ++t) {
     R c, e, f;
-    merit_stage(o, P, Z, T, t, &c, &e, &f);
+    merit_stage<M>(o, P, Z, T, t, &c, &e, &f);
     sum.add(c, e, f);
   }
-  sum.finish(o, initial_defect(x0, Z), merit_out, cost_out, eq_out);
+  sum.finish(o, initial_defect<M>(x0, Z), merit_out, cost_out, eq_out);
 }
 
 // The merit terms with one lane group: lane t takes stage t, lane 0 the
 // initial defect; `red` holds 3 n + 1 reals (n >= T) for the partials,
 // which uniform code combines in stage order. Every lane returns the terms.
-template <typename R>
+template <class M, typename R>
 TMPC_WARP void merit_warp(const warp::Lanes& lanes, const Ocp& o,
                           const Col<const R>& P, const Col<const R>& x0,
                           const Col<const R>& Z, int T, R* red, int n,
                           R* merit_out, R* cost_out, R* eq_out) {
   lanes.run([&](int l) {
     for (int t = l; t < T; t += warp::WIDTH)
-      merit_stage(o, P, Z, T, t, red + t, red + n + t, red + 2 * n + t);
-    if (l == 0) red[3 * n] = initial_defect(x0, Z);
+      merit_stage<M>(o, P, Z, T, t, red + t, red + n + t, red + 2 * n + t);
+    if (l == 0) red[3 * n] = initial_defect<M>(x0, Z);
   });
   MeritSum<R> sum;
   for (int t = 0; t < T; ++t) sum.add(red[t], red[n + t], red[2 * n + t]);

@@ -49,27 +49,35 @@ int host_qp_solve(bool duals, const double* H, const double* g,
 
 extern "C" {
 
-// QpLayout(T, m, mh) as 9 ints: H g A B c D e r0 total.
-void tmpc_qp_layout(int T, int m, int mh, int* out) {
-  tmpc::QpLayout(T, m, mh).offsets(out);
+// QpLayout<M>(T, m, mh) of model id `model` as 9 ints: H g A B c D e r0
+// total. Returns 0, or -3 for a model with no instantiation.
+int tmpc_qp_layout(int model, int T, int m, int mh, int* out) {
+  return tmpc::with_model(model, [&](auto mdl) {
+    tmpc::QpLayout<decltype(mdl)>(T, m, mh).offsets(out);
+    return 0;
+  });
 }
 
 // Linearize every problem at Z, stage after stage: the QP fields into qp
 // (L.total, Bt) and (merit, cost, eq_res) into merit_out (3, Bt).
-void tmpc_host_linearize_f64(const double* P, const double* x0,
-                             const double* Z, double* qp, double* merit_out,
-                             const int* itab, const double* rtab, int Bt,
-                             int T, int m, int mh, int reg) {
+int tmpc_host_linearize_f64(const double* P, const double* x0,
+                            const double* Z, double* qp, double* merit_out,
+                            const int* itab, const double* rtab, int Bt,
+                            int T, int m, int mh, int model, int reg) {
   const tmpc::Ocp o{itab, rtab};
-  const tmpc::QpLayout L(T, m, mh);
-  for (int b = 0; b < Bt; ++b) {
-    const tmpc::Col<const double> Pc{P, (size_t)Bt, b}, xc{x0, (size_t)Bt, b},
-        Zc{Z, (size_t)Bt, b};
-    tmpc::linearize<double>(o, Pc, xc, Zc, tmpc::Col<double>{qp, (size_t)Bt, b},
-                            L, reg);
-    const tmpc::Col<double> mo{merit_out, (size_t)Bt, b};
-    tmpc::merit<double>(o, Pc, xc, Zc, T, &mo[0], &mo[1], &mo[2]);
-  }
+  return tmpc::with_model(model, [&](auto mdl) {
+    using M = decltype(mdl);
+    const tmpc::QpLayout<M> L(T, m, mh);
+    for (int b = 0; b < Bt; ++b) {
+      const tmpc::Col<const double> Pc{P, (size_t)Bt, b},
+          xc{x0, (size_t)Bt, b}, Zc{Z, (size_t)Bt, b};
+      tmpc::linearize<M, double>(o, Pc, xc, Zc,
+                                 tmpc::Col<double>{qp, (size_t)Bt, b}, L, reg);
+      const tmpc::Col<double> mo{merit_out, (size_t)Bt, b};
+      tmpc::merit<M, double>(o, Pc, xc, Zc, T, &mo[0], &mo[1], &mo[2]);
+    }
+    return 0;
+  });
 }
 
 // The linearize entry of sqp_fused.cu (same arguments, qp may be null).
@@ -77,14 +85,17 @@ int sqp_fused_linearize_host_f64(const double* P, const double* x0,
                                  const double* Z, double* qp,
                                  double* merit_out, const int* itab,
                                  const double* rtab, int Bt, int T, int m,
-                                 int mh, int reg, void*) {
+                                 int mh, int model, int reg, void*) {
   if (!fused_sizes_ok(Bt, T, m, mh)) return -1;
-  const tmpc::QpLayout L(T, m, mh);
-  std::vector<double> red(linearize_red(T));
-  for (int b = 0; b < Bt; ++b)
-    linearize_column<double>(Lanes{}, tmpc::Ocp{itab, rtab}, P, x0, Z, qp,
-                             merit_out, Bt, b, L, reg, red.data());
-  return 0;
+  return tmpc::with_model(model, [&](auto mdl) {
+    using M = decltype(mdl);
+    const tmpc::QpLayout<M> L(T, m, mh);
+    std::vector<double> red(linearize_red(T));
+    for (int b = 0; b < Bt; ++b)
+      linearize_column<M, double>(Lanes{}, tmpc::Ocp{itab, rtab}, P, x0, Z,
+                                  qp, merit_out, Bt, b, L, reg, red.data());
+    return 0;
+  });
 }
 
 // The solve entry of sqp_fused.cu (same arguments).
@@ -93,21 +104,22 @@ int sqp_fused_solve_host_f64(const double* P, const double* x0,
                              const int* rinfo, const int* itab,
                              const double* rtab, const int* phases,
                              int n_phases, int Bt, int T, int m, int mh,
-                             int any_active,
+                             int model, int any_active,
                              int track_best, int reg, double mu0,
                              double mu_min, double tau, double w_max,
                              double s_floor, double tol_freeze, double n_act,
                              void*) {
   const Rows<double> rw{mask, rinfo};
   return fused_solve_entry<double>(
-      Bt, T, m, mh, n_phases, mu0, mu_min, tau, w_max, s_floor, tol_freeze,
-      n_act, [&](const FusedOffsets& F, const IpParams<double>& prm) {
+      model, Bt, T, m, mh, n_phases, mu0, mu_min, tau, w_max, s_floor,
+      tol_freeze, n_act, [&](const auto& F, const IpParams<double>& prm) {
+        using M = typename std::decay_t<decltype(F)>::Model;
         std::vector<double> mem(F.total);
         for (int b = 0; b < Bt; ++b)
-          sqp_solve_column<double>(Lanes{}, tmpc::Ocp{itab, rtab}, P, x0, Z,
-                                   out, Bt, b, mem.data(), rw, phases,
-                                   n_phases, F, any_active, track_best, reg,
-                                   prm);
+          sqp_solve_column<M, double>(Lanes{}, tmpc::Ocp{itab, rtab}, P, x0,
+                                      Z, out, Bt, b, mem.data(), rw, phases,
+                                      n_phases, F, any_active, track_best,
+                                      reg, prm);
         return 0;
       });
 }

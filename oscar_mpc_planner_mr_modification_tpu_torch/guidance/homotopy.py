@@ -11,12 +11,17 @@ the Homology / Winding comparison functions). Two formulations:
 - *H-signature* (homology) in (x, y, t), computed natively
   (:mod:`.cpp_backend`) or with numpy, as the caller names it.
 
-All functions are host numpy, vectorized over paths.
+The functions are host numpy, vectorized over paths, but for
+:func:`torch_signature_vector`, the winding vector on tensors for
+classification on the device.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 
 def winding_signature(path_xy: np.ndarray, obstacle_xy: np.ndarray) -> float:
@@ -227,3 +232,16 @@ def uvd_equivalent(path_a: np.ndarray, path_b: np.ndarray,
     closest = a[None] + tproj[..., None] * seg[None]  # (n_obs, n, 2)
     dist = np.linalg.norm(obs - closest, axis=-1)  # (n_obs, n)
     return bool(np.all(dist >= margins[:, None]))
+
+
+def torch_signature_vector(paths_xy: torch.Tensor,
+                           obstacle_trajs: torch.Tensor) -> torch.Tensor:
+    """Winding vectors on tensors, over any leading batch of paths:
+    paths_xy (..., T, 2) against obstacle_trajs (n_obs, T, 2) -> (...,
+    n_obs). The increments wrap with ``torch.remainder``, which takes the
+    divisor's sign as numpy's and JAX's ``mod`` do."""
+    rel = paths_xy[..., None, :, :] - obstacle_trajs  # (..., n_obs, T, 2)
+    ang = torch.atan2(rel[..., 1], rel[..., 0])
+    d = torch.diff(ang, dim=-1)
+    d = torch.remainder(d + math.pi, 2.0 * math.pi) - math.pi
+    return torch.sum(d, dim=-1)

@@ -1,5 +1,6 @@
 from .dynamics import (  # noqa: F401
     DynamicsModel,
+    SecondOrderUnicycleModel,
     ContouringSecondOrderUnicycleModel,
     ModelView,
 )

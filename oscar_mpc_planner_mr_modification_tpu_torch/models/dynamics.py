@@ -117,6 +117,24 @@ class DynamicsModel:
 
 
 @dataclass(frozen=True)
+class SecondOrderUnicycleModel(DynamicsModel):
+    """Unicycle with acceleration and turn rate as inputs."""
+
+    name: str = "second_order_unicycle"
+    nu: int = 2
+    nx: int = 4
+    states: Tuple[str, ...] = ("x", "y", "psi", "v")
+    inputs: Tuple[str, ...] = ("a", "w")
+    lower_bound: Tuple[float, ...] = (-2.0, -2.0, -200.0, -200.0, -np.pi * 4, -2.0)
+    upper_bound: Tuple[float, ...] = (2.0, 2.0, 200.0, 200.0, np.pi * 4, 3.0)
+
+    def continuous(self, x, u):
+        a, w = u[0], u[1]
+        psi, v = x[2], x[3]
+        return (v * torch.cos(psi), v * torch.sin(psi), w, a)
+
+
+@dataclass(frozen=True)
 class ContouringSecondOrderUnicycleModel(DynamicsModel):
     """Unicycle + spline progress state s with ds/dt = v."""
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import sqp_fused
@@ -51,24 +52,22 @@ class LaneQP(NamedTuple):
     r0: torch.Tensor
 
 
-_NU, _NX, _NZ = sqp_fused._NU, sqp_fused._NX, sqp_fused._NZ
-_NTRI = sqp_fused._NTRI
-
-
 def buffer_fields(qp, tables) -> QPFields:
     """The QP fields of the kernel's output buffer (total, B) as row views:
     no copy."""
-    lay = sqp_fused.qp_layout(tables.T, tables.m, tables.mh)
+    lay = sqp_fused.qp_layout(tables.T, tables.m, tables.mh, tables.nx,
+                              tables.nu)
     ends = [lay[k] for k in QPFields._fields[1:]] + [lay["total"]]
     return QPFields(*(qp[lay[k]:end] for k, end in zip(QPFields._fields, ends)))
 
 
 def _qpdata_fields(qp, tables) -> QPFields:
     """Batch-major :class:`.sqp.QPData` (all rows in D) -> :class:`QPFields`."""
-    B = qp.g.shape[0]
-    iu, ju = (torch.as_tensor(a, device=qp.H.device) for a in sqp_fused._TRI)
+    B, nz = qp.g.shape[0], qp.g.shape[-1]
+    iu, ju = (torch.as_tensor(a, device=qp.H.device)
+              for a in np.triu_indices(nz))
     D_h = (qp.D[:, :, list(tables.generic)] if tables.generic
-           else qp.D.new_zeros((B, tables.T, 1, _NZ)))
+           else qp.D.new_zeros((B, tables.T, 1, nz)))
 
     def f(x):
         return x.reshape(B, -1).t()
@@ -80,17 +79,19 @@ def _qpdata_fields(qp, tables) -> QPFields:
 def lane_qp(fields: QPFields, T: int) -> LaneQP:
     """:class:`QPFields` -> :class:`LaneQP` (H dense and symmetric)."""
     B = fields.g.shape[1]
-    tri = fields.H.reshape(T, _NTRI, B)
-    H = tri.new_zeros((T, _NZ, _NZ, B))
-    iu, ju = sqp_fused._TRI
+    nz, nx = fields.g.shape[0] // T, fields.r0.shape[0]
+    nu = nz - nx
+    tri = fields.H.reshape(T, nz * (nz + 1) // 2, B)
+    H = tri.new_zeros((T, nz, nz, B))
+    iu, ju = np.triu_indices(nz)
     H[:, iu, ju] = tri
     H[:, ju, iu] = tri
     return LaneQP(
-        H=H, g=fields.g.reshape(T, _NZ, B),
-        A=fields.A.reshape(T - 1, _NX, _NX, B),
-        B=fields.B.reshape(T - 1, _NX, _NU, B),
-        c=fields.c.reshape(T - 1, _NX, B),
-        D=fields.D.reshape(T, -1, _NZ, B), e=fields.e.reshape(T, -1, B),
+        H=H, g=fields.g.reshape(T, nz, B),
+        A=fields.A.reshape(T - 1, nx, nx, B),
+        B=fields.B.reshape(T - 1, nx, nu, B),
+        c=fields.c.reshape(T - 1, nx, B),
+        D=fields.D.reshape(T, -1, nz, B), e=fields.e.reshape(T, -1, B),
         r0=fields.r0)
 
 

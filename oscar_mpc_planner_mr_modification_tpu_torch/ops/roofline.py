@@ -14,9 +14,10 @@ plain version twice; :func:`fma_roof_emulated` rounds as the kernel does.
 :func:`ip_iter_flops` counts the operations of one iteration of the QP
 kernels' interior-point code; ``LIN_FLOPS`` and ``MERIT_FLOPS`` are the
 fused kernel's own counts of a linearization and a merit evaluation, at the
-fleet bench's OCP; the ``TICK_``, ``ROLLOUT_`` and ``GATE_`` constants are
-the same three counts at the planner tick's OCP, the contouring evaluator's
-and the BASELINE f32 gate's. :func:`bound_ms` is the least time the card could take
+fleet bench's OCP; the ``TICK_``, ``ROLLOUT_``, ``GATE_`` and ``GOAL_``
+constants are the same three counts at the planner tick's OCP, the
+contouring evaluator's, BASELINE config 2's f32 gate's and BASELINE config
+1's goal OCP. :func:`bound_ms` is the least time the card could take
 for a given work:
 the larger of bytes over the memory rate and operations over the FP32 rate,
 both the published H100 SXM figures at its 700 W limit.
@@ -95,6 +96,18 @@ ROLLOUT_MERIT_FLOPS = 27675
 GATE_IP_ITER_FLOPS = 46298
 GATE_LIN_FLOPS = 106665
 GATE_MERIT_FLOPS = 21040
+
+#: The three counts at the goal OCP of BASELINE config 1
+#: (``parallel/rollout.py::_goal_ellipsoid_ocp`` at N=20, 3 obstacles,
+#: npar=28 on ``SecondOrderUnicycleModel``; 3 ellipsoid rows and 12 box
+#: rows), the same hand count and counting build. One OCP serves its f32
+#: gate, the goal evaluator and the multi-robot evaluator at 4 robots (3
+#: peers), on every problem. The T-MPC evaluator runs the fleet bench's OCP
+#: (4 obstacles, npar=98) and so its counts are ``IP_ITER_FLOPS``,
+#: ``LIN_FLOPS`` and ``MERIT_FLOPS``.
+GOAL_IP_ITER_FLOPS = 49731
+GOAL_LIN_FLOPS = 65913
+GOAL_MERIT_FLOPS = 4692
 
 
 def fma_flops(n: int) -> float:

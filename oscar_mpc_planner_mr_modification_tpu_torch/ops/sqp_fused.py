@@ -32,12 +32,15 @@ with ``track_best`` it keeps the best iterate by merit.
 - ``launches`` counts solve launches, ``linearize_launches`` linearize
   launches and ``merit_launches`` merit-only launches.
 
-What the header covers (:func:`ocp_tables` checks it): the
-``ContouringSecondOrderUnicycleModel``; the objectives ``MPCBaseModule``
-(``a``, ``w``, ``(v - v_ref)``), ``ContouringModule`` without a dynamic
-velocity reference and ``ConsistencyModule``; the constraints
+What the header covers (:func:`ocp_tables` checks it): the models
+``ContouringSecondOrderUnicycleModel`` and ``SecondOrderUnicycleModel``
+(``MODELS``; the kernels are compiled for each); the objectives
+``MPCBaseModule`` (``a``, ``w`` and optionally ``(v - v_ref)``),
+``ContouringModule`` without a dynamic velocity reference (on a model with a
+spline state), ``ConsistencyModule`` and ``GoalModule``; the constraints
 ``GuidanceConstraintModule`` (topology halfspaces plus ellipsoids) and
-``EllipsoidConstraintModule``, each with one prediction mode.
+``EllipsoidConstraintModule``, each with one prediction mode. So it covers
+the T-MPC++ OCPs and BASELINE configs 1 (goal) and 2 (contouring).
 """
 
 from __future__ import annotations
@@ -66,9 +69,14 @@ _IP = dict(mu0=1e2, tau=0.995, s_floor=1e-10, tol_freeze=1e-5)
 # Table layout: the contract with csrc/tmpc_ocp.cuh (enums TB_*, FL_*, HK_*,
 # ROW_*, RT_*, REG_*).
 (TB_FLAGS, TB_NSEG, TB_ACC, TB_ANGVEL, TB_VEL, TB_VREF, TB_CONTOUR, TB_LAG,
- TB_TANGLE, TB_TCONT, TB_CONS_W, TB_PREV_X, TB_PREV_Y, TB_DISC_R,
- TB_OFF_SPLINE, TB_OFF_H, TB_OFF_ROWS, TB_HEADER) = range(18)
-FL_BASE, FL_CONTOUR, FL_CONSIST, FL_BODY_TERMINAL = 1, 2, 4, 8
+ TB_TANGLE, TB_TCONT, TB_CONS_W, TB_PREV_X, TB_PREV_Y, TB_DISC_R, TB_MODEL,
+ TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y, TB_OFF_SPLINE, TB_OFF_H, TB_OFF_ROWS,
+ TB_HEADER) = range(22)
+FL_BASE, FL_CONTOUR, FL_CONSIST, FL_BODY_TERMINAL, FL_GOAL = 1, 2, 4, 8, 16
+#: The models the kernels are compiled for (``tmpc::with_model``): class
+#: name -> model id.
+MODELS = {"ContouringSecondOrderUnicycleModel": 0,
+          "SecondOrderUnicycleModel": 1}
 HK_HALFSPACE, HK_ELLIPSOID, H_W = 0, 1, 9
 ROW_KINDS = {"hl": 0, "hu": 1, "zl": 2, "zu": 3}
 REG_KINDS = {"none": 0, "gershgorin": 1, "levenberg": 2}
@@ -78,6 +86,9 @@ class OcpTables(NamedTuple):
     ints: np.ndarray  # int32 table (TB_* header, spline, h rows, QP rows)
     reals: np.ndarray  # float64: dt, reg_eps, levenberg, merit weight, bounds
     reg: int  # REG_* kind
+    model: int  # model id (MODELS)
+    nx: int  # states
+    nu: int  # inputs
     T: int  # N + 1
     npar: int  # parameters per stage
     m: int  # QP rows per stage
@@ -88,27 +99,35 @@ class OcpTables(NamedTuple):
 # ---------------------------------------------------------------------------
 # What the kernel's header covers
 # ---------------------------------------------------------------------------
-def _check_model(model):
-    from ..models.dynamics import ContouringSecondOrderUnicycleModel
+def _check_model(model) -> int:
+    """The model's id (``MODELS``); raises ``NotImplementedError`` for a
+    model the kernels are not compiled for."""
+    from ..models import dynamics
 
-    if (type(model) is not ContouringSecondOrderUnicycleModel
-            or model.states != ("x", "y", "psi", "v", "spline")
-            or model.inputs != ("a", "w") or model.nx_integrate is not None):
+    name = type(model).__name__
+    cls = getattr(dynamics, name, None)
+    if (name not in MODELS or type(model) is not cls
+            or (model.states, model.inputs, model.nx_integrate)
+            != (cls.states, cls.inputs, None)):
         raise NotImplementedError(
-            f"the fused kernel covers ContouringSecondOrderUnicycleModel "
-            f"only, not {type(model).__name__}")
+            f"the fused kernel covers the models {sorted(MODELS)}, not "
+            f"{name}")
+    return MODELS[name]
 
 
-def _check_base(module):
+def _check_base(module) -> bool:
     """MPCBaseModule as the factory configures it: w_a a^2, w_w w^2 and
-    w_v (v - v_ref)^2 (the forms checked on a sample point)."""
-    if (module._variables_per_function != ["a", "w", "v"]
-            or module._weights_per_function
-            != [["acceleration"], ["angular_velocity"],
-                ["velocity", "reference_velocity"]]):
+    optionally w_v (v - v_ref)^2 (the forms checked on a sample point).
+    Returns whether it weighs v."""
+    forms = {("a", "w"): [["acceleration"], ["angular_velocity"]],
+             ("a", "w", "v"): [["acceleration"], ["angular_velocity"],
+                               ["velocity", "reference_velocity"]]}
+    variables = tuple(module._variables_per_function)
+    if forms.get(variables) != module._weights_per_function:
         raise NotImplementedError(
-            "the fused kernel covers MPCBaseModule weighing a, w and v "
-            "(acceleration, angular_velocity, velocity/reference_velocity)")
+            "the fused kernel covers MPCBaseModule weighing a, w and "
+            "optionally v (acceleration, angular_velocity, "
+            "velocity/reference_velocity)")
     t = functools.partial(torch.tensor, dtype=torch.float64)
     x, w0, w1 = 1.7, 0.3, 0.6
     want = (w0 * x * x, w0 * x * x, w0 * (x - w1) ** 2)
@@ -118,6 +137,7 @@ def _check_base(module):
             raise NotImplementedError(
                 "the fused kernel covers MPCBaseModule's default cost forms "
                 "only")
+    return "v" in variables
 
 
 def _constraint_rows(module, idx):
@@ -158,16 +178,17 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
     """The kernel's tables for one OCP and (f32-safe) config. Raises
     ``ValueError`` for a regularization the kernel does not run and
     ``NotImplementedError`` for an OCP its header does not cover."""
-    from ..modules import (ConsistencyModule, ContouringModule,
+    from ..modules import (ConsistencyModule, ContouringModule, GoalModule,
                            MPCBaseModule)
 
     if config.regularization not in REG_KINDS:
         raise ValueError(
             "the fused kernel supports elementwise regularizations only "
             f"(gershgorin/levenberg/none), not {config.regularization!r}")
-    _check_model(ocp.model)
+    model_id = _check_model(ocp.model)
     idx = ocp.registry.save_map()
     head = [0] * TB_HEADER
+    head[TB_MODEL] = model_id
     flags, spline, h_rows, seen = 0, [], [], set()
     for module in ocp.modules:
         kind = type(module)
@@ -178,14 +199,23 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
             raise NotImplementedError(f"{kind.__name__} appears twice")
         seen.add(kind)
         if kind is MPCBaseModule:
-            _check_base(module)
+            weighs_v = _check_base(module)
             flags |= FL_BASE
             for slot, name in ((TB_ACC, "acceleration"),
                                (TB_ANGVEL, "angular_velocity"),
                                (TB_VEL, "velocity"),
                                (TB_VREF, "reference_velocity")):
+                head[slot] = idx[name] if weighs_v or slot < TB_VEL else -1
+        elif kind is GoalModule:
+            flags |= FL_GOAL
+            for slot, name in ((TB_GOAL_W, "goal_weight"),
+                               (TB_GOAL_X, "goal_x"), (TB_GOAL_Y, "goal_y")):
                 head[slot] = idx[name]
         elif kind is ContouringModule:
+            if "spline" not in ocp.model.states:
+                raise NotImplementedError(
+                    "the fused kernel covers contouring on a model with a "
+                    "spline state")
             if module.dynamic_velocity_reference:
                 raise NotImplementedError(
                     "the fused kernel does not cover "
@@ -235,23 +265,22 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
         + [float(bounds[k][i]) for k, i in row_spec], dtype=np.float64)
     generic = tuple(r for r, (k, _) in enumerate(row_spec) if k in ("hl", "hu"))
     return OcpTables(ints=ints, reals=reals,
-                     reg=REG_KINDS[config.regularization], T=ocp.N + 1,
+                     reg=REG_KINDS[config.regularization], model=model_id,
+                     nx=ocp.nx, nu=ocp.nu, T=ocp.N + 1,
                      npar=ocp.npar, m=len(rows), mh=len(generic), generic=generic)
 
 
 # ---------------------------------------------------------------------------
 # Layouts
 # ---------------------------------------------------------------------------
-_NU, _NX, _NZ = 2, 5, 7
-_NTRI = _NZ * (_NZ + 1) // 2
-_TRI = np.triu_indices(_NZ)
-
-
-def qp_layout(T, m, mh) -> dict:
-    """Field offsets of one problem's QP fields (``tmpc::QpLayout``)."""
-    sizes = (("H", T * _NTRI), ("g", T * _NZ), ("A", (T - 1) * _NX * _NX),
-             ("B", (T - 1) * _NX * _NU), ("c", (T - 1) * _NX),
-             ("D", T * max(mh, 1) * _NZ), ("e", T * m), ("r0", _NX))
+def qp_layout(T, m, mh, nx, nu) -> dict:
+    """Field offsets of one problem's QP fields (``tmpc::QpLayout`` of a
+    model with nx states and nu inputs)."""
+    nz = nx + nu
+    sizes = (("H", T * nz * (nz + 1) // 2), ("g", T * nz),
+             ("A", (T - 1) * nx * nx), ("B", (T - 1) * nx * nu),
+             ("c", (T - 1) * nx), ("D", T * max(mh, 1) * nz), ("e", T * m),
+             ("r0", nx))
     out, o = {}, 0
     for name, n in sizes:
         out[name] = o
@@ -272,8 +301,9 @@ def unpack_qp(fields, tables: OcpTables) -> QPData:
     """Field-major QP fields (total, B) -> batch-major :class:`.sqp.QPData`,
     D with every row: generic rows from the kernel's storage, box rows +-1
     at their column at every stage (as ``build_qp`` lays them out)."""
-    T, m, mh = tables.T, tables.m, tables.mh
-    lay = qp_layout(T, m, mh)
+    T, m, mh, nx, nu = tables.T, tables.m, tables.mh, tables.nx, tables.nu
+    nz = nx + nu
+    lay = qp_layout(T, m, mh, nx, nu)
     f = fields.t()
     B = f.shape[0]
 
@@ -281,22 +311,22 @@ def unpack_qp(fields, tables: OcpTables) -> QPData:
         n = int(np.prod(shape))
         return f[:, lay[name]:lay[name] + n].reshape(B, *shape)
 
-    Htri = take("H", T, _NTRI)
-    H = torch.zeros((B, T, _NZ, _NZ), dtype=f.dtype, device=f.device)
-    iu, ju = (torch.as_tensor(a, device=f.device) for a in _TRI)
+    Htri = take("H", T, nz * (nz + 1) // 2)
+    H = torch.zeros((B, T, nz, nz), dtype=f.dtype, device=f.device)
+    iu, ju = (torch.as_tensor(a, device=f.device) for a in np.triu_indices(nz))
     H[:, :, iu, ju] = Htri
     H[:, :, ju, iu] = Htri
-    D_h = take("D", T, max(mh, 1), _NZ)
-    D = torch.zeros((B, T, m, _NZ), dtype=f.dtype, device=f.device)
+    D_h = take("D", T, max(mh, 1), nz)
+    D = torch.zeros((B, T, m, nz), dtype=f.dtype, device=f.device)
     rows = tables.ints[tables.ints[TB_OFF_ROWS]:].reshape(-1, 2)
     for r, (kind, i) in enumerate(rows):
         if r in tables.generic:
             D[:, :, r] = D_h[:, :, tables.generic.index(r)]
         else:
             D[:, :, r, i] = 1.0 if kind == ROW_KINDS["zl"] else -1.0
-    return QPData(H=H, g=take("g", T, _NZ), A=take("A", T - 1, _NX, _NX),
-                  B=take("B", T - 1, _NX, _NU), c=take("c", T - 1, _NX),
-                  D=D, e=take("e", T, m), r0=take("r0", _NX))
+    return QPData(H=H, g=take("g", T, nz), A=take("A", T - 1, nx, nx),
+                  B=take("B", T - 1, nx, nu), c=take("c", T - 1, nx),
+                  D=D, e=take("e", T, m), r0=take("r0", nx))
 
 
 # ---------------------------------------------------------------------------
@@ -349,14 +379,14 @@ def _bind(lib, suffixes):
     """Argument types of the solve and linearize entries (kernel or host
     build)."""
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.tmpc_qp_layout.argtypes = [i32, i32, i32, ptr]
-    lib.tmpc_qp_layout.restype = None
+    lib.tmpc_qp_layout.argtypes = [i32] * 4 + [ptr]
+    lib.tmpc_qp_layout.restype = i32
     for suffix in suffixes:
         fn = getattr(lib, "sqp_fused_solve" + suffix)
-        fn.argtypes = [ptr] * 9 + [i32] * 8 + [f64] * 7 + [ptr]
+        fn.argtypes = [ptr] * 9 + [i32] * 9 + [f64] * 7 + [ptr]
         fn.restype = i32
         fn = getattr(lib, "sqp_fused_linearize" + suffix)
-        fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        fn.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
         fn.restype = i32
     _check_layout(lib)
     return lib
@@ -365,7 +395,7 @@ def _bind(lib, suffixes):
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _bind(ctypes.CDLL(qp_cuda.build("sqp_fused").path), ("_f32", "_f64"))
-    lib.sqp_fused_launch_info.argtypes = [ctypes.c_int] * 4 + [
+    lib.sqp_fused_launch_info.argtypes = [ctypes.c_int] * 5 + [
         ctypes.c_void_p] * 2
     lib.sqp_fused_launch_info.restype = None
     return lib
@@ -382,21 +412,28 @@ def launch_info(dtype, tables: OcpTables) -> tuple:
     (warps per block, shared memory per block, problems resident per SM,
     registers and local memory per thread)."""
     solve, lin = (ctypes.c_int * 6)(), (ctypes.c_int * 6)()
-    _library().sqp_fused_launch_info(int(dtype == torch.float64), tables.T,
-                                     tables.m, tables.mh, solve, lin)
+    _library().sqp_fused_launch_info(int(dtype == torch.float64),
+                                     tables.model, tables.T, tables.m,
+                                     tables.mh, solve, lin)
     return (dict(zip(qp_cuda.PLAN_FIELDS, solve)),
             dict(zip(qp_cuda.PLAN_FIELDS, lin)))
 
 
 def _check_layout(lib):
-    """The library's QP layout is the one :func:`qp_layout` unpacks."""
-    for T, m, mh in ((21, 22, 8), (3, 14, 0)):
-        out = (ctypes.c_int * 9)()
-        lib.tmpc_qp_layout(T, m, mh, out)
-        want = qp_layout(T, m, mh)
-        if list(out) != [want[k] for k in ("H", "g", "A", "B", "c", "D", "e",
-                                           "r0", "total")]:
-            raise RuntimeError(f"QP layout mismatch: {list(out)} vs {want}")
+    """The library's QP layout of every model is the one :func:`qp_layout`
+    unpacks."""
+    from ..models import dynamics
+
+    for name, model in MODELS.items():
+        spec = getattr(dynamics, name)()
+        for T, m, mh in ((21, 22, 8), (3, 14, 0)):
+            out = (ctypes.c_int * 9)()
+            err = lib.tmpc_qp_layout(model, T, m, mh, out)
+            want = qp_layout(T, m, mh, spec.nx, spec.nu)
+            if err != 0 or list(out) != [want[k] for k in (
+                    "H", "g", "A", "B", "c", "D", "e", "r0", "total")]:
+                raise RuntimeError(f"QP layout mismatch ({name}, error "
+                                   f"{err}): {list(out)} vs {want}")
 
 
 def _device_tables(tables: OcpTables, device):
@@ -426,8 +463,8 @@ def _check_cuda(*tensors):
 
 def _shapes(tables, P, xinit, Z):
     B = Z.shape[0]
-    want = {"P": (B, tables.T, tables.npar), "xinit": (B, _NX),
-            "Z": (B, tables.T, _NZ)}
+    want = {"P": (B, tables.T, tables.npar), "xinit": (B, tables.nx),
+            "Z": (B, tables.T, tables.nx + tables.nu)}
     for name, x in zip(want, (P, xinit, Z)):
         if tuple(x.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(x.shape)}")
@@ -440,21 +477,22 @@ def _shapes(tables, P, xinit, Z):
 def _linearize_launch(tables: OcpTables, P_f, x_f, Z_f, with_qp: bool,
                       host=False):
     B = Z_f.shape[1]
-    want = {"P": (tables.npar * tables.T, B), "xinit": (_NX, B),
-            "Z": (tables.T * _NZ, B)}
+    want = {"P": (tables.npar * tables.T, B), "xinit": (tables.nx, B),
+            "Z": (tables.T * (tables.nx + tables.nu), B)}
     for name, x in zip(want, (P_f, x_f, Z_f)):
         if tuple(x.shape) != want[name] or x.dtype != Z_f.dtype:
             raise ValueError(f"{name} must be {want[name]} {Z_f.dtype}, got "
                              f"{tuple(x.shape)} {x.dtype}")
     dev, dtype = Z_f.device, Z_f.dtype
     itab, rtab = _device_tables(tables, dev)
-    qp = (torch.empty((qp_layout(tables.T, tables.m, tables.mh)["total"], B),
+    qp = (torch.empty((qp_layout(tables.T, tables.m, tables.mh, tables.nx,
+                                 tables.nu)["total"], B),
                       dtype=dtype, device=dev) if with_qp else None)
     mo = torch.empty((3, B), dtype=dtype, device=dev)
     bufs = (P_f, x_f, Z_f, mo, *(() if qp is None else (qp,)))
     args = [None if t is None else t.data_ptr()
             for t in (P_f, x_f, Z_f, qp, mo, itab, rtab)] + [
-                B, tables.T, tables.m, tables.mh, tables.reg]
+                B, tables.T, tables.m, tables.mh, tables.model, tables.reg]
     if host:
         _check_host(*bufs)
         err = _host_library().sqp_fused_linearize_host_f64(*args, None)
@@ -507,16 +545,16 @@ def _solve_kernel(tables, rows, config, consts, P, xinit, Z, host=False):
     global launches
     B = _shapes(tables, P, xinit, Z)
     dev, dtype = Z.device, Z.dtype
-    T, m = tables.T, tables.m
+    T, m, nz = tables.T, tables.m, tables.nx + tables.nu
     ins = _lanes_in(P, xinit, Z)
     itab, rtab, phases_t = consts
     mask_t, table_t = qp_cuda._row_tables(
         (rows.row_meta, rows.stage_mask.tobytes(), rows.active), T, m, dtype,
         dev)
-    out = torch.empty((T * _NZ + 2, B), dtype=dtype, device=dev)
+    out = torch.empty((T * nz + 2, B), dtype=dtype, device=dev)
     bufs = (*ins, out, mask_t, table_t, itab, rtab, phases_t)
     args = [t.data_ptr() for t in bufs] + [
-        phases_t.numel() // 2, B, T, m, tables.mh,
+        phases_t.numel() // 2, B, T, m, tables.mh, tables.model,
         int(bool(rows.active)), int(config.track_best), tables.reg,
         _IP["mu0"], config.mu_min, _IP["tau"], config.w_max, _IP["s_floor"],
         _IP["tol_freeze"], rows.n_act]
@@ -534,8 +572,8 @@ def _solve_kernel(tables, rows, config, consts, P, xinit, Z, host=False):
         raise RuntimeError(f"sqp_fused kernel launch failed with error {err}")
     launches += not host
     flat = out.t()
-    Zo = flat[:, :T * _NZ].reshape(B, T, _NZ)
-    cost, eq_res = flat[:, T * _NZ], flat[:, T * _NZ + 1]
+    Zo = flat[:, :T * nz].reshape(B, T, nz)
+    cost, eq_res = flat[:, T * nz], flat[:, T * nz + 1]
     finite = torch.isfinite(cost) & torch.all(torch.isfinite(Zo), dim=(1, 2))
     return fleet_result(Zo, cost, eq_res, finite, config)
 
@@ -612,13 +650,16 @@ def host_linearize(tables: OcpTables, P, xinit, Z, lanes: bool = False):
     lib = ctypes.CDLL(build_host())
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn = lib.tmpc_host_linearize_f64
-    fn.argtypes = [ptr] * 7 + [i32] * 5
-    fn.restype = None
-    qp = torch.empty((qp_layout(tables.T, tables.m, tables.mh)["total"], B),
-                     dtype=torch.float64)
+    fn.argtypes = [ptr] * 7 + [i32] * 6
+    fn.restype = i32
+    qp = torch.empty((qp_layout(tables.T, tables.m, tables.mh, tables.nx,
+                                tables.nu)["total"], B), dtype=torch.float64)
     mo = torch.empty((3, B), dtype=torch.float64)
     itab = np.ascontiguousarray(tables.ints)
     rtab = np.ascontiguousarray(tables.reals)
-    fn(*[t.data_ptr() for t in (*ins, qp, mo)], itab.ctypes.data,
-       rtab.ctypes.data, B, tables.T, tables.m, tables.mh, tables.reg)
+    err = fn(*[t.data_ptr() for t in (*ins, qp, mo)], itab.ctypes.data,
+             rtab.ctypes.data, B, tables.T, tables.m, tables.mh, tables.model,
+             tables.reg)
+    if err != 0:
+        raise RuntimeError(f"host linearization failed with error {err}")
     return unpack_qp(qp, tables), mo[0], mo[1], mo[2]

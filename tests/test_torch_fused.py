@@ -150,16 +150,19 @@ def test_header_matches_jax_lane_linearizer(host_lin, bench20):
 
 
 def test_qp_layout_matches_header(host_lin):
-    """The Python unpacking offsets are the header's ``QpLayout``."""
+    """The Python unpacking offsets are the header's ``QpLayout``, for
+    every model the kernels are compiled for; an unknown model id is -3."""
     import ctypes
 
     lib = ctypes.CDLL(sqp_fused.build_host())
-    for T, m, mh in ((21, 22, 8), (5, 14, 0), (2, 3, 3)):
-        out = (ctypes.c_int * 9)()
-        lib.tmpc_qp_layout(T, m, mh, out)
-        lay = sqp_fused.qp_layout(T, m, mh)
-        assert list(out) == [lay[k] for k in ("H", "g", "A", "B", "c", "D",
-                                              "e", "r0", "total")]
+    for model, nx in ((0, 5), (1, 4)):
+        for T, m, mh in ((21, 22, 8), (5, 14, 0), (2, 3, 3)):
+            out = (ctypes.c_int * 9)()
+            assert lib.tmpc_qp_layout(model, T, m, mh, out) == 0
+            lay = sqp_fused.qp_layout(T, m, mh, nx, 2)
+            assert list(out) == [lay[k] for k in ("H", "g", "A", "B", "c",
+                                                  "D", "e", "r0", "total")]
+    assert lib.tmpc_qp_layout(7, 21, 22, 8, (ctypes.c_int * 9)()) == -3
 
 
 @pytest.mark.parametrize("track_best", [False, True])

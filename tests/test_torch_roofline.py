@@ -129,8 +129,8 @@ def count_lib(tmp_path_factory):
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.qp_ip_count_ops.argtypes = [ptr] * 10 + [i32] * 6 + [f64] * 7 + [ptr]
     lib.qp_ip_count_ops.restype = i32
-    lib.tmpc_count_ops.argtypes = [ptr] * 5 + [i32] * 5 + [ptr] * 2
-    lib.tmpc_count_ops.restype = None
+    lib.tmpc_count_ops.argtypes = [ptr] * 5 + [i32] * 6 + [ptr] * 2
+    lib.tmpc_count_ops.restype = i32
     return lib
 
 
@@ -170,7 +170,7 @@ def _check_iteration_count(lib, qp, row_mask, row_meta, nx, nu):
     return hand
 
 
-@pytest.mark.parametrize("nx,nu", [(5, 2), (3, 1), (4, 3)])
+@pytest.mark.parametrize("nx,nu", [(5, 2), (4, 2), (3, 1), (4, 3)])
 def test_ip_iteration_flops_match_the_kernel_count(count_lib, nx, nu):
     """Generic and box rows, a masked stage, an inactive row, nu 1 to 3."""
     T, m = 6, 5
@@ -225,7 +225,7 @@ def test_linearization_flops_match_the_kernel_count(count_lib):
         count_lib.tmpc_count_ops(
             *[c.ctypes.data for c in cols], itab.ctypes.data,
             rtab.ctypes.data, tables.T, tables.npar, tables.m, tables.mh,
-            tables.reg, lin.ctypes.data, merit.ctypes.data)
+            tables.model, tables.reg, lin.ctypes.data, merit.ctypes.data)
         assert int(lin.sum()) == roofline.LIN_FLOPS, lin
         assert int(merit.sum()) == roofline.MERIT_FLOPS, merit
 
@@ -278,7 +278,8 @@ def test_tick_ocp_flops_match_the_kernel_count(count_lib):
                 count_lib.tmpc_count_ops(
                     *[c.ctypes.data for c in cols], itab.ctypes.data,
                     rtab.ctypes.data, tables.T, tables.npar, tables.m,
-                    tables.mh, tables.reg, lin.ctypes.data, merit.ctypes.data)
+                    tables.mh, tables.model, tables.reg, lin.ctypes.data,
+                    merit.ctypes.data)
                 assert int(lin.sum()) == roofline.TICK_LIN_FLOPS, lin
                 assert int(merit.sum()) == roofline.TICK_MERIT_FLOPS, merit
     tick = roofline.sqp_flops(5, BENCH_SCHEDULE, lin=roofline.TICK_LIN_FLOPS,
@@ -348,7 +349,93 @@ def test_contouring_ocp_flops_match_the_kernel_count(count_lib, which):
         count_lib.tmpc_count_ops(
             *[c.ctypes.data for c in cols], itab.ctypes.data,
             rtab.ctypes.data, tables.T, tables.npar, tables.m, tables.mh,
-            tables.reg, lin.ctypes.data, merit.ctypes.data)
+            tables.model, tables.reg, lin.ctypes.data, merit.ctypes.data)
+        assert (int(lin.sum()), int(merit.sum())) == want[1:3]
+
+
+def _first_tick(which):
+    """(ocp, config, P (B, T, npar), x0, Z) of an evaluator's first tick at
+    N=20 on the CPU (f64), its default scenes of seed 0."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel import (
+        rollout)
+
+    f64 = torch.float64
+    if which == "goal_rollout":
+        ro, ocp = rollout.make_batch_rollout(N=20, n_ticks=1, dtype=f64,
+                                             device="cpu")
+        x0, goal, obs0, vel = rollout.sample_scenes(4, 3, seed=0)
+        P, x0 = ro.first_tick_params(x0, goal, obs0, vel), torch.as_tensor(x0)
+    elif which == "multirobot":
+        ro, ocp = rollout.make_multirobot_rollout(N=20, n_ticks=1, dtype=f64,
+                                                  device="cpu")
+        x0, goals = rollout.antipodal_circle_scenes(1, 4, seed=0)
+        P = ro.first_tick_params(x0, goals).reshape(4, 20, -1)
+        x0 = torch.as_tensor(x0).reshape(4, 4)
+    else:
+        ro, ocp = rollout.make_tmpc_rollout(N=20, n_ticks=1, dtype=f64,
+                                            device="cpu")
+        scenes = rollout.tmpc_scenes(1, 4, seed=0)
+        P = ro.first_tick_params(*scenes).reshape(5, 20, -1)
+        Z = ro.first_tick_seeds(*scenes).reshape(5, 21, -1)
+        return ocp, ro.config, P, Z[:, 0, ocp.nu:].contiguous(), Z
+    Z = torch.cat([torch.zeros(x0.shape[0], 21, ocp.nu, dtype=f64),
+                   x0[:, None].expand(-1, 21, -1)], dim=2)
+    return ocp, ro.config, P, x0, Z
+
+
+@pytest.mark.parametrize("which", ["goal_gate", "goal_rollout", "multirobot",
+                                   "tmpc_rollout"])
+def test_goal_and_evaluator_ocp_flops_match_the_kernel_count(count_lib,
+                                                             which):
+    """The GOAL_ constants are the hand count and the fused kernel's own
+    counts at BASELINE config 1's OCP (SecondOrderUnicycleModel, N=20, 3
+    ellipsoids): on the golden's problem at its start and at its solution,
+    and on the first ticks of the goal evaluator and of the multi-robot
+    evaluator at 4 robots. The T-MPC evaluator's first tick (4 obstacles,
+    5 planners) counts the fleet bench's IP_ITER_FLOPS, LIN_FLOPS and
+    MERIT_FLOPS."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        SQPConfig, _make_machinery)
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel import (
+        rollout)
+
+    f64 = torch.float64
+    if which == "goal_gate":
+        gold = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                                    "goal_tracking_3obs.npz"))
+        ocp, _ = rollout._goal_ellipsoid_ocp(3, 20)
+        cfg = SQPConfig(n_sqp=25, n_qp_iter=15, mu_min=1e-6, w_max=1e6,
+                        reg_eps=1e-4, regularization="gershgorin")
+        P = torch.as_tensor(gold["P"])[None].expand(2, -1, -1)
+        x0 = torch.as_tensor(gold["x0"])[None].expand(2, -1)
+        Z = torch.stack([torch.as_tensor(gold["z_init"]),
+                         torch.as_tensor(gold["Z"])])
+    else:
+        ocp, cfg, P, x0, Z = _first_tick(which)
+    want = ((roofline.IP_ITER_FLOPS, roofline.LIN_FLOPS,
+             roofline.MERIT_FLOPS, 98) if which == "tmpc_rollout" else
+            (roofline.GOAL_IP_ITER_FLOPS, roofline.GOAL_LIN_FLOPS,
+             roofline.GOAL_MERIT_FLOPS, 28))
+    assert ocp.npar == want[3]
+    P = torch.cat([P, P[:, -1:]], dim=1).contiguous()
+    mach = _make_machinery(ocp, cfg, f64, "cpu")
+    tables = sqp_fused.ocp_tables(ocp, cfg)
+    itab = np.ascontiguousarray(tables.ints)
+    rtab = np.ascontiguousarray(tables.reals)
+    qp = mach.build_qp(Z, P, x0)
+    ins = sqp_fused._lanes_in(P, x0, Z)
+    for b in range(P.shape[0]):
+        one = tsqp.QPData(*(x[b:b + 1] for x in qp))
+        assert _check_iteration_count(count_lib, one, mach.stage_mask,
+                                      mach.row_meta, ocp.nx,
+                                      mach.nu) == want[0]
+        cols = [np.ascontiguousarray(x[:, b].numpy()) for x in ins]
+        lin, merit = np.zeros(5, np.int64), np.zeros(5, np.int64)
+        assert count_lib.tmpc_count_ops(
+            *[c.ctypes.data for c in cols], itab.ctypes.data,
+            rtab.ctypes.data, tables.T, tables.npar, tables.m, tables.mh,
+            tables.model, tables.reg, lin.ctypes.data,
+            merit.ctypes.data) == 0
         assert (int(lin.sum()), int(merit.sum())) == want[1:3]
 
 

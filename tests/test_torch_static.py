@@ -35,7 +35,9 @@ def test_port_has_sources():
             "guidance/global_guidance.py", "guidance/homotopy.py",
             "guidance/cpp_backend.py", "native/prm.cpp",
             "utils/profiling.py", "sim/pedestrians.py",
-            "sim/roadmap.py", "ops/qp.py", "parallel/rollout.py"} <= names
+            "sim/roadmap.py", "ops/qp.py", "parallel/rollout.py",
+            "models/dynamics.py", "modules/goal_module.py",
+            "tools/bench_rollout.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
