@@ -9,7 +9,7 @@ cold, duals/warm and field-layout entries), the fused whole-SQP kernel
 (csrc/sqp_fused.cu, with its linearize entry) and the FP32 roof kernel
 (csrc/fma_roof.cu). B1 and B2 run one warp per problem with its state in
 shared memory: for every entry it prints the launch plan at the bench shape
-and at BASELINE config 1's goal OCP (warps per block, dynamic shared memory per block, problems resident per
+and at the goal, CC-MPC and SH-MPC OCPs of BASELINE configs 1, 3 and 5 (warps per block, dynamic shared memory per block, problems resident per
 SM, registers and local memory per thread). Holds each against its plain PyTorch version: the QP
 kernel on the bench QPs (cold; cold with duals out, then warm from them on
 the re-linearized QPs; on the linearize entry's buffer), the fused kernel's
@@ -60,7 +60,22 @@ obstacles), all at tools/bench_rollout.py's shape (N=20, 60 ticks, f32),
 with the contouring evaluator's checks: one B2 launch per tick and nothing
 else, no copy between ticks (profiled once), success >= 0.9, f64 kernel =
 plain on a short rollout, B2 on the first tick against plain at f64 and
-by per-problem medians at f32, episodes/s. Any
+by per-problem medians at f32, episodes/s. Then BASELINE configs 3
+(CC-MPC) and 5 (SH-MPC), each run with the launch counts set to 0 before
+it: tools/bench_matrix.py's five fleets (B=512, N=20, f32) through B2; (a)
+the CC-MPC fleet through B2 (the Gaussian row) and B1 at (5, 2), and at
+BASELINE config 3's own size (256 instances, 6 Gaussian obstacles) through
+B2, each against its plain version (B2 at f64 every problem within 1e-6 with
+the same success mask, at f32 by medians; B1 at f64 within 1e-8 (1 +
+max|ref|)); (b) the CC-MPC evaluator (4096 episodes, 60 ticks, risk 0.05,
+sigma 0.05 sqrt(k + 1)) with the evaluators' checks, and its larger obstacle
+margins than the ellipsoid evaluator's on the same scenes and on the JAX
+test's scene; (c) the SH-MPC fleet (m=40, the slack model) through B2 and
+B1 at (6, 2), held as in (a); (d) the SH-MPC planner tick
+(configuration_safe_horizon, build_planner, 4 scenario solvers, 60 serial
+ticks under Gershgorin with one B2 launch each, then ticks under "mirror"
+with B1 (6, 2) once per SQP iteration): success, no contact with the
+pedestrians' mean positions, ms per tick, support and certificate. Any
 failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 each with its bound. Needs one CUDA device; without one it exits with code 2.
@@ -199,13 +214,19 @@ def plain_qp_solver():
 
 def log_launch_plans(dev):
     """Every B1 and B2 entry's launch plan at the bench shape ((nx, nu) =
-    (5, 2)) and at BASELINE config 1's goal OCP ((4, 2), N=20, 3
-    obstacles), f32 and f64."""
+    (5, 2)), at BASELINE config 1's goal OCP ((4, 2), N=20, 3 obstacles),
+    at config 3's CC-MPC OCP ((5, 2), 3 Gaussian rows) and at config 5's
+    SH-MPC OCP ((6, 2), 24 scenario rows, m=40), f32 and f64."""
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
         make_fleet_sqp_solver)
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
 
     bench_ocp, _ = bench_fleet(1, torch.float32, "cpu")
-    for ocp in (bench_ocp, goal_ocp()):
+    rng = np.random.default_rng(0)
+    for ocp in (bench_ocp, goal_ocp(),
+                bench_matrix.build_ccmpc(N_MAIN, 1, rng)[0],
+                bench_matrix.build_shmpc(N_MAIN, 1, rng)[0]):
         solve = make_fleet_sqp_solver(ocp, bench_config(),
                                       dtype=torch.float32, device="cpu",
                                       backend="fused")
@@ -634,7 +655,7 @@ GATE_B = 4
 #: episodes of the goal and contouring evaluators, 1024 x 4 robots, 819 x 5
 #: T-MPC planners).
 ROLLOUT_N, ROLLOUT_TICKS = 20, 60
-BASIC_TICKS = 5
+BASIC_TICKS = 3
 #: Share of the contouring evaluator's first-tick problems on which f32 B2
 #: must lie within 1e-4 (per problem, relative) of its plain version:
 #: 0.995117 on an H100 80GB HBM3 (700 W); a fault on one warp slot of a
@@ -654,19 +675,31 @@ def sync():
     torch.cuda.synchronize()
 
 
-def device_trace(fn):
+def device_trace(fn, pad=0):
     """The device ops (kernels, copies, fills) of one call of fn in start
     order, by a torch.profiler trace of the device alone (a trace of the
-    host's ops too costs seconds for a few thousand launches)."""
+    host's ops too costs seconds for a few thousand launches). With ``pad``,
+    ``pad`` one-element additions run before and after fn inside the trace:
+    the card's traces of long rollouts have dropped their first or last few
+    device ops, and the padding is what such a loss then takes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.zeros(1, device="cuda")
+
+    def padding():
+        for _ in range(pad):
+            marker.add_(1.0)
+        sync()
 
     for activities in ([ProfilerActivity.CUDA],
                        [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         sync()
         with profile(activities=activities) as prof:
+            padding()
             fn()
             sync()
+            padding()
         ops = sorted((e for e in prof.events()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
@@ -1121,7 +1154,7 @@ def evaluator_phase(dev, card, reset_counts, counts, none, ev,
     # one profiled rollout: nothing crosses between ticks
     scenes = ev.scenes(B, 3)
     names = [e.name for e in device_trace(
-        lambda: read_metrics(rollout(*scenes)))]
+        lambda: read_metrics(rollout(*scenes)), pad=64)]
     win = copy_windows(names)
     log(f"{ev.name} evaluator, one profiled rollout: {len(names)} device "
         f"ops, {len(win) - 1} B2 launches in the trace; (uploads, readbacks) "
@@ -1238,6 +1271,502 @@ def triggered_phase(dev, card, reset_counts, counts, none, ev):
     check(0.0 < summary["comm_rate"] < 1.0, f"triggered multi-robot "
           f"comm_rate {summary['comm_rate']:.4f} in (0, 1)")
     return summary
+
+
+# ---------------------------------------------------------------------------
+# BASELINE configs 3 (CC-MPC) and 5 (SH-MPC)
+# ---------------------------------------------------------------------------
+#: tools/bench_matrix.py's fleets (B=512 plans, N=20, its 2x3+2x5+2x8
+#: Gershgorin operating point, f32) and BASELINE config 3's own size
+#: (``BASELINE.json`` ``configs[2]``: 256 planner instances, 6 Gaussian
+#: obstacles).
+MATRIX_B, CONFIG3_B, CONFIG3_OBS = 512, 256, 6
+#: The SH-MPC tick: serial ticks under Gershgorin (B2), then ticks under
+#: "mirror" (B1 at (6, 2) once per SQP iteration).
+SH_TICKS, SH_MIRROR_TICKS = 60, 3
+#: Pedestrians crossing the SH-MPC tick's straight 20 m path: start (x, y)
+#: and velocity (vx, vy), m and m/s.
+SH_PEDESTRIANS = [((5.0, 2.0), (0.0, -0.4)), ((10.0, -2.2), (0.0, 0.4))]
+
+
+def matrix_phase(dev, card, reset_counts, counts, none):
+    """tools/bench_matrix.py on the card: its five configurations (goal,
+    contour, CC-MPC, T-MPC++, SH-MPC) at B=512 through B2 (``"fused"``),
+    one launch each, the launch counts set to 0 before each; ms, plans/s,
+    success and rows printed as the tool's JSON line. Returns the tool's
+    inputs by name."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+
+    cases = bench_matrix.cases(N_MAIN, MATRIX_B)
+    results = {"batch": MATRIX_B, "horizon": N_MAIN, "card": card}
+    for name, (ocp, *arrays) in cases.items():
+        reset_counts()
+        r, _, _ = bench_matrix.run_case(ocp, arrays, "fused", dev, MATRIX_B)
+        got = counts()
+        check(got["sqp_fused"] >= 1 and got == {**none, "sqp_fused":
+                                                got["sqp_fused"]},
+              f"bench_matrix {name}: B2 launches only ({got})")
+        results.update({f"{name}_{k}": v for k, v in r.items()})
+    log(f"[{card}] bench_matrix: {json.dumps(results)}")
+    return cases
+
+
+def fleet_flavour_phase(dev, card, reset_counts, counts, none, name, ocp,
+                        arrays, consts, b1=True):
+    """One BASELINE fleet (numpy ``arrays`` P, x0, z0 of ``ocp``) at
+    tools/bench_matrix.py's operating point, f32: through B2
+    (``"fused"``, one launch) and, with ``b1``, through B1 (``"pallas"``,
+    one launch per SQP iteration), each run with the launch counts set to 0
+    before it; success of each. Then B2 against its plain version on every
+    problem (f64 within FUSED_F64_GATE per problem with the same success
+    mask; f32 median rel <= 1e-4 on each warp slot), B1 on the fleet's first
+    QPs against its plain version (f64 within QP_F64_GATE (1 + max|ref|),
+    f32 median rel <= 1e-4), and their times. ``consts``: the roofline
+    prefix of the OCP's operation counts. Returns B2's (and B1's) kernel
+    entry numbers."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        qp_cuda, roofline)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        _make_machinery, _phases_of, make_fleet_sqp_solver)
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools.bench_matrix import (  # noqa: E501
+        matrix_config)
+
+    cfg = matrix_config()
+    n = arrays[0].shape[0]
+    a32 = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in arrays)
+    ip_iter, lin, merit = (getattr(roofline, f"{consts}_{kind}_FLOPS")
+                           for kind in ("IP_ITER", "LIN", "MERIT"))
+    backends = ("fused", "pallas") if b1 else ("fused",)
+    want = {"fused": {**none, "sqp_fused": 1},
+            "pallas": {**none, "qp_ip": cfg.n_sqp}}
+    launches, fleets, success = {}, {}, {}
+    for backend in backends:
+        fleet = fleets[backend] = make_fleet_sqp_solver(
+            ocp, cfg, dtype=torch.float32, device=dev, backend=backend)
+        reset_counts()
+        out = fleet(*a32)
+        sync()
+        launches[backend] = got = counts()
+        check(got == want[backend], f"{name} fleet ({n} problems, nx="
+              f"{ocp.nx}, m={len(ocp.ineq_row_spec())}) through {backend!r}:"
+              f" launches {got} (want {want[backend]})")
+        success[backend] = out.success.float().mean().item()
+        check(bool(torch.isfinite(out.z).all()),
+              f"{name} fleet through {backend!r}: finite iterates")
+    fs = fleets["fused"]
+
+    # B2 against its plain version: f64 every problem, f32 by warp slot
+    fs64 = make_fleet_sqp_solver(ocp, cfg, dtype=torch.float64, device=dev,
+                                 backend="fused")
+    a64 = tuple(a.double() for a in a32)
+    r_k, r_p = fs64(*a64), fs64.reference(*a64)
+    sync()
+    rel64 = ((r_k.z - r_p.z).abs().amax(dim=(1, 2))
+             / (1.0 + r_p.z.abs().amax(dim=(1, 2))))
+    log(f"f64 B2 on the {name} fleet ({n} problems): max|dZ| "
+        f"{(r_k.z - r_p.z).abs().max().item():.3e}, max rel "
+        f"{rel64.max().item():.3e}, success "
+        f"{r_k.success.float().mean().item():.6f} (plain "
+        f"{r_p.success.float().mean().item():.6f})")
+    check(bool((r_k.success == r_p.success).all())
+          and rel64.max().item() <= FUSED_F64_GATE, f"f64 B2 = plain on the "
+          f"{name} fleet: same success, every problem max|dZ| / (1 + max|Z|)"
+          f" <= {FUSED_F64_GATE:g}")
+    del fs64, a64, r_k, r_p
+    plain = {}
+    rk = fs(*a32)
+    fp_ms, _ = cuda_time_ms(lambda: plain.update(r=fs.reference(*a32)),
+                            reps=1, warmup=0)
+    rp = plain["r"]
+    err = (rk.z - rp.z).abs().max().item()
+    rel = ((rk.z - rp.z).abs().amax(dim=(1, 2))
+           / (1.0 + rp.z.abs().amax(dim=(1, 2))))
+    slot_med = [rel[s::4].median().item() for s in range(4)]
+    log(f"f32 B2 on the {name} fleet: max|dZ| {err:.3e}, median rel by "
+        f"problem mod 4 {[f'{v:.3e}' for v in slot_med]}, share <= 1e-4 "
+        f"{(rel <= 1e-4).float().mean().item():.6f}; success "
+        f"{rk.success.float().mean().item():.6f} (plain "
+        f"{rp.success.float().mean().item():.6f})")
+    check(max(slot_med) <= 1e-4, f"f32 B2 = plain on the {name} fleet: "
+          f"median rel <= 1e-4 on each of the problems mod 4")
+    f_ms, f_all = cuda_time_ms(lambda: fs(*a32), reps=10)
+    log(f"[{card}] B2 on the {name} fleet ({n} problems, T={N_MAIN + 1}, "
+        f"f32): {f_ms:.3f} ms per launch (median of 10; {spread(f_all)}) = "
+        f"{n / f_ms * 1e3:.0f} plans/s, success {success['fused']:.4f}; "
+        f"plain fused_fleet_reference {fp_ms:.1f} ms")
+    P_t = torch.cat([a32[0], a32[0][:, -1:]], dim=1)
+    entries = {"b2": dict(
+        launches=launches["fused"]["sqp_fused"], err=err, ms=f_ms,
+        plain_ms=fp_ms,
+        flops=roofline.sqp_flops(n, _phases_of(cfg), lin=lin, merit=merit,
+                                 ip_iter=ip_iter),
+        n_bytes=roofline.tensor_bytes(P_t, a32[1], a32[2], a32[2]) + 8 * n)}
+    if not b1:
+        return entries
+    log(f"[{card}] {name} fleet through 'pallas' (B1 at ({ocp.nx}, "
+        f"{ocp.nu}) per SQP iteration): success {success['pallas']:.4f}")
+
+    # B1 at the fleet's first QPs (linearized at z0)
+    for dtype in (torch.float64, torch.float32):
+        mach = _make_machinery(ocp, cfg, dtype, dev)
+        ins = tuple(a.to(dtype) for a in a32)
+        qp = mach.build_qp(ins[2], torch.cat([ins[0], ins[0][:, -1:]], 1),
+                           ins[1])
+        kw = dict(nu=ocp.nu, n_iters=8, mu_min=cfg.mu_min, w_max=cfg.w_max,
+                  row_meta=mach.row_meta)
+        qa = (qp.H, qp.g, qp.A, qp.B, qp.c, qp.D, qp.e, mach.stage_mask,
+              qp.r0)
+        dz_k = qp_cuda.solve_qp_batched(*qa, **kw)
+        dz_p = qp_cuda.ip_solve_reference(*qa, **kw)
+        sync()
+        b1_err = (dz_k - dz_p).abs().max().item()
+        scale = 1.0 + dz_p.abs().max().item()
+        b1_rel = ((dz_k - dz_p).abs().amax(dim=(1, 2))
+                  / (1.0 + dz_p.abs().amax(dim=(1, 2))))
+        log(f"{str(dtype)[6:]} B1 ({ocp.nx}, {ocp.nu}) at the {name} "
+            f"fleet's QPs ({n} problems, m={qp.D.shape[2]}, 8 iterations): "
+            f"max|ddz| {b1_err:.3e}, max|dz| {scale - 1:.3e}, median rel "
+            f"{b1_rel.median().item():.3e}")
+        if dtype == torch.float64:
+            check(b1_err <= QP_F64_GATE * scale, f"f64 B1 = plain at the "
+                  f"{name} fleet's QPs: max|ddz| <= {QP_F64_GATE:g} "
+                  f"(1 + max|dz|)")
+        else:
+            check(b1_rel.median().item() <= 1e-4, f"f32 B1 = plain at the "
+                  f"{name} fleet's QPs: median rel <= 1e-4")
+    k_ms, k_all = cuda_time_ms(lambda: qp_cuda.solve_qp_batched(*qa, **kw),
+                               reps=20)
+    p_ms, _ = cuda_time_ms(lambda: qp_cuda.ip_solve_reference(*qa, **kw),
+                           reps=3)
+    T, m = qp.g.shape[1], qp.D.shape[2]
+    mh = sum(meta[0] == "h" for meta in mach.row_meta)
+    check(roofline.ip_iter_flops(mach.row_meta, mach.stage_mask, ocp.nx,
+                                 ocp.nu) == ip_iter,
+          f"IP iteration count at the {name} fleet's rows and mask = "
+          f"{consts}_IP_ITER_FLOPS {ip_iter}")
+    log(f"[{card}] B1 ({ocp.nx}, {ocp.nu}) at the {name} fleet's QPs: "
+        f"{k_ms:.3f} ms per launch of 8 iterations (median of 20; "
+        f"{spread(k_all)}), plain {p_ms:.1f} ms")
+    entries["b1"] = dict(
+        launches=launches["pallas"]["qp_ip"], err=b1_err, ms=k_ms,
+        plain_ms=p_ms, flops=roofline.ip_flops(n, 8, ip_iter=ip_iter),
+        n_bytes=roofline.qp_bytes(T, ocp.nx, ocp.nu, m, mh, n, 4))
+    return entries
+
+
+def ccmpc_margin_phase(dev, card, evs):
+    """The CC-MPC claim of the JAX package's tests/test_rollout.py: chance
+    constraints keep larger obstacle margins than ellipsoids on the same
+    scenes. At the evaluators' full width (4096 contouring scenes, 60
+    ticks, f32): the mean of each episode's smallest obstacle distance is
+    larger under CC-MPC; on the JAX test's scene (8 episodes, 2 crossing
+    obstacles, N=10, 50 ticks, sigma_step 0.04, f64): success >= 0.99, no
+    collision, progress > 12 m, and the smallest distance over the episodes
+    larger by 0.05 m."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel.rollout import (
+        make_contouring_rollout)
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools.bench_rollout import (  # noqa: E501
+        read_metrics)
+
+    full = {}
+    for name in ("contouring", "ccmpc"):
+        ev = evs[name]
+        rollout, _ = ev.make(ROLLOUT_TICKS, torch.float32, dev)
+        full[name] = read_metrics(rollout(*ev.scenes(ev.batch, 0)))
+    mean_min = {k: float(np.mean(m["min_obstacle_dist"]))
+                for k, m in full.items()}
+    log(f"[{card}] min obstacle distance per episode, {evs['ccmpc'].batch} "
+        f"contouring scenes (seed 0), f32: mean ellipsoid "
+        f"{mean_min['contouring']:.4f} m, CC-MPC {mean_min['ccmpc']:.4f} m; "
+        f"smallest {float(full['contouring']['min_obstacle_dist'].min()):.4f}"
+        f" / {float(full['ccmpc']['min_obstacle_dist'].min()):.4f} m; "
+        f"collision rate {float(np.mean(full['contouring']['collided'])):.4f}"
+        f" / {float(np.mean(full['ccmpc']['collided'])):.4f}")
+    check(mean_min["ccmpc"] > mean_min["contouring"], "CC-MPC keeps a larger "
+          "mean obstacle distance than ellipsoids on the same scenes")
+
+    rng = np.random.default_rng(3)
+    B, n_obs = 8, 2
+    x0 = np.zeros((B, 5))
+    x0[:, 3] = 0.8
+    ox = rng.uniform(3.0, 10.0, (B, n_obs))
+    oy = rng.uniform(-2.5, 2.5, (B, n_obs)) + 1.0
+    obs0 = np.stack([ox, oy], axis=-1)
+    vel = np.stack([rng.uniform(-0.1, 0.1, (B, n_obs)),
+                    -np.sign(oy) * rng.uniform(0.3, 0.8, (B, n_obs))], axis=-1)
+    mins = {}
+    for cons in ("ellipsoid", "gaussian"):
+        rollout, _ = make_contouring_rollout(
+            n_obstacles=n_obs, N=10, n_ticks=50, dtype=torch.float64,
+            device=dev, constraints=cons, risk=0.05, sigma_step=0.04)
+        m = read_metrics(rollout(x0, obs0, vel))
+        succ = float(np.mean(m["solve_success_rate"]))
+        mins[cons] = float(np.min(m["min_obstacle_dist"]))
+        log(f"the JAX test's CC-MPC scene, {cons} (8 episodes, N=10, 50 "
+            f"ticks, f64, B2): success {succ:.4f}, collided "
+            f"{bool(np.any(m['collided']))}, smallest progress "
+            f"{float(np.min(m['progress'])):.3f} m, smallest obstacle "
+            f"distance {mins[cons]:.4f} m")
+        check(succ >= 0.99 and not np.any(m["collided"])
+              and float(np.min(m["progress"])) > 12.0,
+              f"{cons} on the JAX test's scene: success >= 0.99, no "
+              f"collision, progress > 12 m")
+    check(mins["gaussian"] > mins["ellipsoid"] + 0.05, "CC-MPC's smallest "
+          "obstacle distance exceeds the ellipsoids' by 0.05 m on the JAX "
+          "test's scene")
+    return mean_min
+
+
+def build_sh_planner(dev, regularization):
+    """SH-MPC (``configuration_safe_horizon``) on ``dev`` at f32: N=20, 2
+    obstacles, risk 0.1, 4 parallel solvers, the default sample count, 6 SQP
+    iterations of 12 IP iterations; prewarmed."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        build_planner, configuration_safe_horizon, prewarm_planner)
+    from oscar_mpc_planner_mr_modification_tpu_torch.modules import (
+        ScenarioConstraintModule)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import SQPConfig
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    settings = default_settings(
+        N=N_MAIN, max_obstacles=len(SH_PEDESTRIANS),
+        probabilistic={"enable": True, "risk": 0.1},
+        scenario_constraints={"parallel_solvers": 4})
+    model, modules = configuration_safe_horizon(settings)
+    cfg = SQPConfig(n_sqp=6, n_qp_iter=12, mu_min=1e-6, w_max=1e6,
+                    reg_eps=1e-4, regularization=regularization,
+                    track_best=False)
+    planner = build_planner(model, modules, settings, dtype=torch.float32,
+                            sqp_config=cfg, device=dev)
+    opt = next(m for m in planner.modules
+               if isinstance(m, ScenarioConstraintModule))._optimizer
+    t = time.perf_counter()
+    prewarm_planner(planner, model, settings)
+    log(f"SH-MPC planner ({regularization}) built and prewarmed in "
+        f"{time.perf_counter() - t:.2f} s")
+    return planner, model, settings, opt
+
+
+def run_sh_ticks(planner, model, settings, opt, n_ticks, capture_at=None):
+    """``n_ticks`` serial SH-MPC ticks on a straight 20 m path crossed by
+    SH_PEDESTRIANS (constant-velocity Gaussian predictions, new samples
+    every tick); the robot advances by the model's dynamics at f64. Returns
+    per-tick records (success, ms, support, certificate, uncovered,
+    clearance to the pedestrians' mean positions) and, at tick
+    ``capture_at``, the batched solve's inputs."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.planner.data_preparation import (  # noqa: E501
+        define_robot_area, ensure_obstacle_size,
+        get_constant_velocity_prediction)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import State
+    from oscar_mpc_planner_mr_modification_tpu_torch.types import (
+        DynamicObstacle, RealTimeData)
+
+    N, dt = planner.solver.N, planner.solver.dt
+    r_robot = float(settings["robot_radius"])
+    iv = model.state_index("v")
+    state = State(model)
+    state.set("v", 0.8)
+    captured = {}
+    solve = opt._solve_batch
+
+    def spy(params, xinit, warm):
+        captured["in"] = (params.copy(), np.asarray(xinit).copy(),
+                          warm.copy())
+        return solve(params, xinit, warm)
+
+    records = []
+    for k in range(n_ticks):
+        data = RealTimeData()
+        data.robot_area = define_robot_area(0.65, 0.65, 1)
+        data.reference_path.x = list(np.linspace(0.0, 20.0, 25))
+        data.reference_path.y = [0.0] * 25
+        peds = []
+        for i, (p0, v) in enumerate(SH_PEDESTRIANS):
+            pos = np.asarray(p0) + k * dt * np.asarray(v)
+            obs = DynamicObstacle(index=i, position=pos, radius=0.3)
+            obs.prediction = get_constant_velocity_prediction(
+                pos, np.asarray(v), dt, N, probabilistic=True)
+            peds.append(obs)
+        data.dynamic_obstacles = ensure_obstacle_size(
+            peds, state, settings["max_obstacles"], N, dt,
+            probabilistic=True)
+        if k == 0:
+            planner.on_data_received(data, "reference_path")
+        planner.on_data_received(data, "dynamic obstacles")
+        opt._solve_batch = spy if k == capture_at else solve
+        sync()
+        t0 = time.perf_counter()
+        out = planner.solve_mpc(state, data)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        opt._solve_batch = solve
+        a = planner.get_solution(0, "a") if out.success else -3.0
+        w = planner.get_solution(0, "w") if out.success else 0.0
+        x = model.discrete_dynamics(torch.as_tensor(state.as_array()),
+                                    torch.tensor([a, w], dtype=torch.float64),
+                                    dt).numpy()
+        x[iv] = max(x[iv], 0.0)
+        state.set_array(x)
+        clear = min(np.linalg.norm(state.get_position() - (
+            np.asarray(p0) + (k + 1) * dt * np.asarray(v))) - r_robot - 0.3
+            for p0, v in SH_PEDESTRIANS)
+        records.append(dict(success=bool(out.success), ms=ms,
+                            support=opt.last_support,
+                            certificate=opt.last_certificate,
+                            uncovered=opt.last_uncovered, clearance=clear))
+    return records, captured.get("in"), state
+
+
+def shmpc_tick_phase(dev, card, reset_counts, counts, none):
+    """(d) The SH-MPC planner tick on the card: ``configuration_safe_horizon``
+    and ``build_planner`` at f32, 4 parallel scenario solvers; SH_TICKS
+    serial ticks under Gershgorin, the launch counts set to 0 before them:
+    one B2 launch (4 problems) per tick and nothing else, the fused backend,
+    success on >= 90% of ticks, no contact with the pedestrians' mean
+    positions, progress; B2 at the tick's shape against its plain version
+    (f64 within FUSED_F64_GATE, same success) and timed. Then SH_MIRROR_TICKS
+    ticks under "mirror": B1 at (6, 2) once per SQP iteration and nothing
+    else, success, and B1 at that tick's QPs against its plain version.
+    Returns the kernel entry numbers of B2 and B1 in the tick."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        qp_cuda, roofline)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        _make_machinery, _phases_of, make_fleet_sqp_solver)
+
+    def summary(name, recs, state):
+        ms = [r["ms"] for r in recs]
+        log(f"[{card}] SH-MPC tick, {name} ({len(recs)} ticks, N={N_MAIN}, "
+            f"4 solvers x {opt.n_samples} samples, f32): success "
+            f"{np.mean([r['success'] for r in recs]):.4f}, tick "
+            f"{np.median(ms):.2f} ms median (min {min(ms):.2f}, max "
+            f"{max(ms):.2f}), smallest clearance "
+            f"{min(r['clearance'] for r in recs):.4f} m, support "
+            f"{sorted({r['support'] for r in recs})}, certificate "
+            f"{min(r['certificate'] for r in recs):.4f}-"
+            f"{max(r['certificate'] for r in recs):.4f}, under-covered cells "
+            f"{max(r['uncovered'] for r in recs)}, progress "
+            f"{state.get('x'):.3f} m")
+        for k in sorted({0, len(recs) // 2, len(recs) - 1}):
+            log(f"SH-MPC {name} tick {k}: {recs[k]}")
+
+    planner, model, settings, opt = build_sh_planner(dev, "gershgorin")
+    check(opt.fleet_backend == "fused", f"SH-MPC backend under Gershgorin "
+          f"{opt.fleet_backend!r} == 'fused'")
+    reset_counts()
+    recs, captured, state = run_sh_ticks(planner, model, settings, opt,
+                                         SH_TICKS, capture_at=SH_TICKS // 2)
+    got = counts()
+    check(got == {**none, "sqp_fused": SH_TICKS}, f"SH-MPC ticks: launches "
+          f"{got} (want one B2 launch per tick, {SH_TICKS}, and nothing "
+          f"else)")
+    summary("Gershgorin, B2", recs, state)
+    check(np.mean([r["success"] for r in recs]) >= 0.9,
+          "SH-MPC ticks succeed on >= 90% of ticks")
+    check(min(r["clearance"] for r in recs) > 0.0, "SH-MPC ticks: no "
+          "contact with the pedestrians' mean positions")
+    check(state.get("x") > 5.0, f"SH-MPC ticks: progress "
+          f"{state.get('x'):.3f} m > 5 m")
+
+    # B2 at the tick's shape (4 problems): f64 against plain, f32 timed
+    ocp, cfg = planner.solver.ocp, planner.solver.config
+    params, xinit, warm = captured
+    P = params.shape[0]
+    fs64 = make_fleet_sqp_solver(ocp, cfg, dtype=torch.float64, device=dev,
+                                 backend="fused")
+    a64 = (torch.as_tensor(params, device=dev),
+           torch.as_tensor(xinit, device=dev)[None].expand(P, -1).contiguous(),
+           torch.as_tensor(warm, device=dev))
+    r_k, r_p = fs64(*a64), fs64.reference(*a64)
+    sync()
+    rel = ((r_k.z - r_p.z).abs().amax(dim=(1, 2))
+           / (1.0 + r_p.z.abs().amax(dim=(1, 2))))
+    log(f"f64 B2 at the SH-MPC tick's shape ({P} problems, m=40): max|dZ| "
+        f"{(r_k.z - r_p.z).abs().max().item():.3e}, max rel "
+        f"{rel.max().item():.3e}, success {r_k.success.tolist()}")
+    check(bool((r_k.success == r_p.success).all())
+          and rel.max().item() <= FUSED_F64_GATE, f"f64 B2 = plain at the "
+          f"SH-MPC tick: same success, max|dZ| / (1 + max|Z|) <= "
+          f"{FUSED_F64_GATE:g}")
+    fs = make_fleet_sqp_solver(ocp, cfg, dtype=torch.float32, device=dev,
+                               backend="fused")
+    a32 = tuple(a.float() for a in a64)
+    plain = {}
+    rk = fs(*a32)
+    p_ms, _ = cuda_time_ms(lambda: plain.update(r=fs.reference(*a32)),
+                           reps=1, warmup=0)
+    err = (rk.z - plain["r"].z).abs().max().item()
+    k_ms, k_all = cuda_time_ms(lambda: fs(*a32), reps=20)
+    log(f"[{card}] B2 at the SH-MPC tick ({P} problems, f32): {k_ms:.3f} ms"
+        f" (median of 20; {spread(k_all)}), plain {p_ms:.1f} ms; f32 max|dZ|"
+        f" vs plain {err:.3e}")
+    b2 = dict(launches=got["sqp_fused"], err=err, ms=k_ms, plain_ms=p_ms,
+              flops=roofline.sqp_flops(
+                  P, _phases_of(cfg), lin=roofline.SHMPC_LIN_FLOPS,
+                  merit=roofline.SHMPC_MERIT_FLOPS,
+                  ip_iter=roofline.SHMPC_IP_ITER_FLOPS),
+              n_bytes=roofline.tensor_bytes(
+                  torch.cat([a32[0], a32[0][:, -1:]], dim=1), a32[1],
+                  a32[2], a32[2]) + 8 * P)
+    del planner
+
+    # "mirror": the per-iteration path, B1 at (6, 2) once per SQP iteration
+    planner, model, settings, opt = build_sh_planner(dev, "mirror")
+    check(opt.fleet_backend == "pallas", f"SH-MPC backend under 'mirror' "
+          f"{opt.fleet_backend!r} == 'pallas'")
+    reset_counts()
+    recs, captured, state = run_sh_ticks(planner, model, settings, opt,
+                                         SH_MIRROR_TICKS, capture_at=1)
+    got = counts()
+    n_sqp = planner.solver.config.n_sqp
+    check(got == {**none, "qp_ip": n_sqp * SH_MIRROR_TICKS}, f"SH-MPC "
+          f"'mirror' ticks: launches {got} (want B1 (6, 2) once per SQP "
+          f"iteration, {n_sqp * SH_MIRROR_TICKS}, and nothing else)")
+    summary("'mirror', B1 (6, 2)", recs, state)
+    check(all(r["success"] for r in recs) and min(
+        r["clearance"] for r in recs) > 0.0, "SH-MPC 'mirror' ticks succeed "
+          "without contact")
+    params, xinit, warm = captured
+    ocp, cfg = planner.solver.ocp, planner.solver.config
+    for dtype in (torch.float64, torch.float32):
+        mach = _make_machinery(ocp, cfg, dtype, dev)
+        Pd = torch.as_tensor(params, dtype=dtype, device=dev)
+        Zd = torch.as_tensor(warm, dtype=dtype, device=dev)
+        xd = torch.as_tensor(xinit, dtype=dtype, device=dev)[None].expand(
+            P, -1)
+        qp = mach.build_qp(Zd, torch.cat([Pd, Pd[:, -1:]], dim=1), xd)
+        kw = dict(nu=ocp.nu, n_iters=cfg.n_qp_iter, mu_min=1e-6, w_max=1e6,
+                  row_meta=mach.row_meta)
+        qa = (qp.H, qp.g, qp.A, qp.B, qp.c, qp.D, qp.e, mach.stage_mask,
+              qp.r0)
+        dz_k = qp_cuda.solve_qp_batched(*qa, **kw)
+        dz_p = qp_cuda.ip_solve_reference(*qa, **kw)
+        sync()
+        b1_err = (dz_k - dz_p).abs().max().item()
+        scale = 1.0 + dz_p.abs().max().item()
+        log(f"{str(dtype)[6:]} B1 (6, 2) at the SH-MPC tick's QPs ({P} "
+            f"problems, m={qp.D.shape[2]}, {cfg.n_qp_iter} iterations): "
+            f"max|ddz| {b1_err:.3e}, max|dz| {scale - 1:.3e}")
+        if dtype == torch.float64:
+            check(b1_err <= QP_F64_GATE * scale, "f64 B1 (6, 2) = plain at "
+                  f"the SH-MPC tick's QPs: max|ddz| <= {QP_F64_GATE:g} "
+                  "(1 + max|dz|)")
+    k1_ms, k1_all = cuda_time_ms(lambda: qp_cuda.solve_qp_batched(*qa, **kw),
+                                 reps=20)
+    p1_ms, _ = cuda_time_ms(lambda: qp_cuda.ip_solve_reference(*qa, **kw),
+                            reps=3)
+    log(f"[{card}] B1 (6, 2) at the SH-MPC tick ({P} problems, f32, "
+        f"{cfg.n_qp_iter} iterations): {k1_ms:.3f} ms per launch (median of "
+        f"20; {spread(k1_all)}), plain {p1_ms:.1f} ms")
+    mh = sum(meta[0] == "h" for meta in mach.row_meta)
+    b1 = dict(launches=got["qp_ip"], err=b1_err, ms=k1_ms, plain_ms=p1_ms,
+              flops=roofline.ip_flops(P, cfg.n_qp_iter,
+                                      ip_iter=roofline.SHMPC_IP_ITER_FLOPS),
+              n_bytes=roofline.qp_bytes(qp.g.shape[1], ocp.nx, ocp.nu,
+                                        qp.D.shape[2], mh, P, 4))
+    return dict(b2=b2, b1=b1)
 
 
 def check(cond, msg):
@@ -1823,6 +2352,25 @@ def main():
     tmpc_ro = evaluator_phase(dev, card, reset_counts, counts, none,
                               evs["tmpc"], f64_gate=COUPLED_F64_ROLLOUT_GATE)
 
+    # ---- 23-27. BASELINE configs 3 (CC-MPC) and 5 (SH-MPC) -------------
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+
+    cases = matrix_phase(dev, card, reset_counts, counts, none)
+    cc = fleet_flavour_phase(dev, card, reset_counts, counts, none, "CC-MPC",
+                             cases["ccmpc"][0], cases["ccmpc"][1:], "CCMPC")
+    ocp6, *arrays6 = bench_matrix.build_ccmpc(
+        N_MAIN, CONFIG3_B, np.random.default_rng(0), CONFIG3_OBS)
+    cc3 = fleet_flavour_phase(dev, card, reset_counts, counts, none,
+                              "CC-MPC at config 3's size", ocp6, arrays6,
+                              "CCMPC6", b1=False)
+    cc_ro = evaluator_phase(dev, card, reset_counts, counts, none,
+                            evs["ccmpc"])
+    ccmpc_margin_phase(dev, card, evs)
+    sh = fleet_flavour_phase(dev, card, reset_counts, counts, none, "SH-MPC",
+                             cases["shmpc"][0], cases["shmpc"][1:], "SHMPC")
+    sh_tick = shmpc_tick_phase(dev, card, reset_counts, counts, none)
+
     # ---- the kernels, each with its bound ---------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, flops,
               n_bytes, **_):
@@ -1885,6 +2433,22 @@ def main():
               f"{jax_ops}/sqp_fused.py:45", **mr_ro),
         entry("sqp_fused_tmpc_rollout", "sqp_fused.cu",
               f"{jax_ops}/sqp_fused.py:45", **tmpc_ro),
+        entry("sqp_fused_ccmpc", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **cc["b2"]),
+        entry("qp_ip_ccmpc", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
+              **cc["b1"]),
+        entry("sqp_fused_ccmpc_config3", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **cc3["b2"]),
+        entry("sqp_fused_ccmpc_rollout", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **cc_ro),
+        entry("sqp_fused_shmpc", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **sh["b2"]),
+        entry("qp_ip_6_2", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
+              **sh["b1"]),
+        entry("sqp_fused_shmpc_tick", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **sh_tick["b2"]),
+        entry("qp_ip_6_2_tick", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
+              **sh_tick["b1"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

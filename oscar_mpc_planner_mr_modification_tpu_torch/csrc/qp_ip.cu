@@ -28,7 +28,7 @@
 // the work is in its file comment), and writes z (and the multipliers) back
 // into its column. Nothing of the iteration touches global memory. The state
 // and input dimensions are template parameters, instantiated for
-// (nx, nu) = (5, 2) and (4, 2), the port's two unicycle models
+// (nx, nu) = (5, 2), (4, 2) and (6, 2), the port's three unicycle models
 // (qp_ip.cuh::with_dims); the wrapper raises for any other.
 //
 // What bounds it: latency along each problem's sequential chain, not

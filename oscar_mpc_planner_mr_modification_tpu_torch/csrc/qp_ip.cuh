@@ -787,6 +787,7 @@ template <class F>
 int with_dims(int nx, int nu, F&& f) {
   if (nx == 5 && nu == 2) return f(Dims<5, 2>{});
   if (nx == 4 && nu == 2) return f(Dims<4, 2>{});
+  if (nx == 6 && nu == 2) return f(Dims<6, 2>{});
   return -3;
 }
 

@@ -9,7 +9,7 @@
 //   g++ -std=c++17 -O1 -shared -fPIC -o libqp_ip_count.so qp_ip_count.cpp
 //
 // Counted: + and -, *, /, unary -, and one operation for each call of sqrt,
-// exp, sin, cos, atan2 and fmod (the transcendental kind). Not counted:
+// exp, log, erf, sin, cos, atan2 and fmod (the transcendental kind). Not counted:
 // comparisons, min, max, |.|, and the double arithmetic on the time step
 // inside rk4 (three operations per call, on a constant).
 //
@@ -48,6 +48,8 @@ inline R m_sin(R a) { ++n_tr; return R(::sin(a.v)); }
 inline R m_cos(R a) { ++n_tr; return R(::cos(a.v)); }
 inline R m_sqrt(R a) { return sqrt(a); }
 inline R m_exp(R a) { ++n_tr; return R(::exp(a.v)); }
+inline R m_log(R a) { ++n_tr; return R(::log(a.v)); }
+inline R m_erf(R a) { ++n_tr; return R(::erf(a.v)); }
 inline R m_atan2(R y, R x) { ++n_tr; return R(::atan2(y.v, x.v)); }
 inline R m_fmod(R x, R y) { ++n_tr; return R(::fmod(x.v, y.v)); }
 inline R m_abs(R a) { return fabs(a); }
@@ -115,7 +117,7 @@ extern "C" {
 
 // One problem's solve with n_iters iterations; inputs as the QP kernel takes
 // them (f64, Bt = 1), the scalars as qp_ip.cu's launch derives them.
-// (nx, nu) in {(5, 2), (4, 2), (3, 1), (4, 3)}. out[0..4]: additions and
+// (nx, nu) in {(5, 2), (4, 2), (6, 2), (3, 1), (4, 3)}. out[0..4]: additions and
 // subtractions, multiplications, divisions, negations, transcendentals
 // (square roots). Returns -3 for another (nx, nu).
 int qp_ip_count_ops(const double* H, const double* g, const double* A,
@@ -136,6 +138,8 @@ int qp_ip_count_ops(const double* H, const double* g, const double* A,
     count_ip<5, 2>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
   else if (nx == 4 && nu == 2)
     count_ip<4, 2>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
+  else if (nx == 6 && nu == 2)
+    count_ip<6, 2>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
   else if (nx == 3 && nu == 1)
     count_ip<3, 1>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
   else if (nx == 4 && nu == 3)

@@ -1,8 +1,10 @@
 // Fused whole-SQP solve of a fleet of OCPs in one launch, for Hopper
 // (sm_90a), one warp per problem. Compiled for each model of
-// tmpc_ocp.cuh::with_model (the T-MPC++ OCPs on
+// tmpc_ocp.cuh::with_model (the T-MPC++, contouring and CC-MPC OCPs on
 // ContouringSecondOrderUnicycleModel, the goal OCP on
-// SecondOrderUnicycleModel); the entries take the model id.
+// SecondOrderUnicycleModel, the SH-MPC OCP on
+// ContouringSecondOrderUnicycleModelWithSlack); the entries take the model
+// id.
 //
 // Replaces the TPU kernel of the JAX package,
 // ops/sqp_fused.py::_fused_kernel: per problem, every SQP iteration of every

@@ -4,18 +4,27 @@
 //
 // Transcribes, from the package's torch modules (the JAX package's
 // counterparts carry the same names):
-// - models/dynamics.py: ContouringSecondOrderUnicycleModel and
-//   SecondOrderUnicycleModel, RK4 x 3 sub-steps;
+// - models/dynamics.py: ContouringSecondOrderUnicycleModel,
+//   SecondOrderUnicycleModel and ContouringSecondOrderUnicycleModelWithSlack,
+//   RK4 x 3 sub-steps;
 // - ops/spline.py: sigmoid-blended cubic segments and the normalized tangent;
 // - modules/contouring.py: contour and lag error, and at the terminal stage
 //   the path-angle error through utils/math.py::haar_difference_without_abs
 //   (fmod passes a derivative of 1);
-// - modules/mpc_base.py: w_a a^2, w_w w^2 and (where weighed) w_v (v - v_ref)^2;
+// - modules/mpc_base.py: w_a a^2, w_w w^2 and (where weighed) w_s slack^2 and
+//   w_v (v - v_ref)^2, in that order;
 // - modules/consistency_module.py;
 // - modules/goal_module.py: w_g |p - g|^2 / (|g|^2 + 0.01);
 // - modules/guidance_constraints.py: the topology halfspaces of
 //   linearized_constraints.py and the ellipsoid rows of
-//   ellipsoid_constraints.py with base.py::ego_disc_position.
+//   ellipsoid_constraints.py with base.py::ego_disc_position, any number of
+//   prediction modes;
+// - modules/gaussian_constraints.py: the CC-MPC chance constraint, its
+//   inverse error function by utils/math.py::erfinv_newton (a rational guess
+//   and two Newton steps on the native erf, in the working precision, not on
+//   jets: it depends on parameters only);
+// - modules/scenario_constraints.py: the SH-MPC halfspaces softened by the
+//   slack state.
 // and the lane linearizer of the JAX package's ops/linearize.py
 // (make_lane_linearizer, make_lane_merit): stage conventions of
 // solver/ocp.py (body stages at stage_idx 1, the terminal cost at
@@ -82,6 +91,7 @@ enum {
   TB_DISC_R,                                   // ego_disc_radius
   TB_MODEL,                                    // MODEL_* below
   TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y,             // goal
+  TB_SLACK,                                    // MPCBase slack weight, or -1
   TB_OFF_SPLINE,  // -> n_seg x 9: x_a x_b x_c x_d y_a y_b y_c y_d start
   TB_OFF_H,       // -> nh x 9: one constraint h_i each (HK_* below)
   TB_OFF_ROWS,    // -> m x 2: QP row kind (ROW_*), h or z index
@@ -91,9 +101,15 @@ enum {
   FL_BASE = 1, FL_CONTOUR = 2, FL_CONSIST = 4, FL_BODY_TERMINAL = 8,
   FL_GOAL = 16
 };
-enum { MODEL_CONTOURING_UNICYCLE = 0, MODEL_UNICYCLE = 1 };
-// h rows: HK_HALFSPACE a1 a2 b | HK_ELLIPSOID x y psi major minor chi r offset
-enum { HK_HALFSPACE = 0, HK_ELLIPSOID = 1, H_W = 9 };
+enum {
+  MODEL_CONTOURING_UNICYCLE = 0, MODEL_UNICYCLE = 1,
+  MODEL_CONTOURING_UNICYCLE_SLACK = 2
+};
+// h rows, parameter indices after the kind:
+//   HK_HALFSPACE a1 a2 b | HK_ELLIPSOID x y psi major minor chi r offset |
+//   HK_GAUSSIAN x y major minor risk r offset | HK_SCENARIO a1 a2 b offset
+enum { HK_HALFSPACE = 0, HK_ELLIPSOID = 1, HK_GAUSSIAN = 2, HK_SCENARIO = 3,
+       H_W = 9 };
 enum { ROW_HL = 0, ROW_HU, ROW_ZL, ROW_ZU };
 // ---- double table: scalars, then one bound per QP row ---------------------
 enum { RT_DT = 0, RT_REG_EPS, RT_LEVENBERG, RT_MERIT_W, RT_BOUNDS };
@@ -119,6 +135,10 @@ TMPC_HD float m_fmod(float x, float y) { return fmodf(x, y); }
 TMPC_HD double m_fmod(double x, double y) { return fmod(x, y); }
 TMPC_HD float m_abs(float x) { return fabsf(x); }
 TMPC_HD double m_abs(double x) { return fabs(x); }
+TMPC_HD float m_log(float x) { return logf(x); }
+TMPC_HD double m_log(double x) { return log(x); }
+TMPC_HD float m_erf(float x) { return erff(x); }
+TMPC_HD double m_erf(double x) { return erf(x); }
 
 // NaN-propagating max / min, as torch.maximum / torch.amax.
 template <typename R>
@@ -283,6 +303,8 @@ TMPC_JET TMPC_HD TMPC_J tcos(const TMPC_J& a) {
   const R c = m_cos(a.v);
   return lift(a, c, -m_sin(a.v), -c);
 }
+TMPC_HD float tsqrt(float x) { return m_sqrt(x); }
+TMPC_HD double tsqrt(double x) { return m_sqrt(x); }
 TMPC_JET TMPC_HD TMPC_J tsqrt(const TMPC_J& a) {
   const R f = m_sqrt(a.v);
   return lift(a, f, R(0.5) / f, R(-0.25) / (a.v * f));
@@ -341,6 +363,7 @@ TMPC_JET TMPC_HD TMPC_J lift_s(const Jet<R, 1, 1>& f, const TMPC_J& s) {
 struct ContouringUnicycle {
   static constexpr int NU = 2, NX = 5, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
   static constexpr int A = 0, W = 1, X = 2, Y = 3, PSI = 4, V = 5, S = 6;
+  static constexpr int SL = -1;
   template <typename T>
   static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
     dx[0] = x[3] * tcos(x[2]);
@@ -355,12 +378,30 @@ struct ContouringUnicycle {
 struct Unicycle {
   static constexpr int NU = 2, NX = 4, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
   static constexpr int A = 0, W = 1, X = 2, Y = 3, PSI = 4, V = 5, S = -1;
+  static constexpr int SL = -1;
   template <typename T>
   static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
     dx[0] = x[3] * tcos(x[2]);
     dx[1] = x[3] * tsin(x[2]);
     dx[2] = u[1];
     dx[3] = u[0];
+  }
+};
+
+// z = (a, w, x, y, psi, v, s, slack):
+// ContouringSecondOrderUnicycleModelWithSlack; slack has zero derivative.
+struct ContouringUnicycleSlack {
+  static constexpr int NU = 2, NX = 6, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
+  static constexpr int A = 0, W = 1, X = 2, Y = 3, PSI = 4, V = 5, S = 6;
+  static constexpr int SL = 7;
+  template <typename T>
+  static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
+    dx[0] = x[3] * tcos(x[2]);
+    dx[1] = x[3] * tsin(x[2]);
+    dx[2] = u[1];
+    dx[3] = u[0];
+    dx[4] = x[3];
+    dx[5] = Make<T>::constant(typename Real<T>::type(0));
   }
 };
 
@@ -372,6 +413,8 @@ template <class F>
 int with_model(int model, F&& f) {
   if (model == MODEL_CONTOURING_UNICYCLE) return f(ContouringUnicycle{});
   if (model == MODEL_UNICYCLE) return f(Unicycle{});
+  if (model == MODEL_CONTOURING_UNICYCLE_SLACK)
+    return f(ContouringUnicycleSlack{});
   return -3;
 }
 
@@ -436,7 +479,8 @@ TMPC_FN void path_at(const Ocp& o, const Par<R>& p, R s_val, bool angle,
 }
 
 // ---- objective (modules' get_value, summed as ModuleManager.objective) ----
-// MPCBase weighs a and w, and v where TB_VEL is a parameter index (not -1).
+// MPCBase weighs a and w, then slack where TB_SLACK is a parameter index (not
+// -1; only on a model with a slack state), then v where TB_VEL is one.
 // Contouring needs the model's spline state; ocp_tables sets FL_CONTOUR only
 // for a model that has one.
 template <class M, typename S, typename R>
@@ -447,6 +491,8 @@ TMPC_FN S stage_cost(const Ocp& o, const Par<R>& p, const S* z, bool terminal) {
   if (flags & FL_BASE) {
     cost = cost + p[it[TB_ACC]] * (z[M::A] * z[M::A]);
     cost = cost + p[it[TB_ANGVEL]] * (z[M::W] * z[M::W]);
+    if constexpr (M::SL >= 0) if (it[TB_SLACK] >= 0)
+      cost = cost + p[it[TB_SLACK]] * (z[M::SL] * z[M::SL]);
     if (it[TB_VEL] >= 0) {
       const S dv = z[M::V] - p[it[TB_VREF]];
       cost = cost + p[it[TB_VEL]] * (dv * dv);
@@ -512,12 +558,57 @@ TMPC_FN void rk4(const S* x, const S* u, double dt, S* out) {
   TMPC_UNROLL for (int i = 0; i < NX; ++i) out[i] = xi[i];
 }
 
-// ---- constraints: h_i(z), over the model's x, y and psi --------------------
+// ---- constraints: h_i(z), over the model's x, y, psi (and slack) ----------
+// utils/math.py::erfinv_newton: a rational initial guess, then two Newton
+// steps on erf(y) = x.
+template <typename R>
+TMPC_HD R erfinv_newton(R x) {
+  const R z = m_sqrt(-m_log((R(1) - x) / R(2)));
+  R y = (((R(1.641345311) * z + R(3.429567803)) * z - R(1.624906493)) * z -
+         R(1.970840454)) /
+        ((R(1.637067800) * z + R(3.543889200)) * z + R(1));
+  const R two_over_sqrt_pi = R(1.1283791670955126);  // 2 / sqrt(pi)
+  for (int k = 0; k < 2; ++k)
+    y = y - (m_erf(y) - x) / (two_over_sqrt_pi * m_exp(-y * y));
+  return y;
+}
+
+// Ego disc position: the model's (x, y) plus offset along its heading.
+template <class M, typename S, typename R>
+TMPC_HD void disc_position(const S* z, R offset, S* px, S* py) {
+  *px = z[M::X] + tcos(z[M::PSI]) * offset;
+  *py = z[M::Y] + tsin(z[M::PSI]) * offset;
+}
+
 template <class M, typename S, typename R>
 TMPC_FN S h_row(const Ocp& o, const Par<R>& p, const S* z, int i) {
   const int* q = o.it + o.it[TB_OFF_H] + H_W * i;
   if (q[0] == HK_HALFSPACE)
     return (p[q[1]] * z[M::X] + p[q[2]] * z[M::Y]) - p[q[3]];
+  if (q[0] == HK_GAUSSIAN) {
+    // a^T d - (r_ego + r_obs) - erfinv(1 - 2 risk) sqrt(2 a^T Sigma a),
+    // a = d / |d|, Sigma = diag(major^2, minor^2).
+    S dx, dy;
+    disc_position<M>(z, p[q[7]], &dx, &dy);
+    dx = dx - p[q[1]];
+    dy = dy - p[q[2]];
+    const S dist = tsqrt(dx * dx + dy * dy);
+    const S ax = dx / dist, ay = dy / dist;
+    const R y_erfinv = erfinv_newton(R(1) - R(2) * p[q[5]]);
+    const R sx = p[q[3]], sy = p[q[4]];
+    const S a_sigma_a = (ax * ax) * (sx * sx) + (ay * ay) * (sy * sy);
+    const R combined = p[o.it[TB_DISC_R]] + p[q[6]];
+    return ((ax * dx + ay * dy) - combined) - y_erfinv * tsqrt(R(2) * a_sigma_a);
+  }
+  if (q[0] == HK_SCENARIO) {
+    // a1 px + a2 py - (b + slack); ocp_tables admits it on a slack model only.
+    if constexpr (M::SL >= 0) {
+      S px, py;
+      disc_position<M>(z, p[q[4]], &px, &py);
+      return (p[q[1]] * px + p[q[2]] * py) - (z[M::SL] + p[q[3]]);
+    }
+    return Make<S>::constant(R(0));
+  }
   // Ellipsoid: (p - c)^T R^T diag(a11, a22) R (p - c), semi-axes inflated by
   // sqrt(chi) plus the disc and obstacle radii.
   const R root_chi = m_sqrt(p[q[6]]);
@@ -529,9 +620,10 @@ TMPC_FN S h_row(const Ocp& o, const Par<R>& p, const S* z, int i) {
   const R e11 = a11 * c * c + a22 * s * s;
   const R e22 = a11 * s * s + a22 * c * c;
   const R e12 = (a22 - a11) * c * s;
-  const R offset = p[q[8]];
-  const S dx = (z[M::X] + tcos(z[M::PSI]) * offset) - p[q[1]];
-  const S dy = (z[M::Y] + tsin(z[M::PSI]) * offset) - p[q[2]];
+  S dx, dy;
+  disc_position<M>(z, p[q[8]], &dx, &dy);
+  dx = dx - p[q[1]];
+  dy = dy - p[q[2]];
   return ((e11 * dx) * dx + ((R(2) * e12) * dx) * dy) + (e22 * dy) * dy;
 }
 

@@ -1,8 +1,8 @@
 """Planner configurations: each ``configuration_*`` assembles a (model,
 modules) pair, as the JAX package's ``factory.py`` does for the same names;
 :func:`build_planner` wires the runtime (OCP, Solver, Planner and the T-MPC
-optimizer) and :func:`prewarm_planner` builds the kernels before the first
-control tick."""
+or scenario optimizer) and :func:`prewarm_planner` builds the kernels
+before the first control tick."""
 
 from __future__ import annotations
 
@@ -12,10 +12,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .models import ContouringSecondOrderUnicycleModel
+from .models import (ContouringSecondOrderUnicycleModel,
+                     ContouringSecondOrderUnicycleModelWithSlack)
 from .modules import (ConsistencyModule, ContouringModule,
                       EllipsoidConstraintModule, GuidanceConstraintModule,
-                      MPCBaseModule, ModuleManager)
+                      MPCBaseModule, ModuleManager, ScenarioConstraintModule)
 from .ops.sqp import SQPConfig
 from .planner import Planner
 from .solver import Solver, build_ocp
@@ -64,13 +65,36 @@ def configuration_tmpc_consistency_cost(settings, constraint_submodule=None):
     return model, modules
 
 
+def configuration_safe_horizon(settings):
+    """SH-MPC: the contouring unicycle with a slack state, MPCBase weighing
+    a, w, slack and v, contouring and the scenario constraints."""
+    modules = ModuleManager()
+    model = ContouringSecondOrderUnicycleModelWithSlack()
+    base_module = modules.add_module(MPCBaseModule(settings))
+    base_module.weigh_variable("a", "acceleration")
+    base_module.weigh_variable("w", "angular_velocity")
+    base_module.weigh_variable("slack", "slack")
+    if settings["contouring"]["dynamic_velocity_reference"]:
+        raise NotImplementedError(
+            "contouring/dynamic_velocity_reference needs the "
+            "PathReferenceVelocity module, which this package does not have yet")
+    base_module.weigh_variable(
+        "v", ["velocity", "reference_velocity"],
+        cost_function=lambda x, w: w[0] * (x - w[1]) ** 2)
+    modules.add_module(ContouringModule(settings))
+    modules.add_module(ScenarioConstraintModule(settings))
+    return model, modules
+
+
 def build_planner(model, modules, settings, dtype=torch.float64,
                   sqp_config: Optional[SQPConfig] = None, clock=None,
                   device="cuda") -> Planner:
     """Assemble OCP, Solver and Planner and attach the T-MPC optimizer to a
-    guidance module. The solves run on ``device`` (pass ``"cpu"`` for the
-    plain versions); the optimizer picks its fleet backend from the config
-    and raises here for an OCP its kernels do not cover."""
+    guidance module, the scenario optimizer to a scenario module. The solves
+    run on ``device`` (pass ``"cpu"`` for the plain versions); each
+    optimizer picks its fleet backend from the config and raises here for
+    an OCP its kernels do not cover."""
+    from .parallel.scenario import ScenarioOptimizer
     from .parallel.tmpc import TMPCOptimizer
 
     ocp = build_ocp(model, modules, settings)
@@ -81,6 +105,8 @@ def build_planner(model, modules, settings, dtype=torch.float64,
         if isinstance(module, GuidanceConstraintModule):
             module.attach_optimizer(TMPCOptimizer(
                 solver, settings, clock=clock or time.monotonic))
+        if isinstance(module, ScenarioConstraintModule):
+            module.attach_optimizer(ScenarioOptimizer(solver, settings))
     return planner
 
 

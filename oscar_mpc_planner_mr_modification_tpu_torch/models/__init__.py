@@ -2,5 +2,6 @@ from .dynamics import (  # noqa: F401
     DynamicsModel,
     SecondOrderUnicycleModel,
     ContouringSecondOrderUnicycleModel,
+    ContouringSecondOrderUnicycleModelWithSlack,
     ModelView,
 )

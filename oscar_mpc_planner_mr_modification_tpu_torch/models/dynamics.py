@@ -150,3 +150,25 @@ class ContouringSecondOrderUnicycleModel(DynamicsModel):
         a, w = u[0], u[1]
         psi, v = x[2], x[3]
         return (v * torch.cos(psi), v * torch.sin(psi), w, a, v)
+
+
+@dataclass(frozen=True)
+class ContouringSecondOrderUnicycleModelWithSlack(DynamicsModel):
+    """The contouring unicycle with a slack state (SH-MPC's soft scenario
+    constraints): ``slack`` has zero derivative and bounds (0, 5000)."""
+
+    name: str = "contouring_second_order_unicycle_with_slack"
+    nu: int = 2
+    nx: int = 6
+    states: Tuple[str, ...] = ("x", "y", "psi", "v", "spline", "slack")
+    inputs: Tuple[str, ...] = ("a", "w")
+    lower_bound: Tuple[float, ...] = (-2.0, -0.8, -2000.0, -2000.0, -np.pi * 4,
+                                      -0.01, -1.0, 0.0)
+    upper_bound: Tuple[float, ...] = (2.0, 0.8, 2000.0, 2000.0, np.pi * 4, 3.0,
+                                      10000.0, 5000.0)
+
+    def continuous(self, x, u):
+        a, w = u[0], u[1]
+        psi, v = x[2], x[3]
+        return (v * torch.cos(psi), v * torch.sin(psi), w, a, v,
+                torch.zeros_like(v))

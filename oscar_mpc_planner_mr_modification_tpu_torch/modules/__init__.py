@@ -6,3 +6,5 @@ from .consistency_module import ConsistencyModule  # noqa: F401
 from .ellipsoid_constraints import EllipsoidConstraintModule  # noqa: F401
 from .linearized_constraints import LinearizedConstraintModule  # noqa: F401
 from .guidance_constraints import GuidanceConstraintModule  # noqa: F401
+from .gaussian_constraints import GaussianConstraintModule  # noqa: F401
+from .scenario_constraints import ScenarioConstraintModule  # noqa: F401

@@ -17,7 +17,8 @@ fused kernel's own counts of a linearization and a merit evaluation, at the
 fleet bench's OCP; the ``TICK_``, ``ROLLOUT_``, ``GATE_`` and ``GOAL_``
 constants are the same three counts at the planner tick's OCP, the
 contouring evaluator's, BASELINE config 2's f32 gate's and BASELINE config
-1's goal OCP. :func:`bound_ms` is the least time the card could take
+1's goal OCP, and the ``CCMPC_``, ``CCMPC6_`` and ``SHMPC_`` constants at the
+OCPs of BASELINE configs 3 and 5. :func:`bound_ms` is the least time the card could take
 for a given work:
 the larger of bytes over the memory rate and operations over the FP32 rate,
 both the published H100 SXM figures at its 700 W limit.
@@ -108,6 +109,30 @@ GATE_MERIT_FLOPS = 21040
 GOAL_IP_ITER_FLOPS = 49731
 GOAL_LIN_FLOPS = 65913
 GOAL_MERIT_FLOPS = 4692
+
+#: The three counts at the CC-MPC OCP (BASELINE config 3's formulation:
+#: MPCBase on a, w and v, contouring and Gaussian chance constraints on
+#: ``ContouringSecondOrderUnicycleModel``) at N=20 with 3 obstacles (npar=73;
+#: 3 Gaussian rows and 14 box rows), which B2 and B1 run on the CC-MPC fleet
+#: of ``tools/bench_matrix.py`` and B2 in the CC-MPC evaluator
+#: (``make_contouring_rollout(constraints="gaussian")``); its IP iteration
+#: has the contouring evaluator's row structure. The same hand count and
+#: counting build, equal on every problem.
+CCMPC_IP_ITER_FLOPS = 66392
+CCMPC_LIN_FLOPS = 156015
+CCMPC_MERIT_FLOPS = 27675
+#: The same at BASELINE config 3's own size, 6 Gaussian obstacles (npar=91;
+#: 6 generic rows and 14 box rows, the tick OCP's structure).
+CCMPC6_IP_ITER_FLOPS = 80954
+CCMPC6_LIN_FLOPS = 178935
+CCMPC6_MERIT_FLOPS = 27675
+#: The three counts at the SH-MPC OCP (``factory.configuration_safe_horizon``
+#: at N=20: nx=6, npar=127; 24 scenario rows and 16 box rows), which B2 and
+#: B1 (at (6, 2)) run on the SH-MPC fleet of ``tools/bench_matrix.py`` and in
+#: the SH-MPC planner tick.
+SHMPC_IP_ITER_FLOPS = 206840
+SHMPC_LIN_FLOPS = 221205
+SHMPC_MERIT_FLOPS = 28560
 
 
 def fma_flops(n: int) -> float:

@@ -33,14 +33,17 @@ with ``track_best`` it keeps the best iterate by merit.
   launches and ``merit_launches`` merit-only launches.
 
 What the header covers (:func:`ocp_tables` checks it): the models
-``ContouringSecondOrderUnicycleModel`` and ``SecondOrderUnicycleModel``
-(``MODELS``; the kernels are compiled for each); the objectives
-``MPCBaseModule`` (``a``, ``w`` and optionally ``(v - v_ref)``),
+``ContouringSecondOrderUnicycleModel``, ``SecondOrderUnicycleModel`` and
+``ContouringSecondOrderUnicycleModelWithSlack`` (``MODELS``; the kernels are
+compiled for each); the objectives ``MPCBaseModule`` (``a``, ``w``, on the
+slack model optionally ``slack``, and optionally ``(v - v_ref)``),
 ``ContouringModule`` without a dynamic velocity reference (on a model with a
 spline state), ``ConsistencyModule`` and ``GoalModule``; the constraints
-``GuidanceConstraintModule`` (topology halfspaces plus ellipsoids) and
-``EllipsoidConstraintModule``, each with one prediction mode. So it covers
-the T-MPC++ OCPs and BASELINE configs 1 (goal) and 2 (contouring).
+``GuidanceConstraintModule`` (topology halfspaces plus its submodule's
+rows), ``EllipsoidConstraintModule`` and ``GaussianConstraintModule`` with
+any number of prediction modes, and ``ScenarioConstraintModule`` (on the
+slack model). So it covers the T-MPC++ OCPs and the five BASELINE
+configurations: goal, contouring, CC-MPC, T-MPC++ and SH-MPC.
 """
 
 from __future__ import annotations
@@ -70,14 +73,15 @@ _IP = dict(mu0=1e2, tau=0.995, s_floor=1e-10, tol_freeze=1e-5)
 # ROW_*, RT_*, REG_*).
 (TB_FLAGS, TB_NSEG, TB_ACC, TB_ANGVEL, TB_VEL, TB_VREF, TB_CONTOUR, TB_LAG,
  TB_TANGLE, TB_TCONT, TB_CONS_W, TB_PREV_X, TB_PREV_Y, TB_DISC_R, TB_MODEL,
- TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y, TB_OFF_SPLINE, TB_OFF_H, TB_OFF_ROWS,
- TB_HEADER) = range(22)
+ TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y, TB_SLACK, TB_OFF_SPLINE, TB_OFF_H,
+ TB_OFF_ROWS, TB_HEADER) = range(23)
 FL_BASE, FL_CONTOUR, FL_CONSIST, FL_BODY_TERMINAL, FL_GOAL = 1, 2, 4, 8, 16
 #: The models the kernels are compiled for (``tmpc::with_model``): class
 #: name -> model id.
 MODELS = {"ContouringSecondOrderUnicycleModel": 0,
-          "SecondOrderUnicycleModel": 1}
-HK_HALFSPACE, HK_ELLIPSOID, H_W = 0, 1, 9
+          "SecondOrderUnicycleModel": 1,
+          "ContouringSecondOrderUnicycleModelWithSlack": 2}
+HK_HALFSPACE, HK_ELLIPSOID, HK_GAUSSIAN, HK_SCENARIO, H_W = 0, 1, 2, 3, 9
 ROW_KINDS = {"hl": 0, "hu": 1, "zl": 2, "zu": 3}
 REG_KINDS = {"none": 0, "gershgorin": 1, "levenberg": 2}
 
@@ -115,35 +119,41 @@ def _check_model(model) -> int:
     return MODELS[name]
 
 
-def _check_base(module) -> bool:
-    """MPCBaseModule as the factory configures it: w_a a^2, w_w w^2 and
-    optionally w_v (v - v_ref)^2 (the forms checked on a sample point).
-    Returns whether it weighs v."""
-    forms = {("a", "w"): [["acceleration"], ["angular_velocity"]],
-             ("a", "w", "v"): [["acceleration"], ["angular_velocity"],
-                               ["velocity", "reference_velocity"]]}
+def _check_base(module) -> tuple:
+    """MPCBaseModule as the factories configure it: w_a a^2, w_w w^2,
+    optionally w_s slack^2 and optionally w_v (v - v_ref)^2, in that order
+    (the forms checked on a sample point). Returns whether it weighs slack
+    and whether it weighs v."""
+    weights = {"a": ["acceleration"], "w": ["angular_velocity"],
+               "slack": ["slack"], "v": ["velocity", "reference_velocity"]}
+    forms = (("a", "w"), ("a", "w", "v"), ("a", "w", "slack"),
+             ("a", "w", "slack", "v"))
     variables = tuple(module._variables_per_function)
-    if forms.get(variables) != module._weights_per_function:
+    if (variables not in forms or [weights[v] for v in variables]
+            != module._weights_per_function):
         raise NotImplementedError(
-            "the fused kernel covers MPCBaseModule weighing a, w and "
-            "optionally v (acceleration, angular_velocity, "
+            "the fused kernel covers MPCBaseModule weighing a, w, optionally "
+            "slack and optionally v (acceleration, angular_velocity, slack, "
             "velocity/reference_velocity)")
     t = functools.partial(torch.tensor, dtype=torch.float64)
     x, w0, w1 = 1.7, 0.3, 0.6
-    want = (w0 * x * x, w0 * x * x, w0 * (x - w1) ** 2)
-    args = ([t(w0)], [t(w0)], [t(w0), t(w1)])
-    for fn, w, expected in zip(module._cost_functions, args, want):
-        if abs(float(fn(t(x), w)) - expected) > 1e-12:
+    for fn, var in zip(module._cost_functions, variables):
+        w, want = (([t(w0), t(w1)], w0 * (x - w1) ** 2) if var == "v"
+                   else ([t(w0)], w0 * x * x))
+        if abs(float(fn(t(x), w)) - want) > 1e-12:
             raise NotImplementedError(
                 "the fused kernel covers MPCBaseModule's default cost forms "
                 "only")
-    return "v" in variables
+    return "slack" in variables, "v" in variables
 
 
 def _constraint_rows(module, idx):
     """The kernel's h-row table entries of one constraint module, in the
-    order of its ``get_constraints``."""
-    from ..modules import EllipsoidConstraintModule, GuidanceConstraintModule
+    order of its ``get_constraints``: one per (obstacle, mode, disc) for
+    ellipsoids and Gaussian chance constraints, each row with its own
+    parameter indices."""
+    from ..modules import (EllipsoidConstraintModule, GaussianConstraintModule,
+                           GuidanceConstraintModule, ScenarioConstraintModule)
     from ..modules.linearized_constraints import LinearizedConstraintModule
 
     if type(module) is GuidanceConstraintModule:
@@ -159,16 +169,32 @@ def _constraint_rows(module, idx):
                 for i in range(topo.max_obstacles + topo.n_other_halfspaces)]
         return rows + _constraint_rows(module.constraint_submodule, idx)
     if type(module) is EllipsoidConstraintModule:
-        if module.max_modes != 1:
-            raise NotImplementedError(
-                "the fused kernel covers one prediction mode (max_modes=1), "
-                f"not {module.max_modes}")
         return [[HK_ELLIPSOID]
-                + [idx[f"ellipsoid_obst_{i}_{name}"]
-                   for name in ("x", "y", "psi", "major", "minor", "chi", "r")]
-                + [idx[f"ego_disc_{d}_offset"]]
+                + [idx[module._p(i, j, name)]
+                   for name in ("x", "y", "psi", "major", "minor", "chi")]
+                + [idx[f"ellipsoid_obst_{i}_r"], idx[f"ego_disc_{d}_offset"]]
                 for i in range(module.max_obstacles)
+                for j in range(module.max_modes)
                 for d in range(module.n_discs)]
+    if type(module) is GaussianConstraintModule:
+        return [[HK_GAUSSIAN]
+                + [idx[module._p(i, j, name)]
+                   for name in ("x", "y", "major", "minor", "risk")]
+                + [idx[f"gaussian_obst_{i}_r"], idx[f"ego_disc_{d}_offset"]]
+                for i in range(module.max_obstacles)
+                for j in range(module.max_modes)
+                for d in range(module.n_discs)]
+    if type(module) is ScenarioConstraintModule:
+        if not module.use_slack:
+            raise NotImplementedError(
+                "the fused kernel covers scenario constraints softened by "
+                "the model's slack state")
+        return [[HK_SCENARIO]
+                + [idx[module._constraint_name(i, d) + suffix]
+                   for suffix in ("_a1", "_a2", "_b")]
+                + [idx[f"ego_disc_{d}_offset"]]
+                for d in range(module.n_discs)
+                for i in range(module.n_per_disc)]
     raise NotImplementedError(
         f"the fused kernel does not cover the constraint module "
         f"{type(module).__name__}")
@@ -199,13 +225,13 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
             raise NotImplementedError(f"{kind.__name__} appears twice")
         seen.add(kind)
         if kind is MPCBaseModule:
-            weighs_v = _check_base(module)
+            weighs_slack, weighs_v = _check_base(module)
             flags |= FL_BASE
-            for slot, name in ((TB_ACC, "acceleration"),
-                               (TB_ANGVEL, "angular_velocity"),
-                               (TB_VEL, "velocity"),
-                               (TB_VREF, "reference_velocity")):
-                head[slot] = idx[name] if weighs_v or slot < TB_VEL else -1
+            head[TB_ACC] = idx["acceleration"]
+            head[TB_ANGVEL] = idx["angular_velocity"]
+            head[TB_SLACK] = idx["slack"] if weighs_slack else -1
+            head[TB_VEL] = idx["velocity"] if weighs_v else -1
+            head[TB_VREF] = idx["reference_velocity"] if weighs_v else -1
         elif kind is GoalModule:
             flags |= FL_GOAL
             for slot, name in ((TB_GOAL_W, "goal_weight"),
@@ -243,7 +269,7 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
     if len(h_rows) != ocp.nh:
         raise NotImplementedError(
             f"constraint rows {len(h_rows)} != the OCP's nh {ocp.nh}")
-    if any(r[0] == HK_ELLIPSOID for r in h_rows):
+    if any(r[0] in (HK_ELLIPSOID, HK_GAUSSIAN) for r in h_rows):
         head[TB_DISC_R] = idx["ego_disc_radius"]
     if ocp.settings["N"] - 1 == 1:
         flags |= FL_BODY_TERMINAL  # body stages also carry the terminal terms

@@ -22,11 +22,10 @@ The evaluators, each with its scene sampler:
   planners and one unguided per episode and tick, fair-cost selection with
   a consistency preference, :func:`tmpc_scenes`;
 - :func:`make_contouring_rollout` (BASELINE config 2: the contouring model
-  with ellipsoidal obstacles along a straight reference path), with
-  :func:`contouring_scenes`, the scene sampler of the JAX package's
-  ``tools/bench_rollout.py``. Its CC-MPC flavour
-  (``constraints="gaussian"``) needs the Gaussian constraint module, which
-  the port does not have yet (ROADMAP Queue A, item 4b).
+  with ellipsoidal obstacles along a straight reference path; with
+  ``constraints="gaussian"`` BASELINE config 3, CC-MPC's Gaussian chance
+  constraints), with :func:`contouring_scenes`, the scene sampler of the JAX
+  package's ``tools/bench_rollout.py``.
 
 Each tick is one fleet solve of every episode's problems (B, B x R or
 B x (n_paths + 1)); with ``backend="fused"`` on a CUDA device, one launch
@@ -842,11 +841,12 @@ def make_contouring_rollout(n_obstacles: int = 3, N: int = 20,
                             dtype=torch.float32, backend: str = "auto",
                             settings=None, obstacle_radius: float = 0.3,
                             per_episode_weights: tuple = (),
-                            constraints: str = "ellipsoid", *,
+                            constraints: str = "ellipsoid",
+                            risk: float = 0.05, sigma_step: float = 0.05, *,
                             device="cuda"):
     """Closed-loop MPCC path following on ``device`` (BASELINE config 2: the
     contouring model and ellipsoidal obstacles along the straight path
-    x(s) = s).
+    x(s) = s; BASELINE config 3 with ``constraints="gaussian"``).
 
     Per tick the progress state is re-anchored to the closest path point
     (clip(x, 0, L) on this path) and the per-stage obstacle predictions are
@@ -863,26 +863,26 @@ def make_contouring_rollout(n_obstacles: int = 3, N: int = 20,
     ``rollout.first_tick_params(x0, obs0, obs_vel, *weights)`` is the first
     tick's parameter buffer (B, N, npar).
 
-    ``constraints="gaussian"`` (the CC-MPC flavour, with the JAX
-    package's ``risk`` and ``sigma_step``) raises ``NotImplementedError``:
-    its module is not ported yet (ROADMAP 4b).
+    ``constraints="gaussian"`` runs the CC-MPC flavour in place of the
+    ellipsoids: linear chance constraints at risk level ``risk`` against a
+    per-stage uncertainty sigma_k = ``sigma_step`` sqrt(k + 1) at stage k
+    (the JAX package's propagation), set once in the stage template.
     """
     from ..models import ContouringSecondOrderUnicycleModel
     from ..modules import (ContouringModule, EllipsoidConstraintModule,
-                           ModuleManager, MPCBaseModule)
+                           GaussianConstraintModule, ModuleManager,
+                           MPCBaseModule)
     from ..solver import build_ocp
     from ..utils import default_settings
 
     if constraints not in ("ellipsoid", "gaussian"):
         raise ValueError(f"constraints must be 'ellipsoid' or 'gaussian', "
                          f"got {constraints!r}")
-    if constraints == "gaussian":
-        raise NotImplementedError(
-            "constraints='gaussian' needs the Gaussian constraint module "
-            "(CC-MPC), which the port does not have yet (ROADMAP Queue A, "
-            "item 4b)")
+    gaussian = constraints == "gaussian"
     device = torch.device(device)
     settings = settings or default_settings(N=N, max_obstacles=n_obstacles)
+    if gaussian:
+        settings["probabilistic"]["risk"] = risk
     mm = ModuleManager()
     base = mm.add_module(MPCBaseModule(settings))
     base.weigh_variable("a", "acceleration")
@@ -890,7 +890,8 @@ def make_contouring_rollout(n_obstacles: int = 3, N: int = 20,
     base.weigh_variable("v", ["velocity", "reference_velocity"],
                         cost_function=lambda x, w: w[0] * (x - w[1]) ** 2)
     mm.add_module(ContouringModule(settings))
-    mm.add_module(EllipsoidConstraintModule(settings))
+    mm.add_module(GaussianConstraintModule(settings) if gaussian
+                  else EllipsoidConstraintModule(settings))
     ocp = build_ocp(ContouringSecondOrderUnicycleModel(), mm, settings)
 
     config = config or _default_rollout_config()
@@ -917,15 +918,27 @@ def make_contouring_rollout(n_obstacles: int = 3, N: int = 20,
         base_p[idx[name]] = w[name]
     base_p[idx["ego_disc_radius"]] = robot_radius
     base_p[idx["ego_disc_0_offset"]] = 0.0
-    _ellipsoid_statics(base_p, idx, n_obstacles, obstacle_radius)
+    obst = "gaussian_obst" if gaussian else "ellipsoid_obst"
+    if gaussian:
+        for i in range(n_obstacles):
+            base_p[idx[f"gaussian_obst_{i}_risk"]] = risk
+            base_p[idx[f"gaussian_obst_{i}_r"]] = obstacle_radius
+    else:
+        _ellipsoid_statics(base_p, idx, n_obstacles, obstacle_radius)
+    base_np = np.tile(base_p, (N, 1))  # (N, npar)
+    if gaussian:  # the stage-dependent sigmas
+        sigma_k = sigma_step * np.sqrt(np.arange(1, N + 1))
+        for i in range(n_obstacles):
+            base_np[:, idx[f"gaussian_obst_{i}_major"]] = sigma_k
+            base_np[:, idx[f"gaussian_obst_{i}_minor"]] = sigma_k
 
     def dev(x, dt_=dtype):
         return torch.as_tensor(x, dtype=dt_, device=device)
 
-    base_stage = dev(np.tile(base_p, (N, 1)))  # (N, npar)
-    ox_cols = dev([idx[f"ellipsoid_obst_{i}_x"] for i in range(n_obstacles)],
+    base_stage = dev(base_np)
+    ox_cols = dev([idx[f"{obst}_{i}_x"] for i in range(n_obstacles)],
                   torch.long)
-    oy_cols = dev([idx[f"ellipsoid_obst_{i}_y"] for i in range(n_obstacles)],
+    oy_cols = dev([idx[f"{obst}_{i}_y"] for i in range(n_obstacles)],
                   torch.long)
     weight_cols = [idx[name] for name in per_episode_weights]
     stage_t = torch.arange(N, dtype=dtype, device=device) * dt

@@ -50,6 +50,23 @@ def fleet_backend_for(config) -> str:
     return "pallas" if config.regularization == "mirror" else "fused"
 
 
+def packed_fleet_solve(solver, n_problems, backend, n_sqp):
+    """The solver's OCP as a fleet of ``n_problems`` problems sharing one
+    xinit, solved with ``n_sqp`` SQP iterations on ``backend``: one upload,
+    one solve and one readback (:func:`..ops.sqp.make_buffered_packed_solve`)
+    on the solver's device."""
+    fleet = make_fleet_sqp_solver(
+        solver.ocp, scale_iterations(solver.config, n_sqp),
+        dtype=solver.dtype, device=solver.device, backend=backend)
+
+    def batched(params, xinit, warm):
+        return fleet(params, xinit.expand(n_problems, -1), warm)
+
+    return make_buffered_packed_solve(
+        batched, n_problems, solver.N, solver.ocp.npar, solver.nx,
+        solver.nvar, solver.dtype, device=solver.device)
+
+
 class TMPCOptimizer:
     def __init__(self, solver, settings, guidance_config: Optional[GuidanceConfig]
                  = None, clock=time.monotonic):
@@ -84,8 +101,8 @@ class TMPCOptimizer:
         # the backend does not cover raises now.
         self.fleet_backend = fleet_backend_for(solver.config)
         self._fleet_n_full = solver._iter_ladder[0]
-        self._packed_solve = {
-            self._fleet_n_full: self._build_packed_solve(self._fleet_n_full)}
+        self._packed_solve = {self._fleet_n_full: packed_fleet_solve(
+            solver, self.n_planners, self.fleet_backend, self._fleet_n_full)}
         self._timed_variants = set()  # ladder entries past their first call
         self._pending_solve = None  # the in-flight solve and its timing
         self._pending_ctx = None  # host context for optimize_finish
@@ -119,20 +136,6 @@ class TMPCOptimizer:
         self.last_exit_codes = np.zeros(self.n_planners, dtype=int)
 
     # ------------------------------------------------------------------
-    def _build_packed_solve(self, n_sqp):
-        sv = self.solver
-        P = self.n_planners
-        fleet = make_fleet_sqp_solver(
-            sv.ocp, scale_iterations(sv.config, n_sqp), dtype=sv.dtype,
-            device=sv.device, backend=self.fleet_backend)
-
-        def batched(params, xinit, warm):
-            return fleet(params, xinit.expand(P, -1), warm)
-
-        return make_buffered_packed_solve(
-            batched, P, sv.N, sv.ocp.npar, sv.nx, sv.nvar, sv.dtype,
-            device=sv.device)
-
     def _dispatch_batch(self, params, xinit, warmstarts) -> None:
         """First half of the batched solve: upload, solve and readback
         queued on the device, nothing waited for (complete with
@@ -142,7 +145,8 @@ class TMPCOptimizer:
         n = self.solver.select_iterations()
         fn = self._packed_solve.get(n)
         if fn is None:
-            fn = self._packed_solve[n] = self._build_packed_solve(n)
+            fn = self._packed_solve[n] = packed_fleet_solve(
+                self.solver, self.n_planners, self.fleet_backend, n)
         first = n not in self._timed_variants
         self._timed_variants.add(n)
         t0 = time.perf_counter()

@@ -1,5 +1,5 @@
-"""Closed-loop Monte-Carlo throughput of the port's four evaluators on the
-card (``parallel/rollout.py``).
+"""Closed-loop Monte-Carlo throughput of the port's evaluators on the card
+(``parallel/rollout.py``).
 
     python3 -m oscar_mpc_planner_mr_modification_tpu_torch.tools.bench_rollout
 
@@ -8,7 +8,9 @@ and defaults: the goal evaluator (BASELINE config 1; 4096 episodes, N=20,
 60 ticks, 3 obstacles), the multi-robot evaluator (1024 episodes x 4
 robots, ``comm="always"``), the contouring evaluator (BASELINE config 2;
 4096 episodes) and the T-MPC++ evaluator (819 episodes x 5 planners, 4
-obstacles), all f32 with ``backend="auto"`` (kernel B2, one launch per
+obstacles), and beside them the contouring evaluator's CC-MPC flavour
+(BASELINE config 3, ``constraints="gaussian"``, risk 0.05, sigma growing by
+0.05 sqrt(k + 1); 4096 episodes on the contouring scenes), all f32 with ``backend="auto"`` (kernel B2, one launch per
 tick). Each is run once to warm up, then timed on 4 scene sets of other
 seeds with the host clock, inputs uploaded and metrics read back inside the
 time. Prints one JSON line per evaluator: episodes/s, problems per tick,
@@ -39,7 +41,7 @@ from .common import card_line, require_card
 
 
 class Evaluator(NamedTuple):
-    name: str  # "goal", "multirobot", "contouring" or "tmpc"
+    name: str  # "goal", "multirobot", "contouring", "ccmpc" or "tmpc"
     make: Callable  # (n_ticks, dtype, device, backend) -> (rollout, ocp)
     scenes: Callable  # (B, seed) -> numpy inputs of rollout
     batch: int  # episodes
@@ -61,8 +63,8 @@ def _mean(m, key):
 
 def evaluators(B=4096, N=20, n_ticks=60, n_obs=3, R=4, B_mr=None,
                n_paths=4, B_t=None, n_obs_t=4) -> dict:
-    """The four evaluators at these shapes, by name (the JAX tool's
-    defaults)."""
+    """The evaluators at these shapes, by name (the JAX tool's defaults;
+    ``"ccmpc"`` at the contouring evaluator's)."""
     B_mr = B_mr or max(B // R, 1)
     B_t = B_t or max(B // (n_paths + 1), 1)
     goal_counts = (roofline.GOAL_LIN_FLOPS, roofline.GOAL_MERIT_FLOPS,
@@ -129,6 +131,23 @@ def evaluators(B=4096, N=20, n_ticks=60, n_obs=3, R=4, B_mr=None,
                        "solve_success": _mean(m, "solve_success_rate")},
             (roofline.ROLLOUT_LIN_FLOPS, roofline.ROLLOUT_MERIT_FLOPS,
              roofline.ROLLOUT_IP_ITER_FLOPS)),
+        Evaluator(
+            "ccmpc",
+            lambda n, dtype, device, backend="auto":
+                ro.make_contouring_rollout(n_obstacles=n_obs, N=N,
+                                           n_ticks=n, dtype=dtype,
+                                           device=device, backend=backend,
+                                           constraints="gaussian", risk=0.05,
+                                           sigma_step=0.05),
+            lambda b, seed: ro.contouring_scenes(b, n_obs, seed=seed), B, 1,
+            contouring_first,
+            lambda m: {"mean_progress_m": _mean(m, "progress"),
+                       "collision_rate": _mean(m, "collided"),
+                       "solve_success": _mean(m, "solve_success_rate"),
+                       "mean_min_obstacle_dist_m": _mean(
+                           m, "min_obstacle_dist")},
+            (roofline.CCMPC_LIN_FLOPS, roofline.CCMPC_MERIT_FLOPS,
+             roofline.CCMPC_IP_ITER_FLOPS)),
         Evaluator(
             "tmpc",
             lambda n, dtype, device, backend="auto": ro.make_tmpc_rollout(

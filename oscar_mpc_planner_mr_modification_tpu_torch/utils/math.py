@@ -1,7 +1,8 @@
 """Math helpers shared by module definitions and runtime code (torch).
 
 Counterpart of the JAX package's ``utils/math.py``. Angles use the native
-``torch.atan2``/``torch.atan``.
+``torch.atan2``/``torch.atan`` and the error function the native
+``torch.erf``.
 """
 
 from __future__ import annotations
@@ -38,3 +39,16 @@ def exponential_quantile(rate: float, p):
     if isinstance(p, torch.Tensor):
         return -torch.log(1.0 - p) / rate
     return -math.log(1.0 - p) / rate
+
+
+def erfinv_newton(x):
+    """Inverse error function of a tensor: a rational initial guess, then two
+    Newton steps on ``erf(y) = x`` (the JAX package's scheme, which the CC-MPC
+    chance constraint uses; native ``torch.erf``)."""
+    z = torch.sqrt(-torch.log((1.0 - x) / 2.0))
+    y = (((1.641345311 * z + 3.429567803) * z - 1.624906493) * z
+         - 1.970840454) / ((1.637067800 * z + 3.543889200) * z + 1.0)
+    two_over_sqrt_pi = 2.0 / math.sqrt(math.pi)
+    for _ in range(2):
+        y = y - (torch.erf(y) - x) / (two_over_sqrt_pi * torch.exp(-y * y))
+    return y

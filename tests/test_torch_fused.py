@@ -234,11 +234,11 @@ def _dynamic_velocity(ocp):
     return ocp
 
 
-def _two_modes(ocp):
+def _topology_slack(ocp):
     for module in ocp.modules:
-        sub = getattr(module, "constraint_submodule", None)
-        if sub is not None:
-            sub.max_modes = 2
+        topo = getattr(module, "topology_constraints", None)
+        if topo is not None:
+            topo.use_slack = True
     return ocp
 
 
@@ -246,7 +246,8 @@ def _two_modes(ocp):
     ("mirror", ValueError), ("unknown_regularization", ValueError),
     ("other_model", NotImplementedError),
     ("dynamic_velocity_reference", NotImplementedError),
-    ("two_modes", NotImplementedError), ("unknown_backend", ValueError)])
+    ("topology_slack", NotImplementedError),
+    ("unknown_backend", ValueError)])
 def test_uncovered_raises(case, error):
     """The fused backend raises when it is built for what its kernel does not
     cover; it does not fall back to the per-iteration path."""
@@ -261,13 +262,53 @@ def test_uncovered_raises(case, error):
         ocp = _other_model(ocp)
     elif case == "dynamic_velocity_reference":
         ocp = _dynamic_velocity(ocp)
-    elif case == "two_modes":
-        ocp = _two_modes(ocp)
+    elif case == "topology_slack":
+        ocp = _topology_slack(ocp)
     else:
         backend = "mosaic"
     with pytest.raises(error):
         make_batched_tmpc_step(ocp, cfg, dtype=F64, device="cpu",
                                backend=backend)
+
+
+def test_two_mode_ellipsoids_match_build_qp(host_lin):
+    """Ellipsoids with two prediction modes (one row per obstacle, mode and
+    disc, each with its own parameters) are in the header: its linearization
+    of configuration_basic at max_modes=2, n_discs=2 against torch.func
+    (rtol 1e-9, atol 1e-10)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        configuration_basic)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import build_ocp
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    N, B = 6, 3
+    settings = default_settings(N=N, max_obstacles=2, n_discs=2)
+    settings["probabilistic"]["max_modes"] = 2
+    ocp = build_ocp(*configuration_basic(settings), settings)
+    assert ocp.nh == 2 * 2 * 2
+    cfg = tsqp.SQPConfig(regularization="gershgorin", reg_eps=1e-4)
+    tables = sqp_fused.ocp_tables(ocp, cfg)
+    assert tables.mh == 8
+    rng = np.random.default_rng(9)
+    idx = ocp.registry.save_map()
+    P = rng.uniform(0.1, 1.0, (B, N + 1, ocp.npar))
+    for i in range(5):
+        P[..., idx[f"spline_x{i}_c"]] = 1.0
+        P[..., idx[f"spline{i}_start"]] = 5.0 * i
+    for name, col in idx.items():
+        if name.startswith("ellipsoid_obst_") and name.endswith(("_x", "_y")):
+            P[..., col] = rng.uniform(-2.0, 3.0, (B, N + 1))
+    Z = rng.normal(size=(B, N + 1, ocp.nvar))
+    x0 = Z[:, 0, ocp.nu:] + 0.01
+    args = tuple(torch.as_tensor(a) for a in (P, x0, Z))
+    got = host_lin(tables, *args)
+    want = sqp_fused.linearize_reference(
+        tsqp._make_machinery(ocp, cfg, F64, "cpu"), tables, *args)
+    for name, a, b in zip(tsqp.QPData._fields, got[0], want[0]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9,
+                                   atol=1e-10, err_msg=name)
+    assert (got[0].D[:, :-1, :8, 2:5].abs() > 0).all()
 
 
 REPAIR_REGS = ("levenberg", "none")

@@ -181,10 +181,9 @@ def test_lanes_backend_raises_for_uncovered_ocp():
         tsqp.make_fleet_sqp_solver(to, tsqp.SQPConfig(regularization="mirror"),
                                    dtype=F64, device="cpu", backend="lanes")
     for module in to.modules:
-        sub = getattr(module, "constraint_submodule", None)
-        if sub is not None:
-            sub.max_modes = 2
-    with pytest.raises(NotImplementedError):
+        if hasattr(module, "dynamic_velocity_reference"):
+            module.dynamic_velocity_reference = True
+    with pytest.raises(NotImplementedError, match="dynamic_velocity"):
         tsqp.make_fleet_sqp_solver(to, tsqp.SQPConfig(**CFG), dtype=F64,
                                    device="cpu", backend="lanes")
 

@@ -11,8 +11,10 @@ package's, on the CPU at f64.
   fill then writes what the unweighted evaluator's does.
 - ``first_tick_params`` equal to JAX's, bit for bit, with and without
   per-episode weights.
-- ``"auto"`` resolves to ``"xla"`` on the CPU; ``constraints="gaussian"``
-  raises ``NotImplementedError`` (its module is not ported).
+- ``"auto"`` resolves to ``"xla"`` on the CPU, also for
+  ``constraints="gaussian"`` (BASELINE config 3, held to JAX in
+  tests/test_torch_ccmpc.py), whose fused backend builds with one Gaussian
+  row per obstacle.
 """
 
 import numpy as np
@@ -135,8 +137,14 @@ def test_backend_rule_and_gaussian():
     fused, _ = tro.make_contouring_rollout(N=4, n_ticks=1, backend="fused",
                                            dtype=torch.float64, device="cpu")
     assert fused.backend == "fused"
-    with pytest.raises(NotImplementedError, match="4b"):
-        tro.make_contouring_rollout(N=4, constraints="gaussian",
-                                    device="cpu")
+    gauss, gocp = tro.make_contouring_rollout(
+        N=4, n_ticks=1, constraints="gaussian", backend="auto",
+        dtype=torch.float64, device="cpu")
+    assert gauss.backend == "xla" and gocp.nh == N_OBS
+    gauss, gocp = tro.make_contouring_rollout(
+        N=4, n_ticks=1, constraints="gaussian", backend="fused",
+        dtype=torch.float64, device="cpu")
+    assert gauss.backend == "fused"
+    assert gauss.fleet_solve.tables.m == N_OBS + 14
     with pytest.raises(ValueError, match="constraints"):
         tro.make_contouring_rollout(N=4, constraints="box", device="cpu")

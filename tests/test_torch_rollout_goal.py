@@ -264,19 +264,32 @@ def test_comm_mode_and_backend_rules():
 
 
 @pytest.mark.parametrize("make", ["batch", "multirobot"])
-def test_fused_evaluator_raises_for_an_uncovered_ocp(make):
-    """Two prediction modes per ellipsoid are outside B2's header: on a CUDA
-    device ``backend="fused"`` (and ``"auto"``) raises
-    ``NotImplementedError`` when the evaluator is built, before it touches
-    the device (this machine has none), and never falls back."""
+def test_fused_evaluator_raises_for_an_uncovered_ocp(make, monkeypatch):
+    """An OCP outside B2's header (here: its model taken out of the
+    kernels' models): on a CUDA device ``backend="fused"`` (and ``"auto"``)
+    raises ``NotImplementedError`` when the evaluator is built, before it
+    touches the device (this machine has none), and never falls back. With
+    the model in, two prediction modes per ellipsoid build on the fused
+    backend (its plain version on the CPU), one row per obstacle, mode and
+    peer."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import sqp_fused
+
     settings = default_settings(N=6, max_obstacles=2 if make == "multirobot"
                                 else N_OBS)
     settings["probabilistic"]["max_modes"] = 2
     build = {"batch": tro.make_batch_rollout,
              "multirobot": tro.make_multirobot_rollout}[make]
     kw = {"n_robots": 3} if make == "multirobot" else {"n_obstacles": N_OBS}
+    rollout, ocp = build(N=6, settings=settings, backend="fused",
+                         device="cpu", **kw)
+    assert rollout.backend == "fused"
+    assert rollout.fleet_solve.tables.mh == ocp.nh == 2 * settings[
+        "max_obstacles"]
+    monkeypatch.setattr(sqp_fused, "MODELS", {
+        k: v for k, v in sqp_fused.MODELS.items()
+        if k != "SecondOrderUnicycleModel"})
     for backend in ("fused", "auto"):
-        with pytest.raises(NotImplementedError, match="prediction mode"):
+        with pytest.raises(NotImplementedError, match="SecondOrderUnicycle"):
             build(N=6, settings=settings, backend=backend, device="cuda",
                   **kw)
 

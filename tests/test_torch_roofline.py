@@ -170,7 +170,7 @@ def _check_iteration_count(lib, qp, row_mask, row_meta, nx, nu):
     return hand
 
 
-@pytest.mark.parametrize("nx,nu", [(5, 2), (4, 2), (3, 1), (4, 3)])
+@pytest.mark.parametrize("nx,nu", [(5, 2), (4, 2), (6, 2), (3, 1), (4, 3)])
 def test_ip_iteration_flops_match_the_kernel_count(count_lib, nx, nu):
     """Generic and box rows, a masked stage, an inactive row, nu 1 to 3."""
     T, m = 6, 5
@@ -437,6 +437,73 @@ def test_goal_and_evaluator_ocp_flops_match_the_kernel_count(count_lib,
             tables.model, tables.reg, lin.ctypes.data,
             merit.ctypes.data) == 0
         assert (int(lin.sum()), int(merit.sum())) == want[1:3]
+
+
+def _first_tick_ccmpc():
+    """(ocp, P, x0, Z) of the CC-MPC evaluator's first tick at N=20 (3
+    obstacles, 4 episodes of seed 0), stationary iterates."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel import (
+        rollout)
+
+    f64 = torch.float64
+    ro, ocp = rollout.make_contouring_rollout(
+        N=20, n_ticks=1, dtype=f64, device="cpu", constraints="gaussian")
+    x0, obs0, vel = rollout.contouring_scenes(4, 3, seed=0)
+    P = ro.first_tick_params(x0, obs0, vel)
+    x0 = torch.as_tensor(x0, dtype=f64)
+    Z = torch.cat([torch.zeros(4, 21, ocp.nu, dtype=f64),
+                   x0[:, None].expand(-1, 21, -1)], dim=2)
+    return ocp, P, x0, Z
+
+
+@pytest.mark.parametrize("which", ["ccmpc_fleet", "ccmpc_rollout", "ccmpc6",
+                                   "shmpc_fleet"])
+def test_ccmpc_and_shmpc_ocp_flops_match_the_kernel_count(count_lib, which):
+    """The CCMPC_, CCMPC6_ and SHMPC_ constants are the hand count and the
+    fused kernel's own counts at BASELINE configs 3 and 5's OCPs (N=20): on
+    4 problems each of tools/bench_matrix.py's CC-MPC fleet (3 obstacles),
+    the CC-MPC evaluator's first tick, the CC-MPC fleet at config 3's 6
+    obstacles and the SH-MPC fleet (nx=6, m=40)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+
+    f64 = torch.float64
+    rng = np.random.default_rng(0)
+    if which == "ccmpc_rollout":
+        ocp, P, x0, Z = _first_tick_ccmpc()
+    else:
+        build = {"ccmpc_fleet": bench_matrix.build_ccmpc,
+                 "ccmpc6": lambda N, B, r: bench_matrix.build_ccmpc(N, B, r,
+                                                                    6),
+                 "shmpc_fleet": bench_matrix.build_shmpc}[which]
+        ocp, *arrays = build(20, 4, rng)
+        P, x0, Z = (torch.as_tensor(a, dtype=f64) for a in arrays)
+    prefix = {"ccmpc_fleet": "CCMPC", "ccmpc_rollout": "CCMPC",
+              "ccmpc6": "CCMPC6", "shmpc_fleet": "SHMPC"}[which]
+    want = tuple(getattr(roofline, f"{prefix}_{kind}_FLOPS")
+                 for kind in ("IP_ITER", "LIN", "MERIT"))
+    assert ocp.npar == {"CCMPC": 73, "CCMPC6": 91, "SHMPC": 127}[prefix]
+    cfg = bench_matrix.matrix_config()
+    P = torch.cat([P, P[:, -1:]], dim=1).contiguous()
+    mach = tsqp._make_machinery(ocp, cfg, f64, "cpu")
+    tables = sqp_fused.ocp_tables(ocp, cfg)
+    itab = np.ascontiguousarray(tables.ints)
+    rtab = np.ascontiguousarray(tables.reals)
+    qp = mach.build_qp(Z, P, x0)
+    ins = sqp_fused._lanes_in(P, x0, Z)
+    for b in range(P.shape[0]):
+        one = tsqp.QPData(*(x[b:b + 1] for x in qp))
+        assert _check_iteration_count(count_lib, one, mach.stage_mask,
+                                      mach.row_meta, ocp.nx,
+                                      mach.nu) == want[0]
+        cols = [np.ascontiguousarray(x[:, b].numpy()) for x in ins]
+        lin, merit = np.zeros(5, np.int64), np.zeros(5, np.int64)
+        assert count_lib.tmpc_count_ops(
+            *[c.ctypes.data for c in cols], itab.ctypes.data,
+            rtab.ctypes.data, tables.T, tables.npar, tables.m, tables.mh,
+            tables.model, tables.reg, lin.ctypes.data,
+            merit.ctypes.data) == 0
+        assert (int(lin.sum()), int(merit.sum())) == want[1:]
 
 
 def test_linearization_flops_match_cost_analysis():

@@ -37,7 +37,9 @@ def test_port_has_sources():
             "utils/profiling.py", "sim/pedestrians.py",
             "sim/roadmap.py", "ops/qp.py", "parallel/rollout.py",
             "models/dynamics.py", "modules/goal_module.py",
-            "tools/bench_rollout.py"} <= names
+            "tools/bench_rollout.py", "modules/gaussian_constraints.py",
+            "modules/scenario_constraints.py", "parallel/scenario.py",
+            "tools/bench_matrix.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

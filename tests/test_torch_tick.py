@@ -393,8 +393,9 @@ def test_buffered_packed_solve_dispatch_fetch():
 
 
 class GaussianStandIn(EllipsoidConstraintModule):
-    """Stands in for the CC-MPC Gaussian constraint module (not ported yet):
-    a submodule the fused kernel's header does not cover."""
+    """A constraint submodule the fused kernel's header does not cover: a
+    subclass of the ellipsoid module under the Gaussian module's name (the
+    header matches module types exactly, so it covers neither)."""
 
     module_name = "GaussianConstraints"
 
