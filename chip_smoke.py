@@ -75,8 +75,23 @@ B1 at (6, 2), held as in (a); (d) the SH-MPC planner tick
 (configuration_safe_horizon, build_planner, 4 scenario solvers, 60 serial
 ticks under Gershgorin with one B2 launch each, then ticks under "mirror"
 with B1 (6, 2) once per SQP iteration): success, no contact with the
-pedestrians' mean positions, ms per tick, support and certificate. Any
-failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
+pedestrians' mean positions, ms per tick, support and certificate. Then
+the multi-robot coordination path and the rest of 4a, each run with the
+launch counts set to 0 before it: (i) three goal_tmpc RobotAgents
+(systems.make_system_planner("jackalsimulator", "goal_tmpc"): N=30, 5
+planners, f32) on an intersection with a crossing pedestrian under
+MultiRobotDriver.run (60 cycles) and run_desynchronized: one B2 launch per
+planning tick and nothing else, no collision, the JAX test's progress, a
+communication rate in (0, 0.95), trigger reasons, ms per robot tick, B2 at
+the tick's shape (P=5, T=31) against its plain version; (j) the dynamic
+velocity reference: B2's in-kernel linearization against torch.func at f64,
+the dyn-vref fleet (512 problems) through B2 against its plain version, and
+60 planner ticks on a path whose reference velocity falls, tracked more
+closely over the last 20 ticks than over the first 20; (k) the eight
+configurations of the JAX configuration sweep that the port has, 3 ticks
+each at N=8 (B2 or the single-instance solve), the LMPCC fleet (512
+problems) through B2 against its plain version, and one
+LocalPlannerInterface cycle. Any failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 each with its bound. Needs one CUDA device; without one it exits with code 2.
 """
@@ -215,8 +230,14 @@ def plain_qp_solver():
 def log_launch_plans(dev):
     """Every B1 and B2 entry's launch plan at the bench shape ((nx, nu) =
     (5, 2)), at BASELINE config 1's goal OCP ((4, 2), N=20, 3 obstacles),
-    at config 3's CC-MPC OCP ((5, 2), 3 Gaussian rows) and at config 5's
-    SH-MPC OCP ((6, 2), 24 scenario rows, m=40), f32 and f64."""
+    at config 3's CC-MPC OCP ((5, 2), 3 Gaussian rows), at config 5's
+    SH-MPC OCP ((6, 2), 24 scenario rows, m=40) and at the multi-robot
+    tick's goal-T-MPC OCP ((4, 2), T=31, 8 generic rows), f32 and f64."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        configuration_goal_tmpc)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import build_ocp
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
         make_fleet_sqp_solver)
     from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
@@ -226,7 +247,9 @@ def log_launch_plans(dev):
     rng = np.random.default_rng(0)
     for ocp in (bench_ocp, goal_ocp(),
                 bench_matrix.build_ccmpc(N_MAIN, 1, rng)[0],
-                bench_matrix.build_shmpc(N_MAIN, 1, rng)[0]):
+                bench_matrix.build_shmpc(N_MAIN, 1, rng)[0],
+                build_ocp(*configuration_goal_tmpc(default_settings()),
+                          default_settings())):
         solve = make_fleet_sqp_solver(ocp, bench_config(),
                                       dtype=torch.float32, device="cpu",
                                       backend="fused")
@@ -503,8 +526,7 @@ def tick_phase(dev, card, reset_counts, counts, none):
     and progress; the first two to no contact with a pedestrian, the third
     only reports its clearance (the planner meets the pedestrians where
     they were a step before). Returns the kernel entry's numbers."""
-    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
-        roofline, sqp_fused)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import roofline
     from oscar_mpc_planner_mr_modification_tpu_torch.utils.profiling import (
         BENCHMARKERS)
 
@@ -584,53 +606,11 @@ def tick_phase(dev, card, reset_counts, counts, none):
           f"on the card)")
 
     # B2 at the tick's shape against its plain version
-    params, xinit, warm = runs["serial"]["captured"]
     ocp = planner.solver.ocp
-    cfg = bench_config()
-    solves = {dt: sqp_fused.make_fused_fleet_solver(ocp, cfg, dtype=dt,
-                                                    device=dev)
-              for dt in (torch.float64, torch.float32)}
-
-    def tick_args(dtype):
-        return (torch.as_tensor(params, dtype=dtype, device=dev),
-                torch.as_tensor(xinit, dtype=dtype, device=dev).expand(P, -1),
-                torch.as_tensor(warm, dtype=dtype, device=dev))
-
-    res_k = solves[torch.float64](*tick_args(torch.float64))
-    res_p = solves[torch.float64].reference(*tick_args(torch.float64))
-    torch.cuda.synchronize()
-    diff = (res_k.z - res_p.z).abs()
-    rel = diff.amax(dim=(1, 2)) / (1.0 + res_p.z.abs().amax(dim=(1, 2)))
-    err = diff.max().item()
-    log(f"f64 B2 at the tick's shape (P={P}, T={N_MAIN + 1}): success "
-        f"{res_k.success.tolist()} (plain {res_p.success.tolist()}), max|dZ| "
-        f"{err:.3e}, max rel {rel.max().item():.3e}")
-    check(bool((res_k.success == res_p.success).all())
-          and rel.max().item() <= FUSED_F64_GATE,
-          f"f64 B2 = plain at the tick's shape: same success, per problem "
-          f"max|dZ| / (1 + max|Z|) <= {FUSED_F64_GATE:g}")
-    a32 = tick_args(torch.float32)
-    r32_k = solves[torch.float32](*a32)
-    r32_p = solves[torch.float32].reference(*a32)
-    torch.cuda.synchronize()
-    rel32 = ((r32_k.z - r32_p.z).abs().amax(dim=(1, 2))
-             / (1.0 + r32_p.z.abs().amax(dim=(1, 2))))
-    log(f"f32 B2 at the tick's shape: per problem rel {rel32.tolist()}")
-    check(rel32.median().item() <= 1e-4,
-          "f32 B2 = plain at the tick's shape: median rel <= 1e-4")
-    k_ms, k_all = cuda_time_ms(lambda: solves[torch.float32](*a32), reps=20)
-    p_ms, _ = cuda_time_ms(lambda: solves[torch.float32].reference(*a32),
-                           reps=5)
-    log(f"[{card}] B2 per tick (P={P}, T={N_MAIN + 1}, f32, CUDA events): "
-        f"{k_ms:.3f} ms (median of 20; {spread(k_all)}), plain "
-        f"fused_fleet_reference {p_ms:.3f} ms (median of 5)")
-    mach = solves[torch.float32].machinery
-    ip_it = roofline.ip_iter_flops(mach.row_meta, mach.stage_mask, ocp.nx,
-                                   mach.nu)
-    check(ip_it == roofline.TICK_IP_ITER_FLOPS,
-          f"IP iteration count at the tick's rows and mask {ip_it} = "
-          f"TICK_IP_ITER_FLOPS {roofline.TICK_IP_ITER_FLOPS} (npar "
-          f"{ocp.npar}, m {mach.stage_mask.shape[1]})")
+    err, k_ms, p_ms, a32, mach = b2_against_plain(
+        dev, card, ocp, bench_config(), runs["serial"]["captured"],
+        "the tick's shape")
+    check_ip_count(mach, ocp, "TICK", "the tick")
     pipe = runs["pipelined"]
     return dict(launches=pipe["b2"],
                 launches_per_tick=pipe["b2"] / pipe["ticks"],
@@ -1151,10 +1131,12 @@ def evaluator_phase(dev, card, reset_counts, counts, none, ev,
     check(summary[key] >= 0.9, f"{ev.name} evaluator {key} "
           f"{summary[key]:.4f} >= 0.9")
 
-    # one profiled rollout: nothing crosses between ticks
+    # one profiled rollout: nothing crosses between ticks. The padding
+    # outlasts what the card's traces have dropped at their end: up to ~70
+    # ops of a T-MPC rollout's ~17400 on an H100 80GB HBM3 (700 W).
     scenes = ev.scenes(B, 3)
     names = [e.name for e in device_trace(
-        lambda: read_metrics(rollout(*scenes)), pad=64)]
+        lambda: read_metrics(rollout(*scenes)), pad=256)]
     win = copy_windows(names)
     log(f"{ev.name} evaluator, one profiled rollout: {len(names)} device "
         f"ops, {len(win) - 1} B2 launches in the trace; (uploads, readbacks) "
@@ -1769,6 +1751,525 @@ def shmpc_tick_phase(dev, card, reset_counts, counts, none):
     return dict(b2=b2, b1=b1)
 
 
+# ---------------------------------------------------------------------------
+# The multi-robot driver, the dynamic velocity reference, the configuration
+# sweep
+# ---------------------------------------------------------------------------
+#: The three-robot intersection of the JAX package's
+#: tests/test_multirobot.py (namespace, start pose, goal) and the crossing
+#: pedestrian of its examples/demo_multirobot.py (start, goal).
+MR_ROBOTS = [("r1", (2.0, 0.0, 0.0), (10.0, 0.0)),
+             ("r2", (10.0, 1.2, np.pi), (2.0, 1.2)),
+             ("r3", (6.0, -4.0, np.pi / 2), (6.0, 4.0))]
+MR_PEDESTRIAN = ((6.5, 5.0), (6.5, -6.0))
+MR_CYCLES, MR_DESYNC_CYCLES = 60, 20
+#: The robots' SQP: the JAX test's 5 x 10, with the kernel's regularization.
+MR_CFG = dict(n_sqp=5, n_qp_iter=10, regularization="gershgorin")
+DYNVREF_TICKS = 60
+SWEEP_N, SWEEP_TICKS = 8, 3
+#: The configurations of the JAX package's tests/test_config_sweep.py that
+#: run on the card (all but the bicycle, which waits for its model): name,
+#: factory function, settings overrides, and whether the planner solves
+#: through B2 (a guidance module's T-MPC optimizer, the scenario optimizer)
+#: or the single-instance solve. SH-MPC's data gate wants Gaussian
+#: predictions.
+SWEEP = [("no_obstacles", "configuration_no_obstacles", {}, False),
+         ("no_obstacles_dynvref", "configuration_no_obstacles",
+          {"contouring": {"dynamic_velocity_reference": True}}, False),
+         ("basic", "configuration_basic", {}, False),
+         ("lmpcc", "configuration_lmpcc", {}, False),
+         ("tmpc", "configuration_tmpc", {}, True),
+         ("tmpc_consistency", "configuration_tmpc_consistency_cost", {},
+          True),
+         ("goal_tmpc", "configuration_goal_tmpc", {}, True),
+         ("safe_horizon", "configuration_safe_horizon",
+          {"scenario_constraints": {"n_samples": 24},
+           "probabilistic": {"enable": True}}, True)]
+
+
+def b2_against_plain(dev, card, ocp, config, args, name):
+    """B2 on one tick's dispatched inputs ``args`` (params (P, N, npar),
+    xinit (nx,), warm (P, N + 1, nz), numpy) against its plain version: f64
+    on every problem within FUSED_F64_GATE with the same success, f32 by the
+    median; then the f32 kernel (median of 20) and its plain version
+    (median of 3) timed by CUDA events.
+    Returns (max|dZ| at f64, kernel ms, plain ms, f32 inputs, the f32
+    solver's machinery)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import sqp_fused
+
+    params, xinit, warm = args
+    P = params.shape[0]
+    solves = {dt: sqp_fused.make_fused_fleet_solver(ocp, config, dtype=dt,
+                                                    device=dev)
+              for dt in (torch.float64, torch.float32)}
+
+    def on_card(dtype):
+        return (torch.as_tensor(params, dtype=dtype, device=dev),
+                torch.as_tensor(xinit, dtype=dtype, device=dev).expand(P, -1),
+                torch.as_tensor(warm, dtype=dtype, device=dev))
+
+    a64 = on_card(torch.float64)
+    r_k, r_p = solves[torch.float64](*a64), solves[torch.float64].reference(
+        *a64)
+    sync()
+    diff = (r_k.z - r_p.z).abs()
+    rel = diff.amax(dim=(1, 2)) / (1.0 + r_p.z.abs().amax(dim=(1, 2)))
+    err = diff.max().item()
+    log(f"f64 B2 at {name} (P={P}, T={params.shape[1] + 1}): success "
+        f"{r_k.success.tolist()} (plain {r_p.success.tolist()}), max|dZ| "
+        f"{err:.3e}, max rel {rel.max().item():.3e}")
+    check(bool((r_k.success == r_p.success).all())
+          and rel.max().item() <= FUSED_F64_GATE,
+          f"f64 B2 = plain at {name}: same success, per problem "
+          f"max|dZ| / (1 + max|Z|) <= {FUSED_F64_GATE:g}")
+    a32 = on_card(torch.float32)
+    r32_k = solves[torch.float32](*a32)
+    r32_p = solves[torch.float32].reference(*a32)
+    sync()
+    rel32 = ((r32_k.z - r32_p.z).abs().amax(dim=(1, 2))
+             / (1.0 + r32_p.z.abs().amax(dim=(1, 2))))
+    log(f"f32 B2 at {name}: per problem rel {rel32.tolist()}")
+    check(rel32.median().item() <= 1e-4,
+          f"f32 B2 = plain at {name}: median rel <= 1e-4")
+    k_ms, k_all = cuda_time_ms(lambda: solves[torch.float32](*a32), reps=20)
+    p_ms, _ = cuda_time_ms(lambda: solves[torch.float32].reference(*a32),
+                           reps=3, warmup=0)
+    log(f"[{card}] B2 at {name} (P={P}, T={params.shape[1] + 1}, f32, CUDA "
+        f"events): {k_ms:.3f} ms (median of 20; {spread(k_all)}), plain "
+        f"fused_fleet_reference {p_ms:.3f} ms (median of 3)")
+    return err, k_ms, p_ms, a32, solves[torch.float32].machinery
+
+
+def check_ip_count(mach, ocp, consts, name):
+    """The hand count of one IP iteration at this OCP's rows and mask is
+    the roofline constant the kernel entry's bound uses."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import roofline
+
+    ip_it = roofline.ip_iter_flops(mach.row_meta, mach.stage_mask, ocp.nx,
+                                   mach.nu)
+    want = getattr(roofline, f"{consts}_IP_ITER_FLOPS")
+    check(ip_it == want, f"IP iteration count at {name}'s rows and mask "
+          f"{ip_it} = {consts}_IP_ITER_FLOPS {want}")
+
+
+def multirobot_phase(dev, card, reset_counts, counts, none):
+    """(i) The fork's multi-robot coordination path on the card: three
+    ``RobotAgent``s with ``systems.make_system_planner("jackalsimulator",
+    "goal_tmpc")`` planners at the jackalsimulator defaults (N=30, dt 0.2, 4
+    obstacles, 4 guided + 1 unguided planners, f32, the robots' 5 x 10 SQP
+    under Gershgorin) on the JAX test's intersection with a crossing
+    pedestrian, under one simulated clock: ``MultiRobotDriver.run`` for
+    MR_CYCLES cycles, then, after an environment reset, a short
+    ``run_desynchronized``; each run with the launch counts set to 0 just
+    before it. Checks one B2 launch per planning tick and no other kernel,
+    the fused backend, the C++ PRM and H-signature; the lockstep run also to
+    no robot pair closer than 0.65 m, no contact with the pedestrian, the
+    JAX test's progress and a communication rate in (0, 0.95) per robot
+    (the desynchronized run's clearance is reported); prints the trigger
+    reasons, the bandwidth saved, ms per robot tick and B2 ms per tick;
+    holds B2 at the tick's shape against its plain version. Returns the
+    kernel entry's numbers."""
+    from collections import Counter
+
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        prewarm_planner)
+    from oscar_mpc_planner_mr_modification_tpu_torch.multirobot import (
+        MessageBus, MultiRobotDriver, RobotAgent)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import roofline
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        SQPConfig, _phases_of)
+    from oscar_mpc_planner_mr_modification_tpu_torch.sim import (
+        Pedestrian, PedestrianSimulator)
+    from oscar_mpc_planner_mr_modification_tpu_torch.systems import (
+        make_system_planner)
+
+    t_build = time.perf_counter()
+    clock, bus, cfg = SimClock(), MessageBus(), SQPConfig(**MR_CFG)
+    agents = []
+    for i, (ns, start, goal) in enumerate(MR_ROBOTS):
+        planner, model, settings = make_system_planner(
+            "jackalsimulator", "goal_tmpc", dtype=torch.float32,
+            sqp_config=cfg, clock=clock, device=dev)
+        prewarm_planner(planner, model, settings, start_pose=start,
+                        goal=goal)
+        agents.append(RobotAgent(ns, i, planner, model, settings,
+                                 goal=np.asarray(goal, float), bus=bus,
+                                 clock=clock, start_pose=start))
+    opts = [next(m for m in a.planner.modules
+                 if hasattr(m, "_optimizer"))._optimizer for a in agents]
+    settings = agents[0].settings
+    N, P = agents[0].planner.solver.N, opts[0].n_planners
+    ocp = agents[0].planner.solver.ocp
+    log(f"multi-robot: {len(agents)} goal_tmpc robots built and prewarmed in "
+        f"{time.perf_counter() - t_build:.2f} s (N={N}, P={P}, max_obstacles "
+        f"{settings['max_obstacles']}, npar {ocp.npar})")
+    check((N, P, settings["max_obstacles"], ocp.npar) == (30, 5, 4, 50),
+          "jackalsimulator goal_tmpc: N=30, 4 guided + 1 unguided planners, "
+          "4 obstacles, npar 50")
+    for a, opt in zip(agents, opts):
+        check(opt.fleet_backend == "fused"
+              and opt.global_guidance.signature_backend == "cpp",
+              f"{a.ns}: fleet backend {opt.fleet_backend!r} == 'fused', "
+              f"H-signature {opt.global_guidance.signature_backend!r} == "
+              f"'cpp'")
+    driver = MultiRobotDriver(agents, clock=clock)
+    r_robot = float(settings["robot_radius"])
+    psim = PedestrianSimulator([Pedestrian(np.array(MR_PEDESTRIAN[0]),
+                                           np.array(MR_PEDESTRIAN[1]))],
+                               dt=float(settings["integrator_step"]))
+    ped_clear = [np.inf]
+
+    def clearance():
+        ped = psim.pedestrians[0]
+        return min(np.linalg.norm(a.state.get_position() - ped.position)
+                   - ped.radius - r_robot for a in agents)
+
+    def provider(cycle, every=1):
+        # the pedestrian steps once per planning period: every cycle of
+        # the lockstep run, every ``every`` simulation substeps of the
+        # desynchronized one
+        ped_clear[0] = min(ped_clear[0], clearance())
+        if cycle % every == 0:
+            psim.step([a.state.get_position() for a in agents])
+        return psim.get_obstacles(N)
+
+    rec = {"tick_ms": [], "solves": 0, "captured": None}
+    for a in agents:
+        tick, solve = a.tick, a.planner.solve_mpc
+
+        def timed(external_obstacles=None, _tick=tick):
+            n0 = rec["solves"]
+            t0 = time.perf_counter()
+            m = _tick(external_obstacles=external_obstacles)
+            if rec["solves"] > n0:
+                rec["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+            return m
+
+        def counted(*args, _solve=solve, **kw):
+            rec["solves"] += 1
+            return _solve(*args, **kw)
+
+        a.tick, a.planner.solve_mpc = timed, counted
+    dispatch = opts[0]._dispatch_batch
+
+    def spy(params, xinit, warm):
+        if rec["captured"] is None and rec["solves"] >= 20:
+            rec["captured"] = (params.copy(), np.array(xinit), warm.copy())
+        return dispatch(params, xinit, warm)
+
+    opts[0]._dispatch_batch = spy
+    for opt in opts:
+        opt.global_guidance.ran_backend = None
+    reset_counts()
+    t0 = time.perf_counter()
+    mlog = driver.run(MR_CYCLES, obstacle_provider=provider)
+    sync()
+    wall = time.perf_counter() - t0
+    got = counts()
+    ped_clear[0] = min(ped_clear[0], clearance())
+    opts[0].__dict__.pop("_dispatch_batch", None)
+    check(got == {**none, "sqp_fused": rec["solves"]} and rec["solves"] > 0,
+          f"multi-robot run: launches {got} (want one B2 launch per planning "
+          f"tick, {rec['solves']}, and no other kernel)")
+    for a, opt in zip(agents, opts):
+        check(opt.global_guidance.ran_backend == "cpp",
+              f"{a.ns}: guidance PRM backend "
+              f"{opt.global_guidance.ran_backend!r} == 'cpp'")
+    tracks = {a.ns: np.array([[m.position_x, m.position_y]
+                              for m in mlog.records[a.ns]]) for a in agents}
+    names = list(tracks)
+    d_min = min(np.linalg.norm(tracks[p][:n] - tracks[q][:n], axis=1).min()
+                for i, p in enumerate(names) for q in names[i + 1:]
+                for n in [min(len(tracks[p]), len(tracks[q]))])
+    check(d_min > 0.65, f"multi-robot run: smallest distance between two "
+          f"robots {d_min:.4f} m > 0.65 m")
+    check(ped_clear[0] > 0.0, f"multi-robot run: smallest clearance to the "
+          f"pedestrian {ped_clear[0]:.4f} m > 0 (centre distance minus both "
+          f"radii)")
+    pos = [a.state.get_position() for a in agents]
+    check(pos[0][0] > 6.5 and pos[1][0] < 5.5 and pos[2][1] > 0.0,
+          f"multi-robot run: progress r1 x {pos[0][0]:.3f} > 6.5, r2 x "
+          f"{pos[1][0]:.3f} < 5.5, r3 y {pos[2][1]:.3f} > 0")
+    saved = {}
+    for a in agents:
+        rate = mlog.communication_rate(a.ns)
+        saved[a.ns] = 1.0 - rate
+        reasons = Counter(m.communication_trigger for m in mlog.records[a.ns]
+                          if m.communicated)
+        log(f"[{card}] multi-robot {a.ns}: {a.comm.n_sent} trajectories sent "
+            f"over {a.comm.n_cycles} planning cycles, communication rate "
+            f"{rate:.4f} (bandwidth saved {1.0 - rate:.4f}), triggers "
+            f"{dict(reasons)}, final FSM {a.fsm.name}, success "
+            f"{mlog.success_rate(a.ns):.4f}")
+        check(0.0 < rate < 0.95, f"{a.ns}: communication rate {rate:.4f} in "
+              f"(0, 0.95)")
+    t_ms = np.asarray(rec["tick_ms"])
+    launches = got["sqp_fused"]
+    err, k_ms, p_ms, a32, mach = b2_against_plain(
+        dev, card, ocp, cfg, rec["captured"], "the multi-robot tick's shape")
+    check_ip_count(mach, ocp, "MRTICK", "the multi-robot tick")
+    log(f"[{card}] multi-robot run ({MR_CYCLES} cycles, {rec['solves']} "
+        f"planning ticks, {wall:.2f} s): ms per robot tick median "
+        f"{np.median(t_ms):.3f}, p99 {np.percentile(t_ms, 99):.3f}; B2 per "
+        f"tick {k_ms:.3f} ms (CUDA events), host share of the median tick "
+        f"{1.0 - k_ms / np.median(t_ms):.4f}")
+
+    # a short desynchronized run after an environment reset
+    driver.reset_environment()
+    psim = PedestrianSimulator([Pedestrian(np.array(MR_PEDESTRIAN[0]),
+                                           np.array(MR_PEDESTRIAN[1]))],
+                               dt=float(settings["integrator_step"]))
+    ped_clear[0] = np.inf
+    rec["solves"], rec["tick_ms"] = 0, []
+    reset_counts()
+    substeps = 4
+    dlog = driver.run_desynchronized(
+        MR_DESYNC_CYCLES, sim_substeps=substeps, seed=0,
+        obstacle_provider=lambda c: provider(c, every=substeps))
+    sync()
+    got = counts()
+    check(got == {**none, "sqp_fused": rec["solves"]} and rec["solves"] > 0,
+          f"desynchronized run: launches {got} (want one B2 launch per "
+          f"planning tick, {rec['solves']}, and no other kernel)")
+    check(all(np.isfinite(a.state.as_array()).all() for a in agents),
+          "desynchronized run: finite states")
+    log(f"[{card}] desynchronized run ({MR_DESYNC_CYCLES} periods, not "
+        f"gated): smallest clearance to the pedestrian {ped_clear[0]:.4f} m")
+    log(f"[{card}] desynchronized run ({MR_DESYNC_CYCLES} periods): "
+        f"{rec['solves']} planning ticks, ms per robot tick median "
+        f"{np.median(rec['tick_ms']):.3f}; states "
+        f"{[a.fsm.name for a in agents]}; communication rates "
+        f"{[round(dlog.communication_rate(a.ns), 4) for a in agents]}")
+    return dict(launches=launches, err=err, ms=k_ms, plain_ms=p_ms,
+                flops=roofline.sqp_flops(
+                    P, _phases_of(cfg), lin=roofline.MRTICK_LIN_FLOPS,
+                    merit=roofline.MRTICK_MERIT_FLOPS,
+                    ip_iter=roofline.MRTICK_IP_ITER_FLOPS),
+                n_bytes=roofline.tensor_bytes(*a32, a32[2]) + 8 * P)
+
+
+def dynvref_phase(dev, card, reset_counts, counts, none):
+    """(j) The dynamic velocity reference through B2: the in-kernel
+    linearization of the dyn-vref T-MPC OCP against torch.func at f64 (64
+    problems; rtol LIN_F64_RTOL, atol LIN_F64_ATOL), the dyn-vref fleet
+    (tools/bench_matrix.py::build_dynvref, 512 problems) through B2 against
+    its plain version, and DYNVREF_TICKS serial planner ticks of
+    configuration_tmpc_consistency_cost with the flag on, on a path whose
+    velocities fall from 2.0 to 0.5 m/s, with the launch counts set to 0
+    before them: one B2 launch per tick, every tick solved, and |v -
+    v_ref(s)| smaller over the last 20 ticks than over the first 20.
+    Returns the fleet's kernel entry numbers."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        build_planner, configuration_tmpc_consistency_cost, prewarm_planner)
+    from oscar_mpc_planner_mr_modification_tpu_torch.multirobot.driver import (  # noqa: E501
+        integrate_on_host)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import sqp_fused
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        QPData, make_fleet_sqp_solver)
+    from oscar_mpc_planner_mr_modification_tpu_torch.planner.data_preparation import (  # noqa: E501
+        define_robot_area, ensure_obstacle_size)
+    from oscar_mpc_planner_mr_modification_tpu_torch.sim.roadmap import (
+        straight_path)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import State
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+    from oscar_mpc_planner_mr_modification_tpu_torch.types import RealTimeData
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    # the in-kernel linearization at f64
+    ocp, *arrays = bench_matrix.build_dynvref(N_MAIN, 8)
+    fs = make_fleet_sqp_solver(ocp, bench_config(), dtype=torch.float64,
+                               device=dev, backend="fused")
+    Pa, xa, za = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+                  for a in arrays)
+    za = za + 0.05 * torch.randn(za.shape, generator=torch.Generator(
+        "cpu").manual_seed(0), dtype=torch.float64).to(dev)
+    lin_args = (torch.cat([Pa, Pa[:, -1:]], dim=1).contiguous(), xa, za)
+    got = sqp_fused.linearize(fs.tables, *lin_args)
+    want = sqp_fused.linearize_reference(fs.machinery, fs.tables, *lin_args)
+    sync()
+    worst, lin_err = [], 0.0
+    for name, a, b in zip(QPData._fields + ("merit", "cost", "eq_res"),
+                          tuple(got[0]) + tuple(got[1:]),
+                          tuple(want[0]) + tuple(want[1:])):
+        lin_err = max(lin_err, (a - b).abs().max().item())
+        if not torch.allclose(a, b, rtol=LIN_F64_RTOL, atol=LIN_F64_ATOL):
+            worst.append(name)
+    log(f"f64 dyn-vref linearize ({Pa.shape[0]} problems): max|d| "
+        f"{lin_err:.3e} over every field")
+    check(not worst, f"f64 in-kernel linearization of the dyn-vref OCP = "
+          f"build_qp on every field within rtol {LIN_F64_RTOL:g}, atol "
+          f"{LIN_F64_ATOL:g} (failed: {worst})")
+
+    ocp512, *arrays512 = bench_matrix.build_dynvref(N_MAIN, 64)
+    entry = fleet_flavour_phase(dev, card, reset_counts, counts, none,
+                                "dyn-vref T-MPC", ocp512, arrays512, "VREF",
+                                b1=False)["b2"]
+
+    # the planner on a path whose reference velocity falls
+    settings = default_settings(
+        N=N_MAIN, max_obstacles=3,
+        contouring={"dynamic_velocity_reference": True})
+    model, modules = configuration_tmpc_consistency_cost(settings)
+    clock = SimClock()
+    planner = build_planner(model, modules, settings, dtype=torch.float32,
+                            sqp_config=bench_config(), clock=clock,
+                            device=dev)
+    prewarm_planner(planner, model, settings)
+    path = straight_path(length=40.0)
+    path.v = list(np.linspace(2.0, 0.5, len(path.x)))
+    state = State(model)
+    state.set("v", 1.0)
+    dt = float(settings["integrator_step"])
+
+    def data_now():
+        d = RealTimeData()
+        d.robot_area = define_robot_area(0.65, 0.65, 1)
+        d.reference_path = path
+        d.dynamic_obstacles = ensure_obstacle_size(
+            [], state, settings["max_obstacles"], N_MAIN, dt)
+        return d
+
+    planner.on_data_received(data_now(), "reference_path")
+    errs, ok, iv = [], 0, model.state_index("v")
+    reset_counts()
+    for _ in range(DYNVREF_TICKS):
+        out = planner.solve_mpc(state, data_now())
+        ok += bool(out.success)
+        a = planner.get_solution(0, "a") if out.success else -3.0
+        w = planner.get_solution(0, "w") if out.success else 0.0
+        x = integrate_on_host(model, state.as_array(), [a, w], dt)
+        x[iv] = max(x[iv], 0.0)
+        state.set_array(x)
+        clock.t += dt
+        v_ref = np.interp(state.get("x"), path.s, path.v)
+        errs.append(abs(state.get("v") - v_ref))
+    sync()
+    got = counts()
+    check(got == {**none, "sqp_fused": DYNVREF_TICKS},
+          f"dyn-vref ticks: launches {got} (want one B2 launch per tick, "
+          f"{DYNVREF_TICKS}, and no other kernel)")
+    first, last = float(np.mean(errs[:20])), float(np.mean(errs[-20:]))
+    log(f"[{card}] dyn-vref ticks: {ok}/{DYNVREF_TICKS} solved, x "
+        f"{state.get('x'):.3f} m, v {state.get('v'):.3f} m/s; mean |v - "
+        f"v_ref(s)| first 20 ticks {first:.4f}, last 20 {last:.4f}")
+    check(ok == DYNVREF_TICKS, f"dyn-vref ticks: every tick solved ({ok})")
+    check(last < first, f"dyn-vref ticks: mean |v - v_ref(s)| over the last "
+          f"20 ticks {last:.4f} < over the first 20 {first:.4f}")
+    return entry
+
+
+def sweep_phase(dev, card, reset_counts, counts, none):
+    """(k) The eight configurations of the JAX package's configuration sweep
+    that run on the card, each as a ``build_planner(..., device=dev)``
+    planner for SWEEP_TICKS ticks at N=8 (f64, 6 x 10 under Gershgorin) on
+    its benign scene, with the launch counts set to 0 before each: the
+    T-MPC and SH-MPC ones one B2 launch per tick, the others (no guidance or
+    scenario module) the single-instance solve, no kernel; at least 2 of 3 ticks solved and x >
+    0.1. Then the LMPCC fleet (tools/bench_matrix.py::build_lmpcc, 512
+    problems) through B2 against its plain version, and one
+    ``LocalPlannerInterface.compute_velocity_commands`` cycle (basic, N=8)
+    on the card. Returns the LMPCC fleet's kernel entry numbers."""
+    from oscar_mpc_planner_mr_modification_tpu_torch import factory
+    from oscar_mpc_planner_mr_modification_tpu_torch.multirobot.driver import (  # noqa: E501
+        integrate_on_host)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import SQPConfig
+    from oscar_mpc_planner_mr_modification_tpu_torch.planner.data_preparation import (  # noqa: E501
+        define_robot_area, ensure_obstacle_size)
+    from oscar_mpc_planner_mr_modification_tpu_torch.sim import (
+        Pedestrian, PedestrianSimulator)
+    from oscar_mpc_planner_mr_modification_tpu_torch.sim.roadmap import (
+        straight_path)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import State
+    from oscar_mpc_planner_mr_modification_tpu_torch.systems import (
+        LocalPlannerInterface)
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+    from oscar_mpc_planner_mr_modification_tpu_torch.types import RealTimeData
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    cfg = SQPConfig(n_sqp=6, n_qp_iter=10, mu_min=1e-9,
+                    regularization="gershgorin")
+    N = SWEEP_N
+    for name, conf, overrides, b2 in SWEEP:
+        settings = default_settings(N=N, max_obstacles=2, **overrides)
+        model, modules = getattr(factory, conf)(settings)
+        planner = factory.build_planner(model, modules, settings,
+                                        dtype=torch.float64, sqp_config=cfg,
+                                        device=dev)
+        state = State(model)
+        state.set("v", 0.6)
+        psim = PedestrianSimulator([Pedestrian(np.array([6.0, 2.0]),
+                                               np.array([6.0, -2.0]))],
+                                   dt=0.2)
+        prob = bool(settings["probabilistic"]["enable"])
+        n_ok = 0
+        reset_counts()
+        t0 = time.perf_counter()
+        for tick in range(SWEEP_TICKS):
+            data = RealTimeData()
+            data.robot_area = define_robot_area(0.65, 0.65, 1)
+            data.reference_path = straight_path(length=20.0)
+            data.goal = np.array([6.0, 0.0])
+            data.goal_received = True
+            data.dynamic_obstacles = ensure_obstacle_size(
+                psim.get_obstacles(N, probabilistic=prob), state,
+                settings["max_obstacles"], N, 0.2, probabilistic=prob)
+            if tick == 0:
+                for what in ("reference_path", "goal", "dynamic obstacles"):
+                    planner.on_data_received(data, what)
+            out = planner.solve_mpc(state, data)
+            check(bool(np.isfinite(
+                planner.solver.get_output_trajectory()).all()),
+                f"sweep {name}: finite output trajectory")
+            if out.success:
+                n_ok += 1
+                x = integrate_on_host(
+                    model, state.as_array(),
+                    [planner.get_solution(0, "a"),
+                     planner.get_solution(0, "w")], 0.2)
+                x[model.state_index("v")] = max(x[model.state_index("v")],
+                                                0.0)
+                state.set_array(x)
+            psim.step([state.get_position()])
+        sync()
+        got = counts()
+        path = "B2" if b2 else "the single-instance solve"
+        want = {**none, "sqp_fused": SWEEP_TICKS} if b2 else none
+        log(f"[{card}] sweep {name}: {n_ok}/{SWEEP_TICKS} ticks solved "
+            f"through {path} in {time.perf_counter() - t0:.2f} s, x "
+            f"{state.get('x'):.3f}, launches {got}")
+        check(got == want, f"sweep {name}: launches {got} == {want} ({path})")
+        check(n_ok >= 2 and state.get("x") > 0.1, f"sweep {name}: {n_ok} of "
+              f"{SWEEP_TICKS} ticks solved (>= 2), x {state.get('x'):.3f} > "
+              f"0.1")
+
+    ocp, *arrays = bench_matrix.build_lmpcc(N_MAIN, MATRIX_B,
+                                            np.random.default_rng(0))
+    entry = fleet_flavour_phase(dev, card, reset_counts, counts, none,
+                                "LMPCC", ocp, arrays, "LMPCC",
+                                b1=False)["b2"]
+
+    lp = LocalPlannerInterface(configuration="basic", N=SWEEP_N,
+                               max_obstacles=2, device=dev)
+    lp.set_plan(np.stack([np.linspace(0, 15, 20), np.zeros(20)], axis=1))
+    reset_counts()
+    t0 = time.perf_counter()
+    v, w, ok = lp.compute_velocity_commands((0.0, 0.2, 0.0), 0.5)
+    sync()
+    got = counts()
+    log(f"[{card}] LocalPlannerInterface (basic, N={SWEEP_N}): v {v:.4f}, "
+        f"w {w:.4f}, success {ok} in {time.perf_counter() - t0:.2f} s")
+    check(ok and v > 0.3 and abs(w) < 1.0 and got == none
+          and not lp.is_goal_reached(),
+          f"LocalPlannerInterface cycle on the card: success, v > 0.3, |w| < "
+          f"1, no kernel launch (the single-instance solve), goal not "
+          f"reached ({got})")
+    return entry
+
+
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -2371,6 +2872,12 @@ def main():
                              cases["shmpc"][0], cases["shmpc"][1:], "SHMPC")
     sh_tick = shmpc_tick_phase(dev, card, reset_counts, counts, none)
 
+    # ---- 28-30. the multi-robot driver, the dynamic velocity reference,
+    # the configuration sweep ---------------------------------------------
+    mr_tick = multirobot_phase(dev, card, reset_counts, counts, none)
+    vref = dynvref_phase(dev, card, reset_counts, counts, none)
+    lmpcc = sweep_phase(dev, card, reset_counts, counts, none)
+
     # ---- the kernels, each with its bound ---------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, flops,
               n_bytes, **_):
@@ -2449,6 +2956,12 @@ def main():
               f"{jax_ops}/sqp_fused.py:45", **sh_tick["b2"]),
         entry("qp_ip_6_2_tick", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
               **sh_tick["b1"]),
+        entry("sqp_fused_multirobot_tick", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **mr_tick),
+        entry("sqp_fused_dynvref", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **vref),
+        entry("sqp_fused_lmpcc", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **lmpcc),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,10 @@ unguided planner per plan instance. ``build_tmpc_fleet`` produces the stacked
 per-instance obstacle layouts, straight-line reference spline parameters,
 homotopy-distinct guidance warmstarts (lateral-offset bundles around the
 obstacles) and the matching single-disc topology halfspaces. For the same seed
-it gives the same arrays as the JAX package's builder.
+it gives the same arrays as the JAX package's builder. With
+``dynamic_velocity_reference`` the OCP tracks the PathReferenceVelocity
+module's spline instead of a constant reference velocity, and the fleet's
+velocity reference falls linearly along the path (:data:`VREF_RAMP`).
 """
 
 from __future__ import annotations
@@ -22,11 +25,18 @@ from .solver.ocp import build_ocp
 from .utils.config import default_settings
 
 
-def tmpc_bench_ocp(N: int = 20, n_paths: int = 8, max_obstacles: int = 4):
+#: The dynamic velocity reference of the fleet, v_ref(s) = v0 + slope s:
+#: 2.0 m/s at the start of the path, 0.5 m/s after its 25 m.
+VREF_RAMP = (2.0, -0.06)
+
+
+def tmpc_bench_ocp(N: int = 20, n_paths: int = 8, max_obstacles: int = 4,
+                   dynamic_velocity_reference: bool = False):
     settings = default_settings(
         N=N, max_obstacles=max_obstacles,
         guidance={"n_paths": n_paths},
         JULES={"n_paths": n_paths},
+        contouring={"dynamic_velocity_reference": dynamic_velocity_reference},
     )
     model, modules = configuration_tmpc_consistency_cost(settings)
     ocp = build_ocp(model, modules, settings)
@@ -62,6 +72,9 @@ def build_tmpc_fleet(ocp, settings, batch: int, seed: int = 0,
     for i in range(settings["contouring"]["num_segments"]):
         base[idx[f"spline_x{i}_c"]] = 1.0
         base[idx[f"spline{i}_start"]] = 5.0 * i
+        if f"spline_v{i}_d" in idx:  # local cubic of the ramp on segment i
+            base[idx[f"spline_v{i}_c"]] = VREF_RAMP[1]
+            base[idx[f"spline_v{i}_d"]] = VREF_RAMP[0] + VREF_RAMP[1] * 5.0 * i
     base[idx["ego_disc_radius"]] = robot_radius
     base[idx["ego_disc_0_offset"]] = 0.0
     # Inactive topology halfspaces (overridden per guided planner below); a zero

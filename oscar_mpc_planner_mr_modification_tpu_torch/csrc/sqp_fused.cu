@@ -178,6 +178,9 @@ int tmpc_qp_layout(int model, int T, int m, int mh, int* out) {
   });
 }
 
+// tmpc::table_layout: the int table's contract (4 ints).
+void tmpc_table_layout(int* out) { tmpc::table_layout(out); }
+
 // The launch plans (warp.cuh plan_out, 6 ints each) of the solve and the
 // linearize entry (f64: 0/1) of model id `model` at these sizes; err -3 for
 // a model with no instantiation.

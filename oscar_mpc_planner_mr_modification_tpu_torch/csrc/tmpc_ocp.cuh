@@ -8,9 +8,12 @@
 //   SecondOrderUnicycleModel and ContouringSecondOrderUnicycleModelWithSlack,
 //   RK4 x 3 sub-steps;
 // - ops/spline.py: sigmoid-blended cubic segments and the normalized tangent;
-// - modules/contouring.py: contour and lag error, and at the terminal stage
-//   the path-angle error through utils/math.py::haar_difference_without_abs
-//   (fmod passes a derivative of 1);
+// - modules/contouring.py: contour and lag error, with
+//   dynamic_velocity_reference w_v (v - v_ref(s))^2 on the velocity spline of
+//   modules/path_reference_velocity.py (FL_VSPLINE), and at the terminal
+//   stage the path-angle error through
+//   utils/math.py::haar_difference_without_abs (fmod passes a derivative of
+//   1);
 // - modules/mpc_base.py: w_a a^2, w_w w^2 and (where weighed) w_s slack^2 and
 //   w_v (v - v_ref)^2, in that order;
 // - modules/consistency_module.py;
@@ -92,15 +95,20 @@ enum {
   TB_MODEL,                                    // MODEL_* below
   TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y,             // goal
   TB_SLACK,                                    // MPCBase slack weight, or -1
-  TB_OFF_SPLINE,  // -> n_seg x 9: x_a x_b x_c x_d y_a y_b y_c y_d start
+  TB_VREF_W,      // contouring's velocity weight (FL_VSPLINE)
+  TB_OFF_SPLINE,  // -> n_seg x SP_W: x_a..x_d y_a..y_d start v_a..v_d
   TB_OFF_H,       // -> nh x 9: one constraint h_i each (HK_* below)
   TB_OFF_ROWS,    // -> m x 2: QP row kind (ROW_*), h or z index
   TB_HEADER
 };
 enum {
   FL_BASE = 1, FL_CONTOUR = 2, FL_CONSIST = 4, FL_BODY_TERMINAL = 8,
-  FL_GOAL = 16
+  FL_GOAL = 16, FL_VSPLINE = 32
 };
+// Entries per spline segment row: the path's x and y coefficients, the
+// segment start, then the velocity reference's coefficients (read under
+// FL_VSPLINE only).
+enum { SP_W = 13 };
 enum {
   MODEL_CONTOURING_UNICYCLE = 0, MODEL_UNICYCLE = 1,
   MODEL_CONTOURING_UNICYCLE_SLACK = 2
@@ -119,6 +127,15 @@ struct Ocp {
   const int* it;
   const double* rt;
 };
+
+// The table contract as 4 ints, which ops/sqp_fused.py checks against its
+// own copy when it loads a library: TB_HEADER, SP_W, H_W, FL_VSPLINE.
+inline void table_layout(int* out) {
+  out[0] = TB_HEADER;
+  out[1] = SP_W;
+  out[2] = H_W;
+  out[3] = FL_VSPLINE;
+}
 
 // ---- scalar math (float and double) -----------------------------------------
 TMPC_HD float m_sin(float x) { return sinf(x); }
@@ -440,35 +457,43 @@ TMPC_HD Par<R> stage_params(const Col<const R>& P, int t, int T) {
 }
 
 // ---- spline path (ops/spline.py, contouring.py) ---------------------------
-// Segment i at s: value and first derivative of x(s) and y(s).
+// Segment i at s: value and first derivative of x(s) and y(s), and (when
+// `vref`) the value of the velocity reference v(s), local in the same
+// s - start as the path (modules/contouring.py evaluates
+// Spline(params, "spline_v", ...) on the path's segment starts).
 template <typename R>
 TMPC_HD void spline_segment(const int* q, const Par<R>& p,
-                            const Jet<R, 1, 1>& s, Jet<R, 1, 1>* v) {
+                            const Jet<R, 1, 1>& s, bool vref,
+                            Jet<R, 1, 1>* v) {
   const Jet<R, 1, 1> ds = s - p[q[8]];
   v[0] = ((p[q[0]] * ds + p[q[1]]) * ds + p[q[2]]) * ds + p[q[3]];
   v[1] = ((p[q[4]] * ds + p[q[5]]) * ds + p[q[6]]) * ds + p[q[7]];
   v[2] = (R(3) * p[q[0]] * ds + R(2) * p[q[1]]) * ds + p[q[2]];
   v[3] = (R(3) * p[q[4]] * ds + R(2) * p[q[5]]) * ds + p[q[6]];
+  if (vref) v[4] = ((p[q[9]] * ds + p[q[10]]) * ds + p[q[11]]) * ds + p[q[12]];
 }
 
-// The path point, normalized tangent and (when `angle`) tangent angle at s,
-// as jets in s: out = (x, y, dx_n, dy_n, angle).
+// The path point, normalized tangent, (when `angle`) tangent angle and
+// (when `vref`) velocity reference at s, as jets in s:
+// out = (x, y, dx_n, dy_n, angle, v_ref).
 template <typename R>
 TMPC_FN void path_at(const Ocp& o, const Par<R>& p, R s_val, bool angle,
-                     Jet<R, 1, 1>* out) {
+                     bool vref, Jet<R, 1, 1>* out) {
   using J1 = Jet<R, 1, 1>;
   const J1 s = jet_seed<R, 1, 1>(s_val, 0);
   const int M = o.it[TB_NSEG];
   const int* sp = o.it + o.it[TB_OFF_SPLINE];
   // Blend back to front: out = lam_k v_{k-1} + (1 - lam_k) out, with
   // lam_k = sigmoid(-(s - start_k + 0.02) / 0.1).
-  J1 acc[4], v[4];
-  spline_segment(sp + 9 * (M - 1), p, s, acc);
+  J1 acc[5], v[5];
+  spline_segment(sp + SP_W * (M - 1), p, s, vref, acc);
   for (int k = M - 1; k >= 1; --k) {
-    spline_segment(sp + 9 * (k - 1), p, s, v);
-    const J1 lam = tsigmoid(-((s - p[sp[9 * k + 8]]) + R(0.02)) / R(0.1));
+    spline_segment(sp + SP_W * (k - 1), p, s, vref, v);
+    const J1 lam =
+        tsigmoid(-((s - p[sp[SP_W * k + 8]]) + R(0.02)) / R(0.1));
     const J1 rest = R(1) - lam;
     TMPC_UNROLL for (int q = 0; q < 4; ++q) acc[q] = lam * v[q] + rest * acc[q];
+    if (vref) acc[4] = lam * v[4] + rest * acc[4];
   }
   const J1 norm = tsqrt(acc[2] * acc[2] + acc[3] * acc[3]);
   out[0] = acc[0];
@@ -476,6 +501,7 @@ TMPC_FN void path_at(const Ocp& o, const Par<R>& p, R s_val, bool angle,
   out[2] = acc[2] / norm;
   out[3] = acc[3] / norm;
   if (angle) out[4] = tatan2(out[3], out[2]);
+  if (vref) out[5] = acc[4];
 }
 
 // ---- objective (modules' get_value, summed as ModuleManager.objective) ----
@@ -499,8 +525,9 @@ TMPC_FN S stage_cost(const Ocp& o, const Par<R>& p, const S* z, bool terminal) {
     }
   }
   if constexpr (M::S >= 0) if (flags & FL_CONTOUR) {
-    Jet<R, 1, 1> q[5];
-    path_at(o, p, value(z[M::S]), terminal, q);
+    const bool vref = flags & FL_VSPLINE;
+    Jet<R, 1, 1> q[6];
+    path_at(o, p, value(z[M::S]), terminal, vref, q);
     const S ex = z[M::X] - lift_s(q[0], z[M::S]);
     const S ey = z[M::Y] - lift_s(q[1], z[M::S]);
     const S dxn = lift_s(q[2], z[M::S]), dyn = lift_s(q[3], z[M::S]);
@@ -510,6 +537,10 @@ TMPC_FN S stage_cost(const Ocp& o, const Par<R>& p, const S* z, bool terminal) {
     const S lag2 = lag * lag, contour2 = contour * contour;
     S c = lw * lag2;
     c = c + cw * contour2;
+    if (vref) {
+      const S dv = z[M::V] - lift_s(q[5], z[M::S]);
+      c = c + p[it[TB_VREF_W]] * (dv * dv);
+    }
     if (terminal) {
       const R tc = p[it[TB_TCONT]];
       const S err = haar(z[M::PSI] - lift_s(q[4], z[M::S]));

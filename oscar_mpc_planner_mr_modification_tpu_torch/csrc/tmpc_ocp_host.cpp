@@ -58,6 +58,9 @@ int tmpc_qp_layout(int model, int T, int m, int mh, int* out) {
   });
 }
 
+// tmpc::table_layout: the int table's contract (4 ints).
+void tmpc_table_layout(int* out) { tmpc::table_layout(out); }
+
 // Linearize every problem at Z, stage after stage: the QP fields into qp
 // (L.total, Bt) and (merit, cost, eq_res) into merit_out (3, Bt).
 int tmpc_host_linearize_f64(const double* P, const double* x0,

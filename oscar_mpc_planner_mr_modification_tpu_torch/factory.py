@@ -13,10 +13,12 @@ import numpy as np
 import torch
 
 from .models import (ContouringSecondOrderUnicycleModel,
-                     ContouringSecondOrderUnicycleModelWithSlack)
+                     ContouringSecondOrderUnicycleModelWithSlack,
+                     SecondOrderUnicycleModel)
 from .modules import (ConsistencyModule, ContouringModule,
-                      EllipsoidConstraintModule, GuidanceConstraintModule,
-                      MPCBaseModule, ModuleManager, ScenarioConstraintModule)
+                      EllipsoidConstraintModule, GoalModule,
+                      GuidanceConstraintModule, MPCBaseModule, ModuleManager,
+                      PathReferenceVelocityModule, ScenarioConstraintModule)
 from .ops.sqp import SQPConfig
 from .planner import Planner
 from .solver import Solver, build_ocp
@@ -29,16 +31,22 @@ def configuration_no_obstacles(settings):
     base_module = modules.add_module(MPCBaseModule(settings))
     base_module.weigh_variable("a", "acceleration")
     base_module.weigh_variable("w", "angular_velocity")
-    if settings["contouring"]["dynamic_velocity_reference"]:
-        raise NotImplementedError(
-            "contouring/dynamic_velocity_reference needs the "
-            "PathReferenceVelocity module, which this package does not have yet")
-    base_module.weigh_variable(
-        "v", ["velocity", "reference_velocity"],
-        cost_function=lambda x, w: w[0] * (x - w[1]) ** 2)
-
-    modules.add_module(ContouringModule(settings))
+    _add_contouring(modules, base_module, settings)
     return model, modules
+
+
+def _add_contouring(modules, base_module, settings):
+    """MPCBase weighs v toward the constant reference velocity, or, under
+    ``contouring/dynamic_velocity_reference``, the contouring cost tracks
+    the PathReferenceVelocity module's spline instead."""
+    dynamic = settings["contouring"]["dynamic_velocity_reference"]
+    if not dynamic:
+        base_module.weigh_variable(
+            "v", ["velocity", "reference_velocity"],
+            cost_function=lambda x, w: w[0] * (x - w[1]) ** 2)
+    modules.add_module(ContouringModule(settings))
+    if dynamic:
+        modules.add_module(PathReferenceVelocityModule(settings))
 
 
 def configuration_basic(settings):
@@ -74,15 +82,39 @@ def configuration_safe_horizon(settings):
     base_module.weigh_variable("a", "acceleration")
     base_module.weigh_variable("w", "angular_velocity")
     base_module.weigh_variable("slack", "slack")
-    if settings["contouring"]["dynamic_velocity_reference"]:
-        raise NotImplementedError(
-            "contouring/dynamic_velocity_reference needs the "
-            "PathReferenceVelocity module, which this package does not have yet")
-    base_module.weigh_variable(
-        "v", ["velocity", "reference_velocity"],
-        cost_function=lambda x, w: w[0] * (x - w[1]) ** 2)
-    modules.add_module(ContouringModule(settings))
+    _add_contouring(modules, base_module, settings)
     modules.add_module(ScenarioConstraintModule(settings))
+    return model, modules
+
+
+def configuration_lmpcc(settings):
+    """LMPCC: goal tracking with ellipsoid obstacle constraints on the
+    contouring unicycle, MPCBase weighing a and w; the PathReferenceVelocity
+    module declares its spline (zero cost without a contouring module)."""
+    modules = ModuleManager()
+    model = ContouringSecondOrderUnicycleModel()
+    base_module = modules.add_module(MPCBaseModule(settings))
+    base_module.weigh_variable("a", "acceleration")
+    base_module.weigh_variable("w", "angular_velocity")
+    modules.add_module(GoalModule(settings))
+    modules.add_module(PathReferenceVelocityModule(settings))
+    modules.add_module(EllipsoidConstraintModule(settings))
+    return model, modules
+
+
+def configuration_goal_tmpc(settings, constraint_submodule=None):
+    """Goal-tracking T-MPC (no reference path) on the second-order
+    unicycle: the planner of the multi-robot driver."""
+    modules = ModuleManager()
+    model = SecondOrderUnicycleModel()
+    base_module = modules.add_module(MPCBaseModule(settings))
+    base_module.weigh_variable("a", "acceleration")
+    base_module.weigh_variable("w", "angular_velocity")
+    modules.add_module(GoalModule(settings))
+    if settings["JULES"]["consistency_enabled"]:
+        modules.add_module(ConsistencyModule(settings))
+    modules.add_module(GuidanceConstraintModule(
+        settings, constraint_submodule=constraint_submodule))
     return model, modules
 
 

@@ -8,3 +8,4 @@ from .linearized_constraints import LinearizedConstraintModule  # noqa: F401
 from .guidance_constraints import GuidanceConstraintModule  # noqa: F401
 from .gaussian_constraints import GaussianConstraintModule  # noqa: F401
 from .scenario_constraints import ScenarioConstraintModule  # noqa: F401
+from .path_reference_velocity import PathReferenceVelocityModule  # noqa: F401

@@ -133,6 +133,27 @@ CCMPC6_MERIT_FLOPS = 27675
 SHMPC_IP_ITER_FLOPS = 206840
 SHMPC_LIN_FLOPS = 221205
 SHMPC_MERIT_FLOPS = 28560
+#: The three counts at the multi-robot tick's OCP
+#: (``factory.configuration_goal_tmpc`` at ``default_settings()``: N=30, 4
+#: obstacles, goal, consistency, 4 topology halfspaces and 4 ellipsoids on
+#: ``SecondOrderUnicycleModel``), which B2 runs once per robot tick under
+#: ``multirobot.driver.RobotAgent``.
+MRTICK_IP_ITER_FLOPS = 104536
+MRTICK_LIN_FLOPS = 119901
+MRTICK_MERIT_FLOPS = 7239
+#: The three counts at the T-MPC fleet OCP with the dynamic velocity
+#: reference (``tools/bench_matrix.py::build_dynvref``, N=20, npar 118):
+#: the bench OCP's rows, and a linearization that also evaluates the
+#: velocity spline.
+VREF_IP_ITER_FLOPS = 90662
+VREF_LIN_FLOPS = 170595
+VREF_MERIT_FLOPS = 32862
+#: The three counts at the LMPCC OCP (``factory.configuration_lmpcc`` at
+#: N=20, 3 obstacles: goal and ellipsoids on the contouring unicycle;
+#: ``tools/bench_matrix.py::build_lmpcc``).
+LMPCC_IP_ITER_FLOPS = 66392
+LMPCC_LIN_FLOPS = 84502
+LMPCC_MERIT_FLOPS = 5514
 
 
 def fma_flops(n: int) -> float:

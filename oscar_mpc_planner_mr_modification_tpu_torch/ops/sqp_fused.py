@@ -73,9 +73,13 @@ _IP = dict(mu0=1e2, tau=0.995, s_floor=1e-10, tol_freeze=1e-5)
 # ROW_*, RT_*, REG_*).
 (TB_FLAGS, TB_NSEG, TB_ACC, TB_ANGVEL, TB_VEL, TB_VREF, TB_CONTOUR, TB_LAG,
  TB_TANGLE, TB_TCONT, TB_CONS_W, TB_PREV_X, TB_PREV_Y, TB_DISC_R, TB_MODEL,
- TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y, TB_SLACK, TB_OFF_SPLINE, TB_OFF_H,
- TB_OFF_ROWS, TB_HEADER) = range(23)
-FL_BASE, FL_CONTOUR, FL_CONSIST, FL_BODY_TERMINAL, FL_GOAL = 1, 2, 4, 8, 16
+ TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y, TB_SLACK, TB_VREF_W, TB_OFF_SPLINE, TB_OFF_H,
+ TB_OFF_ROWS, TB_HEADER) = range(24)
+FL_BASE, FL_CONTOUR, FL_CONSIST, FL_BODY_TERMINAL, FL_GOAL, FL_VSPLINE = (
+    1, 2, 4, 8, 16, 32)
+#: Entries per spline segment row: x_a..x_d, y_a..y_d, start, then the
+#: velocity reference's v_a..v_d (0 without a dynamic velocity reference).
+SP_W = 13
 #: The models the kernels are compiled for (``tmpc::with_model``): class
 #: name -> model id.
 MODELS = {"ContouringSecondOrderUnicycleModel": 0,
@@ -205,7 +209,7 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
     ``ValueError`` for a regularization the kernel does not run and
     ``NotImplementedError`` for an OCP its header does not cover."""
     from ..modules import (ConsistencyModule, ContouringModule, GoalModule,
-                           MPCBaseModule)
+                           MPCBaseModule, PathReferenceVelocityModule)
 
     if config.regularization not in REG_KINDS:
         raise ValueError(
@@ -242,10 +246,6 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
                 raise NotImplementedError(
                     "the fused kernel covers contouring on a model with a "
                     "spline state")
-            if module.dynamic_velocity_reference:
-                raise NotImplementedError(
-                    "the fused kernel does not cover "
-                    "contouring/dynamic_velocity_reference")
             if module.num_segments < 1:
                 raise NotImplementedError("contouring needs a segment")
             flags |= FL_CONTOUR
@@ -253,9 +253,23 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
                                (TB_TANGLE, "terminal_angle"),
                                (TB_TCONT, "terminal_contouring")):
                 head[slot] = idx[name]
+            vref = module.dynamic_velocity_reference
+            if vref:
+                # w_v (v - v_ref(s))^2 on PathReferenceVelocityModule's
+                # spline, as the module's get_value adds it
+                if "spline_v0_a" not in idx:
+                    raise NotImplementedError(
+                        "contouring/dynamic_velocity_reference needs the "
+                        "PathReferenceVelocity module's parameters")
+                flags |= FL_VSPLINE
+                head[TB_VREF_W] = idx["velocity"]
             spline = [[idx[f"spline_{xy}{i}_{c}"] for xy in "xy"
                        for c in "abcd"] + [idx[f"spline{i}_start"]]
+                      + ([idx[f"spline_v{i}_{c}"] for c in "abcd"] if vref
+                         else [0] * 4)
                       for i in range(module.num_segments)]
+        elif kind is PathReferenceVelocityModule:
+            pass  # declares the velocity spline; its own cost is 0
         elif kind is ConsistencyModule:
             flags |= FL_CONSIST
             for slot, name in ((TB_CONS_W, "consistency_weight"),
@@ -281,7 +295,7 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
     rows = [[ROW_KINDS[k], int(i)] for k, i in row_spec]
     head[TB_FLAGS], head[TB_NSEG] = flags, len(spline)
     head[TB_OFF_SPLINE] = TB_HEADER
-    head[TB_OFF_H] = TB_HEADER + 9 * len(spline)
+    head[TB_OFF_H] = TB_HEADER + SP_W * len(spline)
     head[TB_OFF_ROWS] = head[TB_OFF_H] + H_W * len(h_rows)
     h_rows = [r + [0] * (H_W - len(r)) for r in h_rows]
     ints = np.asarray(
@@ -414,6 +428,8 @@ def _bind(lib, suffixes):
         fn = getattr(lib, "sqp_fused_linearize" + suffix)
         fn.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
         fn.restype = i32
+    lib.tmpc_table_layout.argtypes = [ptr]
+    lib.tmpc_table_layout.restype = None
     _check_layout(lib)
     return lib
 
@@ -446,9 +462,15 @@ def launch_info(dtype, tables: OcpTables) -> tuple:
 
 
 def _check_layout(lib):
-    """The library's QP layout of every model is the one :func:`qp_layout`
-    unpacks."""
+    """The library's table contract is :func:`ocp_tables`' and its QP
+    layout of every model is the one :func:`qp_layout` unpacks."""
     from ..models import dynamics
+
+    table = (ctypes.c_int * 4)()
+    lib.tmpc_table_layout(table)
+    if list(table) != [TB_HEADER, SP_W, H_W, FL_VSPLINE]:
+        raise RuntimeError(f"table layout mismatch: {list(table)} vs "
+                           f"{[TB_HEADER, SP_W, H_W, FL_VSPLINE]}")
 
     for name, model in MODELS.items():
         spec = getattr(dynamics, name)()

@@ -193,6 +193,56 @@ def build_tmpc(N, B):
             z_init.reshape(B * Pq, *z_init.shape[2:]))
 
 
+def build_lmpcc(N, B, rng):
+    """The LMPCC fleet (``factory.configuration_lmpcc``: goal tracking with
+    3 ellipsoidal obstacles on the contouring unicycle; its
+    PathReferenceVelocity parameters carry the constant reference velocity
+    and cost nothing). Not one of BASELINE's five."""
+    from ..factory import configuration_lmpcc
+    from ..solver import build_ocp
+    from ..utils import default_settings
+
+    settings = default_settings(N=N, max_obstacles=3)
+    ocp = build_ocp(*configuration_lmpcc(settings), settings)
+    idx = ocp.registry.save_map()
+    P = np.zeros((B, N, ocp.npar), dtype=np.float32)
+    P[..., idx["acceleration"]] = 0.34
+    P[..., idx["angular_velocity"]] = 0.85
+    P[..., idx["goal_weight"]] = 1.0
+    P[..., idx["goal_x"]] = rng.uniform(5.0, 7.0, B)[:, None]
+    P[..., idx["goal_y"]] = rng.uniform(-1.5, 1.5, B)[:, None]
+    P[..., idx["ego_disc_radius"]] = 0.325
+    for i in range(settings["contouring"]["num_segments"]):
+        P[..., idx[f"spline_v{i}_d"]] = settings["weights"][
+            "reference_velocity"]
+    for i in range(3):
+        P[..., idx[f"ellipsoid_obst_{i}_x"]] = rng.uniform(2.0, 4.5, B)[:, None]
+        P[..., idx[f"ellipsoid_obst_{i}_y"]] = rng.uniform(-1.2, 1.2, B)[:, None]
+        P[..., idx[f"ellipsoid_obst_{i}_chi"]] = 1.0
+        P[..., idx[f"ellipsoid_obst_{i}_r"]] = 0.3
+        P[:, 0, idx[f"ellipsoid_obst_{i}_x"]] = 50.0
+    x0 = np.tile(np.array([0.0, 0.0, 0.0, 0.5, 0.0], np.float32), (B, 1))
+    z0 = np.zeros((B, N + 1, ocp.nvar), dtype=np.float32)
+    z0[:, :, ocp.nu:] = x0[:, None, :]
+    return ocp, P, x0, z0
+
+
+def build_dynvref(N, plans):
+    """``bench.py``'s T-MPC fleet on the OCP with the dynamic velocity
+    reference (:data:`..benchmarks.VREF_RAMP`: 2.0 m/s falling to 0.5 m/s
+    along the path), 7 guided planners and 1 unguided per plan, flat over
+    plans x 8 planners. Not one of BASELINE's five."""
+    from ..benchmarks import build_tmpc_fleet, tmpc_bench_ocp
+
+    ocp, settings = tmpc_bench_ocp(N=N, n_paths=7,
+                                   dynamic_velocity_reference=True)
+    params, xinit, z_init, _ = build_tmpc_fleet(ocp, settings, plans)
+    Pq = params.shape[1]
+    return (ocp, params.reshape(plans * Pq, *params.shape[2:]),
+            np.repeat(xinit, Pq, axis=0),
+            z_init.reshape(plans * Pq, *z_init.shape[2:]))
+
+
 def cases(N=20, B=512, seed=0) -> dict:
     """name -> (ocp, P (problems, N, npar), x0, z0), numpy f32: the JAX
     tool's builders in its order on one generator, so that the inputs equal

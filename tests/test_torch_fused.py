@@ -225,6 +225,9 @@ def _other_model(ocp):
 
 
 def _dynamic_velocity(ocp):
+    """The contouring cost switched to the dynamic velocity reference on an
+    OCP without the PathReferenceVelocity module, so without the velocity
+    spline's parameters: still refused (JAX's get_value raises there)."""
     from oscar_mpc_planner_mr_modification_tpu_torch.modules import (
         ContouringModule)
 
@@ -269,6 +272,21 @@ def test_uncovered_raises(case, error):
     with pytest.raises(error):
         make_batched_tmpc_step(ocp, cfg, dtype=F64, device="cpu",
                                backend=backend)
+
+
+def test_dynamic_velocity_reference_builds_tables():
+    """The refusal lifted with the PathReferenceVelocity module: the dyn-vref
+    T-MPC OCP builds the fused backend, with FL_VSPLINE in its tables
+    (tests/test_torch_dynvref.py holds the header to torch.func and JAX)."""
+    to, _ = tbench.tmpc_bench_ocp(N=4, n_paths=2,
+                                  dynamic_velocity_reference=True)
+    step = make_batched_tmpc_step(
+        to, tsqp.SQPConfig(regularization="gershgorin"), dtype=F64,
+        device="cpu", backend="fused")
+    assert step.backend == "fused"
+    tables = sqp_fused.ocp_tables(
+        to, tsqp.SQPConfig(regularization="gershgorin"))
+    assert tables.ints[sqp_fused.TB_FLAGS] & sqp_fused.FL_VSPLINE
 
 
 def test_two_mode_ellipsoids_match_build_qp(host_lin):

@@ -180,12 +180,28 @@ def test_lanes_backend_raises_for_uncovered_ocp():
     with pytest.raises(ValueError, match="gershgorin"):
         tsqp.make_fleet_sqp_solver(to, tsqp.SQPConfig(regularization="mirror"),
                                    dtype=F64, device="cpu", backend="lanes")
+    # the dynamic velocity reference without the PathReferenceVelocity
+    # module's spline parameters
     for module in to.modules:
         if hasattr(module, "dynamic_velocity_reference"):
             module.dynamic_velocity_reference = True
     with pytest.raises(NotImplementedError, match="dynamic_velocity"):
         tsqp.make_fleet_sqp_solver(to, tsqp.SQPConfig(**CFG), dtype=F64,
                                    device="cpu", backend="lanes")
+    # topology halfspaces over two discs
+    to, _ = tbench.tmpc_bench_ocp(N=3, n_paths=2)
+    for module in to.modules:
+        topo = getattr(module, "topology_constraints", None)
+        if topo is not None:
+            topo.n_discs = 2
+    with pytest.raises(NotImplementedError, match="single-disc"):
+        tsqp.make_fleet_sqp_solver(to, tsqp.SQPConfig(**CFG), dtype=F64,
+                                   device="cpu", backend="lanes")
+    # with the module, the dynamic velocity reference is covered
+    to, _ = tbench.tmpc_bench_ocp(N=3, n_paths=2,
+                                  dynamic_velocity_reference=True)
+    tsqp.make_fleet_sqp_solver(to, tsqp.SQPConfig(**CFG), dtype=F64,
+                               device="cpu", backend="lanes")
 
 
 @pytest.mark.slow

@@ -564,3 +564,105 @@ def test_config_and_result_fields_match_jax():
     assert tsqp.SQPConfig._fields == jsqp.SQPConfig._fields
     assert tsqp.SQPResult._fields == jsqp.SQPResult._fields
     assert tsqp.SQPConfig() == tsqp.SQPConfig(*jsqp.SQPConfig())
+
+
+def _counts(count_lib, ocp, P, x0, Z):
+    """(IP iteration, linearization, merit) counts of the fused kernel on
+    every problem of (P with stage N repeating N-1, x0, Z), f64; each must
+    be the same on every problem."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools.bench_matrix import (  # noqa: E501
+        matrix_config)
+
+    cfg = matrix_config()
+    mach = tsqp._make_machinery(ocp, cfg, torch.float64, "cpu")
+    tables = sqp_fused.ocp_tables(ocp, cfg)
+    itab = np.ascontiguousarray(tables.ints)
+    rtab = np.ascontiguousarray(tables.reals)
+    qp = mach.build_qp(Z, P, x0)
+    ins = sqp_fused._lanes_in(P, x0, Z)
+    seen = set()
+    for b in range(P.shape[0]):
+        one = tsqp.QPData(*(x[b:b + 1] for x in qp))
+        ip = _check_iteration_count(count_lib, one, mach.stage_mask,
+                                    mach.row_meta, ocp.nx, mach.nu)
+        cols = [np.ascontiguousarray(x[:, b].numpy()) for x in ins]
+        lin, merit = np.zeros(5, np.int64), np.zeros(5, np.int64)
+        assert count_lib.tmpc_count_ops(
+            *[c.ctypes.data for c in cols], itab.ctypes.data,
+            rtab.ctypes.data, tables.T, tables.npar, tables.m, tables.mh,
+            tables.model, tables.reg, lin.ctypes.data,
+            merit.ctypes.data) == 0
+        seen.add((ip, int(lin.sum()), int(merit.sum())))
+    assert len(seen) == 1, seen
+    return seen.pop()
+
+
+def _goal_tmpc_tick_problems(B=5):
+    """The multi-robot tick's OCP (``systems.make_system_planner(
+    "jackalsimulator", "goal_tmpc")``: ``default_settings()``, N=30, 4
+    obstacles, goal, consistency, topology halfspaces and ellipsoids on
+    ``SecondOrderUnicycleModel``) and B problems around a straight run to
+    a goal with the obstacles 2-4 m ahead."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        configuration_goal_tmpc)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import build_ocp
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    settings = default_settings()
+    ocp = build_ocp(*configuration_goal_tmpc(settings), settings)
+    rng = np.random.default_rng(3)
+    T, idx, reg = ocp.N + 1, ocp.registry.save_map(), ocp.registry
+    P = np.zeros((B, T, ocp.npar))
+    w = settings["weights"]
+    for name in ("acceleration", "angular_velocity", "consistency_weight"):
+        P[..., idx[name]] = w.get(name, 0.1)
+    P[..., idx["goal_weight"]] = 5.0
+    P[..., idx["goal_x"]] = 8.0
+    P[..., idx["goal_y"]] = 1.0
+    P[..., idx["ego_disc_radius"]] = 0.325
+    P[..., np.asarray(reg.bundle_indices("lin_constraint_a1"))] = 1.0
+    P[..., np.asarray(reg.bundle_indices("lin_constraint_b"))] = 1.0e4
+    for i in range(int(settings["max_obstacles"])):
+        P[..., idx[f"ellipsoid_obst_{i}_x"]] = rng.uniform(2.0, 4.0, (B, 1))
+        P[..., idx[f"ellipsoid_obst_{i}_y"]] = rng.uniform(-1.0, 1.0, (B, 1))
+        P[..., idx[f"ellipsoid_obst_{i}_chi"]] = 1.0
+        P[..., idx[f"ellipsoid_obst_{i}_r"]] = 0.325
+    Z = np.zeros((B, T, ocp.nvar))
+    Z[..., ocp.nu] = np.linspace(0.0, 6.0, T)
+    Z[..., ocp.nu + 3] = 1.0
+    P[..., idx["prev_traj_x"]] = Z[..., ocp.nu]
+    x0 = Z[:, 0, ocp.nu:].copy()
+    return ocp, *(torch.as_tensor(a) for a in (P, x0, Z))
+
+
+@pytest.mark.parametrize("which", ["mrtick", "vref", "lmpcc"])
+def test_slice9_ocp_flops_match_the_kernel_count(count_lib, which):
+    """The MRTICK_, VREF_ and LMPCC_ constants are the hand count and the
+    fused kernel's own counts at the multi-robot tick's goal-T-MPC OCP
+    (N=30), the dyn-vref T-MPC fleet of ``tools/bench_matrix.py::
+    build_dynvref`` (N=20; the velocity spline adds VREF_LIN_FLOPS -
+    LIN_FLOPS to a linearization) and its LMPCC fleet (N=20), on every
+    problem."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+
+    f64 = torch.float64
+    if which == "mrtick":
+        ocp, P, x0, Z = _goal_tmpc_tick_problems()
+        assert (ocp.N, ocp.npar) == (30, 50)
+    else:
+        if which == "vref":
+            ocp, *arrays = bench_matrix.build_dynvref(20, 1)
+        else:
+            ocp, *arrays = bench_matrix.build_lmpcc(
+                20, 4, np.random.default_rng(0))
+        P, x0, Z = (torch.as_tensor(a, dtype=f64) for a in arrays)
+        P = torch.cat([P, P[:, -1:]], dim=1).contiguous()
+    prefix = which.upper()
+    want = tuple(getattr(roofline, f"{prefix}_{kind}_FLOPS")
+                 for kind in ("IP_ITER", "LIN", "MERIT"))
+    assert _counts(count_lib, ocp, P, x0, Z) == want
+    if which == "vref":
+        assert want[0] == roofline.IP_ITER_FLOPS
+        assert want[1] > roofline.LIN_FLOPS
