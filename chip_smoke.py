@@ -9,8 +9,9 @@ cold, duals/warm and field-layout entries), the fused whole-SQP kernel
 (csrc/sqp_fused.cu, with its linearize entry) and the FP32 roof kernel
 (csrc/fma_roof.cu). B1 and B2 run one warp per problem with its state in
 shared memory: for every entry it prints the launch plan at the bench shape
-and at the goal, CC-MPC and SH-MPC OCPs of BASELINE configs 1, 3 and 5 (warps per block, dynamic shared memory per block, problems resident per
-SM, registers and local memory per thread). Holds each against its plain PyTorch version: the QP
+and at the goal, CC-MPC and SH-MPC OCPs of BASELINE configs 1, 3 and 5 and at the bicycle OCPs (warps
+per block, dynamic shared memory per block, problems resident per SM,
+registers and local memory per thread). Holds each against its plain PyTorch version: the QP
 kernel on the bench QPs (cold; cold with duals out, then warm from them on
 the re-linearized QPs; on the linearize entry's buffer), the fused kernel's
 in-kernel linearization against torch.func, its whole solve at f64, and the
@@ -91,7 +92,21 @@ closely over the last 20 ticks than over the first 20; (k) the eight
 configurations of the JAX configuration sweep that the port has, 3 ticks
 each at N=8 (B2 or the single-instance solve), the LMPCC fleet (512
 problems) through B2 against its plain version, and one
-LocalPlannerInterface cycle. Any failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
+LocalPlannerInterface cycle. Then ROADMAP item 4d, each fleet and tick run
+with the launch counts set to 0 before it: (l) configuration_bicycle and
+its curvature-aware variant (N=30, nx=6, nu=3, m=22) as 512-problem fleets
+through B2 (the bicycle models) and through B1's (6, 3) instance, each
+against its plain version, their launch plans at T=31, nz=9, and the
+bicycle_contouring golden through make_sqp_solver at f64; (m) the
+curvature-aware unicycle: B2's in-kernel linearization (the progress
+update, the CA contouring cost) against torch.func at f64 on curved and
+exactly straight paths with no NaN (the CA bicycle's too), and its fleet
+through B2 against plain; (n) the decomposition's C++ backend, the decomp
+fleet (12 halfspace rows) through B2 against plain, 3 ticks of JAX's
+corridor scene through LocalPlannerInterface.set_costmap /
+compute_velocity_commands (JAX's assertions; the single-instance solve,
+timed, not gated) and the road-width bicycle fleet through B2 against
+plain. Any failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 each with its bound. Needs one CUDA device; without one it exits with code 2.
 """
@@ -1304,9 +1319,10 @@ def fleet_flavour_phase(dev, card, reset_counts, counts, none, name, ocp,
     problem (f64 within FUSED_F64_GATE per problem with the same success
     mask; f32 median rel <= 1e-4 on each warp slot), B1 on the fleet's first
     QPs against its plain version (f64 within QP_F64_GATE (1 + max|ref|),
-    f32 median rel <= 1e-4), and their times. ``consts``: the roofline
-    prefix of the OCP's operation counts. Returns B2's (and B1's) kernel
-    entry numbers."""
+    f32 median rel <= 1e-4), and their times; the hand count of an IP
+    iteration at the fleet's rows is the roofline constant its bounds use.
+    ``consts``: the roofline prefix of the OCP's operation counts. Returns
+    B2's (and B1's) kernel entry numbers."""
     from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
         qp_cuda, roofline)
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
@@ -1374,7 +1390,8 @@ def fleet_flavour_phase(dev, card, reset_counts, counts, none, name, ocp,
     check(max(slot_med) <= 1e-4, f"f32 B2 = plain on the {name} fleet: "
           f"median rel <= 1e-4 on each of the problems mod 4")
     f_ms, f_all = cuda_time_ms(lambda: fs(*a32), reps=10)
-    log(f"[{card}] B2 on the {name} fleet ({n} problems, T={N_MAIN + 1}, "
+    log(f"[{card}] B2 on the {name} fleet ({n} problems, T="
+        f"{arrays[0].shape[1] + 1}, "
         f"f32): {f_ms:.3f} ms per launch (median of 10; {spread(f_all)}) = "
         f"{n / f_ms * 1e3:.0f} plans/s, success {success['fused']:.4f}; "
         f"plain fused_fleet_reference {fp_ms:.1f} ms")
@@ -1386,6 +1403,7 @@ def fleet_flavour_phase(dev, card, reset_counts, counts, none, name, ocp,
                                  ip_iter=ip_iter),
         n_bytes=roofline.tensor_bytes(P_t, a32[1], a32[2], a32[2]) + 8 * n)}
     if not b1:
+        check_ip_count(fs.machinery, ocp, consts, f"the {name} fleet")
         return entries
     log(f"[{card}] {name} fleet through 'pallas' (B1 at ({ocp.nx}, "
         f"{ocp.nu}) per SQP iteration): success {success['pallas']:.4f}")
@@ -1767,8 +1785,8 @@ MR_CYCLES, MR_DESYNC_CYCLES = 60, 20
 MR_CFG = dict(n_sqp=5, n_qp_iter=10, regularization="gershgorin")
 DYNVREF_TICKS = 60
 SWEEP_N, SWEEP_TICKS = 8, 3
-#: The configurations of the JAX package's tests/test_config_sweep.py that
-#: run on the card (all but the bicycle, which waits for its model): name,
+#: The configurations of the JAX package's tests/test_config_sweep.py, all
+#: nine of them on the card: name,
 #: factory function, settings overrides, and whether the planner solves
 #: through B2 (a guidance module's T-MPC optimizer, the scenario optimizer)
 #: or the single-instance solve. SH-MPC's data gate wants Gaussian
@@ -1784,7 +1802,8 @@ SWEEP = [("no_obstacles", "configuration_no_obstacles", {}, False),
          ("goal_tmpc", "configuration_goal_tmpc", {}, True),
          ("safe_horizon", "configuration_safe_horizon",
           {"scenario_constraints": {"n_samples": 24},
-           "probabilistic": {"enable": True}}, True)]
+           "probabilistic": {"enable": True}}, True),
+         ("bicycle", "configuration_bicycle", {}, False)]
 
 
 def b2_against_plain(dev, card, ocp, config, args, name):
@@ -2051,7 +2070,7 @@ def multirobot_phase(dev, card, reset_counts, counts, none):
 def dynvref_phase(dev, card, reset_counts, counts, none):
     """(j) The dynamic velocity reference through B2: the in-kernel
     linearization of the dyn-vref T-MPC OCP against torch.func at f64 (64
-    problems; rtol LIN_F64_RTOL, atol LIN_F64_ATOL), the dyn-vref fleet
+    problems; lin_against_torch_func), the dyn-vref fleet
     (tools/bench_matrix.py::build_dynvref, 512 problems) through B2 against
     its plain version, and DYNVREF_TICKS serial planner ticks of
     configuration_tmpc_consistency_cost with the flag on, on a path whose
@@ -2063,9 +2082,6 @@ def dynvref_phase(dev, card, reset_counts, counts, none):
         build_planner, configuration_tmpc_consistency_cost, prewarm_planner)
     from oscar_mpc_planner_mr_modification_tpu_torch.multirobot.driver import (  # noqa: E501
         integrate_on_host)
-    from oscar_mpc_planner_mr_modification_tpu_torch.ops import sqp_fused
-    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
-        QPData, make_fleet_sqp_solver)
     from oscar_mpc_planner_mr_modification_tpu_torch.planner.data_preparation import (  # noqa: E501
         define_robot_area, ensure_obstacle_size)
     from oscar_mpc_planner_mr_modification_tpu_torch.sim.roadmap import (
@@ -2078,29 +2094,10 @@ def dynvref_phase(dev, card, reset_counts, counts, none):
         default_settings)
 
     # the in-kernel linearization at f64
-    ocp, *arrays = bench_matrix.build_dynvref(N_MAIN, 8)
-    fs = make_fleet_sqp_solver(ocp, bench_config(), dtype=torch.float64,
-                               device=dev, backend="fused")
-    Pa, xa, za = (torch.as_tensor(a, dtype=torch.float64, device=dev)
-                  for a in arrays)
-    za = za + 0.05 * torch.randn(za.shape, generator=torch.Generator(
-        "cpu").manual_seed(0), dtype=torch.float64).to(dev)
-    lin_args = (torch.cat([Pa, Pa[:, -1:]], dim=1).contiguous(), xa, za)
-    got = sqp_fused.linearize(fs.tables, *lin_args)
-    want = sqp_fused.linearize_reference(fs.machinery, fs.tables, *lin_args)
-    sync()
-    worst, lin_err = [], 0.0
-    for name, a, b in zip(QPData._fields + ("merit", "cost", "eq_res"),
-                          tuple(got[0]) + tuple(got[1:]),
-                          tuple(want[0]) + tuple(want[1:])):
-        lin_err = max(lin_err, (a - b).abs().max().item())
-        if not torch.allclose(a, b, rtol=LIN_F64_RTOL, atol=LIN_F64_ATOL):
-            worst.append(name)
-    log(f"f64 dyn-vref linearize ({Pa.shape[0]} problems): max|d| "
-        f"{lin_err:.3e} over every field")
-    check(not worst, f"f64 in-kernel linearization of the dyn-vref OCP = "
-          f"build_qp on every field within rtol {LIN_F64_RTOL:g}, atol "
-          f"{LIN_F64_ATOL:g} (failed: {worst})")
+    ocp, P, x0, z0 = bench_matrix.build_dynvref(N_MAIN, 8)
+    z0 = z0 + 0.05 * np.random.default_rng(0).normal(size=z0.shape)
+    lin_against_torch_func(dev, ocp, np.concatenate([P, P[:, -1:]], axis=1),
+                           x0, z0, "dyn-vref")
 
     ocp512, *arrays512 = bench_matrix.build_dynvref(N_MAIN, 64)
     entry = fleet_flavour_phase(dev, card, reset_counts, counts, none,
@@ -2161,8 +2158,8 @@ def dynvref_phase(dev, card, reset_counts, counts, none):
 
 
 def sweep_phase(dev, card, reset_counts, counts, none):
-    """(k) The eight configurations of the JAX package's configuration sweep
-    that run on the card, each as a ``build_planner(..., device=dev)``
+    """(k) The nine configurations of the JAX package's configuration sweep,
+    each as a ``build_planner(..., device=dev)``
     planner for SWEEP_TICKS ticks at N=8 (f64, 6 x 10 under Gershgorin) on
     its benign scene, with the launch counts set to 0 before each: the
     T-MPC and SH-MPC ones one B2 launch per tick, the others (no guidance or
@@ -2229,7 +2226,8 @@ def sweep_phase(dev, card, reset_counts, counts, none):
                 x = integrate_on_host(
                     model, state.as_array(),
                     [planner.get_solution(0, "a"),
-                     planner.get_solution(0, "w")], 0.2)
+                     planner.get_solution(0, "w")] + [0.0] * (model.nu - 2),
+                    0.2)
                 x[model.state_index("v")] = max(x[model.state_index("v")],
                                                 0.0)
                 state.set_array(x)
@@ -2268,6 +2266,226 @@ def sweep_phase(dev, card, reset_counts, counts, none):
           f"1, no kernel launch (the single-instance solve), goal not "
           f"reached ({got})")
     return entry
+
+#: The item-4d fleets: 512 problems each, f32, tools/bench_matrix.py's
+#: operating point; the bicycles at default_settings() (N=30).
+BICYCLE_N, CA_N, DECOMP_N = 30, 20, 20
+CORRIDOR_N, CORRIDOR_TICKS = 12, 3
+#: JAX's corridor test's SQP (tests/test_scenario.py): 8 x 12.
+CORRIDOR_CFG = dict(n_sqp=8, n_qp_iter=12)
+BICYCLE_GOLDEN_CFG = dict(n_sqp=15, n_qp_iter=15)
+
+
+def bicycle_phase(dev, card, reset_counts, counts, none):
+    """(l) The bicycles: configuration_bicycle and its curvature-aware
+    variant at default_settings() (N=30, nx=6, nu=3, 4 ellipsoids, m=22) as
+    512-problem fleets through B2 (one launch) and through B1 at (6, 3)
+    (``"pallas"``, one launch per SQP iteration), each held against its
+    plain version (fleet_flavour_phase); their launch plans at T=31, nz=9;
+    then the bicycle_contouring golden through make_sqp_solver at f64 on
+    the card (plain PyTorch, no kernel; atol 1e-6, cost rtol 1e-8, as
+    tests/test_golden.py holds JAX), with ms per solve. Returns the kernel
+    entries by name."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        configuration_bicycle)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        SQPConfig, make_fleet_sqp_solver, make_sqp_solver)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import build_ocp
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    out = {}
+    rng = np.random.default_rng(10)
+    for ca, name, prefix in ((False, "bicycle", "BICYCLE"),
+                             (True, "CA bicycle", "BICYCLE_CA")):
+        ocp, *arrays = bench_matrix.build_bicycle(BICYCLE_N, MATRIX_B, rng,
+                                                  curvature_aware=ca)
+        check((ocp.N, ocp.nx, ocp.nu, ocp.npar, len(ocp.ineq_row_spec()))
+              == (30, 6, 3, 84, 22), f"{name} OCP sizes (N, nx, nu, npar, m)")
+        log_plans(dev, ocp, make_fleet_sqp_solver(
+            ocp, bench_config(), dtype=torch.float32, device="cpu",
+            backend="fused").tables)
+        out[name] = fleet_flavour_phase(dev, card, reset_counts, counts, none,
+                                        name, ocp, arrays, prefix)
+
+    gold = np.load(os.path.join(ROOT, "tests", "golden",
+                                "bicycle_contouring.npz"))
+    settings = default_settings(N=15, max_obstacles=2)
+    ocp = build_ocp(*configuration_bicycle(settings), settings)
+    solve = make_sqp_solver(ocp, SQPConfig(**BICYCLE_GOLDEN_CFG),
+                            dtype=torch.float64, device=dev)
+    args = (gold["P"], gold["x0"], gold["z_init"])
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = solve(*args)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    zerr = float(np.abs(res.z.cpu().numpy() - gold["Z"]).max())
+    cost = float(res.cost)
+    log(f"[{card}] bicycle_contouring golden (N=15, 15 x 15, f64, "
+        f"make_sqp_solver on {res.z.device}): max|Z - Z_gold| {zerr:.3e}, "
+        f"cost {cost:.12f} vs {float(gold['cost']):.12f}, {ms:.1f} ms per "
+        f"solve (host-bound plain PyTorch), launches {got}")
+    check(got == none and res.z.device.type == "cuda",
+          f"bicycle golden on the card, no kernel of the port ({got})")
+    check(bool(res.success) and zerr <= 1e-6
+          and abs(cost - float(gold["cost"])) <= 1e-8 * abs(
+              float(gold["cost"])),
+          "bicycle golden: success, Z within atol 1e-6, cost within rtol "
+          "1e-8")
+    return out
+
+
+def lin_against_torch_func(dev, ocp, P, x0, Z, name):
+    """B2's linearize entry against build_qp / merit_of (torch.func) at
+    f64 on every field (rtol LIN_F64_RTOL, atol LIN_F64_ATOL), every field
+    finite. Returns the largest difference."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import sqp_fused
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        QPData, make_fleet_sqp_solver)
+
+    fs = make_fleet_sqp_solver(ocp, bench_config(), dtype=torch.float64,
+                               device=dev, backend="fused")
+    args = tuple(torch.as_tensor(a, dtype=torch.float64, device=dev)
+                 for a in (P, x0, Z))
+    got = sqp_fused.linearize(fs.tables, *args)
+    want = sqp_fused.linearize_reference(fs.machinery, fs.tables, *args)
+    sync()
+    worst, err, finite = [], 0.0, True
+    for field, a, b in zip(QPData._fields + ("merit", "cost", "eq_res"),
+                           tuple(got[0]) + tuple(got[1:]),
+                           tuple(want[0]) + tuple(want[1:])):
+        finite = finite and bool(torch.isfinite(a).all())
+        err = max(err, (a - b).abs().max().item())
+        if not torch.allclose(a, b, rtol=LIN_F64_RTOL, atol=LIN_F64_ATOL):
+            worst.append(field)
+    log(f"f64 {name} linearize ({P.shape[0]} problems): max|d| {err:.3e} "
+        f"over every field, finite {finite}")
+    check(finite and not worst, f"f64 in-kernel linearization of the {name} "
+          f"OCP = build_qp on every field within rtol {LIN_F64_RTOL:g}, atol "
+          f"{LIN_F64_ATOL:g}, no NaN (failed: {worst})")
+    return err
+
+
+def ca_phase(dev, card, reset_counts, counts, none):
+    """(m) The curvature-aware unicycle (tools/bench_matrix.py::
+    build_ca_unicycle: MPCBase, the CA contouring cost, 3 ellipsoids,
+    N=20): B2's in-kernel linearization, its progress update and CA cost
+    included, against torch.func at f64 on 64 problems on curved paths and
+    on the same paths made exactly straight (no NaN; the CA bicycle's too),
+    then its 512-problem fleet through B2 against the plain version.
+    Returns the fleet's kernel entry numbers."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+
+    rng = np.random.default_rng(11)
+    for name, (ocp, P, x0, z0) in (
+            ("CA unicycle", bench_matrix.build_ca_unicycle(CA_N, 64, rng)),
+            ("CA bicycle", bench_matrix.build_bicycle(BICYCLE_N, 64, rng,
+                                                      True))):
+        P = np.concatenate([P, P[:, -1:]], axis=1).astype(np.float64)
+        Z = z0 + 0.05 * np.random.default_rng(0).normal(size=z0.shape)
+        straight = P.copy()
+        for i in range(5):
+            for c in "abcd":
+                straight[..., ocp.registry.index(f"spline_y{i}_{c}")] = 0.0
+        for path, Pp in (("curved", P), ("straight", straight)):
+            lin_against_torch_func(dev, ocp, Pp, x0, Z, f"{name}, {path} path")
+    ocp, *arrays = bench_matrix.build_ca_unicycle(CA_N, MATRIX_B, rng)
+    return fleet_flavour_phase(dev, card, reset_counts, counts, none,
+                               "CA-MPC", ocp, arrays, "CA", b1=False)["b2"]
+
+
+def decomp_phase(dev, card, reset_counts, counts, none):
+    """(n) Decomp and road width: the decomposition's backend is the C++
+    library; the decomp fleet (tools/bench_matrix.py::build_decomp:
+    configuration_no_obstacles plus 12 decomp rows, npar 90, m=26, N=20, 512
+    corridors) through B2 against its plain version; CORRIDOR_TICKS ticks of
+    JAX's corridor scene (tests/test_scenario.py: walls at y = +-1 over 8
+    m, N=12, 8 x 12 SQP, f64) through ``LocalPlannerInterface.set_costmap``
+    / ``compute_velocity_commands`` on the card (the single-instance solve,
+    host-bound, B-5: timed, not gated), each solved with its plan inside
+    |y| < 1.0 and the last plan past x = 1.5 m (JAX's assertions); then the
+    road-width bicycle fleet (configuration_bicycle plus
+    ContouringConstraintModule, N=30, 512 problems) through B2 against its
+    plain version. Returns the two fleets' kernel entry numbers."""
+    from oscar_mpc_planner_mr_modification_tpu_torch import factory
+    from oscar_mpc_planner_mr_modification_tpu_torch.modules import (
+        DecompConstraintModule)
+    from oscar_mpc_planner_mr_modification_tpu_torch.multirobot.driver import (  # noqa: E501
+        integrate_on_host)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.decomp import (
+        EllipsoidDecomp2D)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import SQPConfig
+    from oscar_mpc_planner_mr_modification_tpu_torch.systems import (
+        LocalPlannerInterface)
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+
+    backend = EllipsoidDecomp2D().backend
+    log(f"decomp backend: {backend}")
+    check(backend == "cpp", f"the decomposition runs the C++ library "
+          f"(backend {backend!r})")
+    rng = np.random.default_rng(12)
+    ocp, *arrays = bench_matrix.build_decomp(DECOMP_N, MATRIX_B, rng)
+    check((ocp.npar, ocp.nh, len(ocp.ineq_row_spec())) == (90, 12, 26),
+          "decomp OCP sizes (npar, rows, m)")
+    out = {"decomp": fleet_flavour_phase(dev, card, reset_counts, counts,
+                                         none, "decomp", ocp, arrays,
+                                         "DECOMP", b1=False)["b2"]}
+
+    def with_decomp(settings):
+        model, modules = factory.configuration_no_obstacles(settings)
+        modules.add_module(DecompConstraintModule(settings))
+        return model, modules
+
+    lp = LocalPlannerInterface(configuration=with_decomp, N=CORRIDOR_N,
+                               max_obstacles=2, device=dev,
+                               sqp_config=SQPConfig(**CORRIDOR_CFG))
+    dmod = next(m for m in lp.planner.modules
+                if isinstance(m, DecompConstraintModule))
+    check(dmod.decomp.backend == "cpp", "the planner's decomp module runs "
+          "the C++ library")
+    lp.set_plan(np.stack([np.linspace(0, 15, 16), np.zeros(16)], axis=1))
+    lp.set_costmap(bench_matrix.corridor_points(1.0, length=8.0,
+                                                spacing=0.25))
+    ix, iy = lp.model.var_index("x"), lp.model.var_index("y")
+    pose, v, times, inside = np.zeros(3), 1.0, [], True
+    reset_counts()
+    for _ in range(CORRIDOR_TICKS):
+        t0 = time.perf_counter()
+        v_cmd, w_cmd, ok = lp.compute_velocity_commands(tuple(pose), v)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(ok, "corridor tick solved")
+        traj = lp.planner.solver.get_output_trajectory()
+        inside = inside and bool(np.all(np.abs(traj[:, iy]) < 1.0))
+        check(bool((dmod._b[0, 1:] < 999.0).any()),
+              "the decomposition produced halfspaces")
+        x = integrate_on_host(lp.model, lp.state.as_array(),
+                              [lp.planner.get_solution(0, "a"), w_cmd], 0.2)
+        pose = x[[lp.model.state_index(n) for n in ("x", "y", "psi")]]
+        v = float(x[lp.model.state_index("v")])
+    got = counts()
+    log(f"[{card}] corridor ticks through LocalPlannerInterface (N="
+        f"{CORRIDOR_N}, f64, the single-instance solve): ms per tick "
+        f"{[round(t, 1) for t in times]}, last plan x {traj[-1, ix]:.3f} m, "
+        f"max |y| {np.abs(traj[:, iy]).max():.4f}, launches {got}")
+    check(got == none, f"corridor ticks: the single-instance solve, no "
+          f"kernel of the port ({got})")
+    check(inside and traj[-1, ix] > 1.5, "corridor ticks: every plan inside "
+          "|y| < 1.0, the last past x = 1.5 m")
+
+    ocp, *arrays = bench_matrix.build_bicycle(BICYCLE_N, MATRIX_B, rng,
+                                              road_width=True)
+    out["road"] = fleet_flavour_phase(dev, card, reset_counts, counts, none,
+                                      "road-width bicycle", ocp, arrays,
+                                      "ROAD", b1=False)["b2"]
+    return out
 
 
 def check(cond, msg):
@@ -2878,6 +3096,12 @@ def main():
     vref = dynvref_phase(dev, card, reset_counts, counts, none)
     lmpcc = sweep_phase(dev, card, reset_counts, counts, none)
 
+    # ---- 31-33. the bicycles, the curvature-aware unicycle, decomp and
+    # road width -----------------------------------------------------------
+    bicycles = bicycle_phase(dev, card, reset_counts, counts, none)
+    ca = ca_phase(dev, card, reset_counts, counts, none)
+    dec = decomp_phase(dev, card, reset_counts, counts, none)
+
     # ---- the kernels, each with its bound ---------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, flops,
               n_bytes, **_):
@@ -2962,6 +3186,20 @@ def main():
               f"{jax_ops}/sqp_fused.py:45", **vref),
         entry("sqp_fused_lmpcc", "sqp_fused.cu",
               f"{jax_ops}/sqp_fused.py:45", **lmpcc),
+        entry("sqp_fused_bicycle", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **bicycles["bicycle"]["b2"]),
+        entry("qp_ip_6_3", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
+              **bicycles["bicycle"]["b1"]),
+        entry("sqp_fused_bicycle_ca", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **bicycles["CA bicycle"]["b2"]),
+        entry("qp_ip_6_3_ca", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
+              **bicycles["CA bicycle"]["b1"]),
+        entry("sqp_fused_ca", "sqp_fused.cu", f"{jax_ops}/sqp_fused.py:45",
+              **ca),
+        entry("sqp_fused_decomp", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **dec["decomp"]),
+        entry("sqp_fused_road", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **dec["road"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -779,15 +779,17 @@ struct Dims {
 
 // The one place that decides which (nx, nu) the QP code is compiled for:
 // f(Dims<NX, NU>{}) for an instantiated pair, -3 for any other. Instantiated
-// for the port's ContouringSecondOrderUnicycleModel (nx 5, nu 2) and
-// SecondOrderUnicycleModel (nx 4, nu 2); a model with other sizes adds a line
-// here (ops/qp_cuda.py::INSTANTIATED names the same pairs, to raise before a
+// for the port's ContouringSecondOrderUnicycleModel (nx 5, nu 2),
+// SecondOrderUnicycleModel (nx 4, nu 2), the slack model (nx 6, nu 2) and
+// the two bicycles (nx 6, nu 3); a model with other sizes adds a line here
+// (ops/qp_cuda.py::INSTANTIATED names the same pairs, to raise before a
 // launch).
 template <class F>
 int with_dims(int nx, int nu, F&& f) {
   if (nx == 5 && nu == 2) return f(Dims<5, 2>{});
   if (nx == 4 && nu == 2) return f(Dims<4, 2>{});
   if (nx == 6 && nu == 2) return f(Dims<6, 2>{});
+  if (nx == 6 && nu == 3) return f(Dims<6, 3>{});
   return -3;
 }
 

@@ -9,7 +9,8 @@
 //   g++ -std=c++17 -O1 -shared -fPIC -o libqp_ip_count.so qp_ip_count.cpp
 //
 // Counted: + and -, *, /, unary -, and one operation for each call of sqrt,
-// exp, log, erf, sin, cos, atan2 and fmod (the transcendental kind). Not counted:
+// exp, log, erf, sin, cos, tan, atan, atan2 and fmod (the transcendental
+// kind). Not counted:
 // comparisons, min, max, |.|, and the double arithmetic on the time step
 // inside rk4 (three operations per call, on a constant).
 //
@@ -40,6 +41,7 @@ inline R sqrt(R a) { ++n_tr; return R(::sqrt(a.v)); }
 inline R fabs(R a) { return R(::fabs(a.v)); }
 inline bool operator<(R a, R b) { return a.v < b.v; }
 inline bool operator>(R a, R b) { return a.v > b.v; }
+inline bool operator>=(R a, R b) { return a.v >= b.v; }
 inline bool operator!=(R a, R b) { return a.v != b.v; }
 inline bool operator==(R a, R b) { return a.v == b.v; }
 
@@ -51,10 +53,17 @@ inline R m_exp(R a) { ++n_tr; return R(::exp(a.v)); }
 inline R m_log(R a) { ++n_tr; return R(::log(a.v)); }
 inline R m_erf(R a) { ++n_tr; return R(::erf(a.v)); }
 inline R m_atan2(R y, R x) { ++n_tr; return R(::atan2(y.v, x.v)); }
+inline R m_tan(R a) { ++n_tr; return R(::tan(a.v)); }
+inline R m_atan(R a) { ++n_tr; return R(::atan(a.v)); }
 inline R m_fmod(R x, R y) { ++n_tr; return R(::fmod(x.v, y.v)); }
 inline R m_abs(R a) { return fabs(a); }
 inline R tsin(R a) { return m_sin(a); }
 inline R tcos(R a) { return m_cos(a); }
+inline R ttan(R a) { return m_tan(a); }
+inline R tatan(R a) { return m_atan(a); }
+inline R tatan2(R y, R x) { return m_atan2(y, x); }
+inline R tsqrt(R a) { return m_sqrt(a); }
+inline R trecip(R a) { return R(1.0) / a; }
 inline R value(R a) { return a; }
 inline R haar(R d) {
   const double pi = 3.14159265358979323846;
@@ -117,7 +126,7 @@ extern "C" {
 
 // One problem's solve with n_iters iterations; inputs as the QP kernel takes
 // them (f64, Bt = 1), the scalars as qp_ip.cu's launch derives them.
-// (nx, nu) in {(5, 2), (4, 2), (6, 2), (3, 1), (4, 3)}. out[0..4]: additions and
+// (nx, nu) in {(5, 2), (4, 2), (6, 2), (6, 3), (3, 1), (4, 3)}. out[0..4]: additions and
 // subtractions, multiplications, divisions, negations, transcendentals
 // (square roots). Returns -3 for another (nx, nu).
 int qp_ip_count_ops(const double* H, const double* g, const double* A,
@@ -140,6 +149,8 @@ int qp_ip_count_ops(const double* H, const double* g, const double* A,
     count_ip<4, 2>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
   else if (nx == 6 && nu == 2)
     count_ip<6, 2>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
+  else if (nx == 6 && nu == 3)
+    count_ip<6, 3>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
   else if (nx == 3 && nu == 1)
     count_ip<3, 1>(in, mask, rinfo, T, m, mhp, n_iters, prm, out);
   else if (nx == 4 && nu == 3)

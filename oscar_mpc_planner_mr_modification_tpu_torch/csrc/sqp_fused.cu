@@ -3,8 +3,10 @@
 // tmpc_ocp.cuh::with_model (the T-MPC++, contouring and CC-MPC OCPs on
 // ContouringSecondOrderUnicycleModel, the goal OCP on
 // SecondOrderUnicycleModel, the SH-MPC OCP on
-// ContouringSecondOrderUnicycleModelWithSlack); the entries take the model
-// id.
+// ContouringSecondOrderUnicycleModelWithSlack, the bicycle OCPs on
+// BicycleModel2ndOrder and its curvature-aware variant, the CA-MPC OCP on
+// ContouringSecondOrderUnicycleModelCurvatureAware); the entries take the
+// model id.
 //
 // Replaces the TPU kernel of the JAX package,
 // ops/sqp_fused.py::_fused_kernel: per problem, every SQP iteration of every
@@ -178,7 +180,7 @@ int tmpc_qp_layout(int model, int T, int m, int mh, int* out) {
   });
 }
 
-// tmpc::table_layout: the int table's contract (4 ints).
+// tmpc::table_layout: the tables' contract (6 ints).
 void tmpc_table_layout(int* out) { tmpc::table_layout(out); }
 
 // The launch plans (warp.cuh plan_out, 6 ints each) of the solve and the

@@ -5,9 +5,21 @@
 // Transcribes, from the package's torch modules (the JAX package's
 // counterparts carry the same names):
 // - models/dynamics.py: ContouringSecondOrderUnicycleModel,
-//   SecondOrderUnicycleModel and ContouringSecondOrderUnicycleModelWithSlack,
-//   RK4 x 3 sub-steps;
-// - ops/spline.py: sigmoid-blended cubic segments and the normalized tangent;
+//   SecondOrderUnicycleModel, ContouringSecondOrderUnicycleModelWithSlack,
+//   BicycleModel2ndOrder, and the curvature-aware
+//   ContouringSecondOrderUnicycleModelCurvatureAware and
+//   BicycleModel2ndOrderCurvatureAware, RK4 x 3 sub-steps (on the first
+//   nx_integrate states, then the curvature-aware progress update
+//   _ca_spline_update, its curvature floored on the squared curvature);
+// - ops/spline.py: sigmoid-blended cubic segments, the normalized tangent and
+//   the blended second derivative;
+// - modules/curvature_aware_contouring.py: the squared distance to the path
+//   and the projected progress rate against the reference velocity
+//   (FL_CA_CONTOUR);
+// - modules/contouring_constraints.py: the two road-width rows on the width
+//   splines (HK_ROADWIDTH);
+// - modules/decomp_constraints.py: the free-space halfspaces, softened by
+//   the model's slack where it has one (HK_DECOMP);
 // - modules/contouring.py: contour and lag error, with
 //   dynamic_velocity_reference w_v (v - v_ref(s))^2 on the velocity spline of
 //   modules/path_reference_velocity.py (FL_VSPLINE), and at the terminal
@@ -95,32 +107,43 @@ enum {
   TB_MODEL,                                    // MODEL_* below
   TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y,             // goal
   TB_SLACK,                                    // MPCBase slack weight, or -1
-  TB_VREF_W,      // contouring's velocity weight (FL_VSPLINE)
+  TB_VREF_W,      // contouring's velocity weight (FL_VSPLINE, FL_CA_CONTOUR)
+  TB_CA_VREF,     // the CA cost's constant reference velocity, or -1
   TB_OFF_SPLINE,  // -> n_seg x SP_W: x_a..x_d y_a..y_d start v_a..v_d
+                  //    wl_a..wl_d wr_a..wr_d
   TB_OFF_H,       // -> nh x 9: one constraint h_i each (HK_* below)
   TB_OFF_ROWS,    // -> m x 2: QP row kind (ROW_*), h or z index
   TB_HEADER
 };
 enum {
   FL_BASE = 1, FL_CONTOUR = 2, FL_CONSIST = 4, FL_BODY_TERMINAL = 8,
-  FL_GOAL = 16, FL_VSPLINE = 32
+  FL_GOAL = 16, FL_VSPLINE = 32, FL_CA_CONTOUR = 64
 };
 // Entries per spline segment row: the path's x and y coefficients, the
 // segment start, then the velocity reference's coefficients (read under
-// FL_VSPLINE only).
-enum { SP_W = 13 };
+// FL_VSPLINE only) and the left and right road widths' (read by
+// HK_ROADWIDTH rows only). SP_V, SP_WL, SP_WR: where each group starts.
+enum { SP_V = 9, SP_WL = 13, SP_WR = 17, SP_W = 21 };
 enum {
   MODEL_CONTOURING_UNICYCLE = 0, MODEL_UNICYCLE = 1,
-  MODEL_CONTOURING_UNICYCLE_SLACK = 2
+  MODEL_CONTOURING_UNICYCLE_SLACK = 2, MODEL_BICYCLE = 3,
+  MODEL_BICYCLE_CA = 4, MODEL_CONTOURING_UNICYCLE_CA = 5
 };
 // h rows, parameter indices after the kind:
 //   HK_HALFSPACE a1 a2 b | HK_ELLIPSOID x y psi major minor chi r offset |
-//   HK_GAUSSIAN x y major minor risk r offset | HK_SCENARIO a1 a2 b offset
+//   HK_GAUSSIAN x y major minor risk r offset | HK_SCENARIO a1 a2 b offset |
+//   HK_ROADWIDTH side (0 right, 1 left; the widths in the spline rows) |
+//   HK_DECOMP a1 a2 b offset
 enum { HK_HALFSPACE = 0, HK_ELLIPSOID = 1, HK_GAUSSIAN = 2, HK_SCENARIO = 3,
-       H_W = 9 };
+       HK_ROADWIDTH = 4, HK_DECOMP = 5, H_W = 9 };
 enum { ROW_HL = 0, ROW_HU, ROW_ZL, ROW_ZU };
 // ---- double table: scalars, then one bound per QP row ---------------------
-enum { RT_DT = 0, RT_REG_EPS, RT_LEVENBERG, RT_MERIT_W, RT_BOUNDS };
+// RT_HALF_WIDTH: half the vehicle width of the road-width rows.
+enum { RT_DT = 0, RT_REG_EPS, RT_LEVENBERG, RT_MERIT_W, RT_HALF_WIDTH,
+       RT_BOUNDS };
+// The squared-curvature floor of the curvature-aware progress update
+// (models/dynamics.py::CURVATURE2_FLOOR).
+constexpr double CURVATURE2_FLOOR = 1e-10;
 enum { REG_NONE = 0, REG_GERSHGORIN, REG_LEVENBERG };
 
 struct Ocp {
@@ -128,13 +151,16 @@ struct Ocp {
   const double* rt;
 };
 
-// The table contract as 4 ints, which ops/sqp_fused.py checks against its
-// own copy when it loads a library: TB_HEADER, SP_W, H_W, FL_VSPLINE.
+// The table contract as 6 ints, which ops/sqp_fused.py checks against its
+// own copy when it loads a library: TB_HEADER, SP_W, H_W, FL_VSPLINE,
+// FL_CA_CONTOUR, RT_BOUNDS.
 inline void table_layout(int* out) {
   out[0] = TB_HEADER;
   out[1] = SP_W;
   out[2] = H_W;
   out[3] = FL_VSPLINE;
+  out[4] = FL_CA_CONTOUR;
+  out[5] = RT_BOUNDS;
 }
 
 // ---- scalar math (float and double) -----------------------------------------
@@ -156,6 +182,10 @@ TMPC_HD float m_log(float x) { return logf(x); }
 TMPC_HD double m_log(double x) { return log(x); }
 TMPC_HD float m_erf(float x) { return erff(x); }
 TMPC_HD double m_erf(double x) { return erf(x); }
+TMPC_HD float m_tan(float x) { return tanf(x); }
+TMPC_HD double m_tan(double x) { return tan(x); }
+TMPC_HD float m_atan(float x) { return atanf(x); }
+TMPC_HD double m_atan(double x) { return atan(x); }
 
 // NaN-propagating max / min, as torch.maximum / torch.amax.
 template <typename R>
@@ -326,6 +356,22 @@ TMPC_JET TMPC_HD TMPC_J tsqrt(const TMPC_J& a) {
   const R f = m_sqrt(a.v);
   return lift(a, f, R(0.5) / f, R(-0.25) / (a.v * f));
 }
+TMPC_HD float trecip(float x) { return 1.0f / x; }
+TMPC_HD double trecip(double x) { return 1.0 / x; }
+TMPC_JET TMPC_HD TMPC_J trecip(const TMPC_J& a) { return recip(a); }
+TMPC_HD float ttan(float x) { return m_tan(x); }
+TMPC_HD double ttan(double x) { return m_tan(x); }
+TMPC_JET TMPC_HD TMPC_J ttan(const TMPC_J& a) {
+  const R t = m_tan(a.v);
+  const R d = R(1) + t * t;
+  return lift(a, t, d, R(2) * t * d);
+}
+TMPC_HD float tatan(float x) { return m_atan(x); }
+TMPC_HD double tatan(double x) { return m_atan(x); }
+TMPC_JET TMPC_HD TMPC_J tatan(const TMPC_J& a) {
+  const R d = R(1) / (R(1) + a.v * a.v);
+  return lift(a, m_atan(a.v), d, R(-2) * a.v * d * d);
+}
 // torch.sigmoid: 1 / (1 + exp(-x)).
 TMPC_JET TMPC_HD TMPC_J tsigmoid(const TMPC_J& a) {
   const R s = R(1) / (R(1) + m_exp(-a.v));
@@ -333,6 +379,8 @@ TMPC_JET TMPC_HD TMPC_J tsigmoid(const TMPC_J& a) {
   return lift(a, s, d, d * (R(1) - R(2) * s));
 }
 // atan2(y, x) with the chain rule over both arguments.
+TMPC_HD float tatan2(float y, float x) { return m_atan2(y, x); }
+TMPC_HD double tatan2(double y, double x) { return m_atan2(y, x); }
 TMPC_JET TMPC_HD TMPC_J tatan2(const TMPC_J& y, const TMPC_J& x) {
   TMPC_J r;
   const R r2 = x.v * x.v + y.v * y.v;
@@ -376,11 +424,16 @@ TMPC_JET TMPC_HD TMPC_J lift_s(const Jet<R, 1, 1>& f, const TMPC_J& s) {
 }
 
 // ---- the models: sizes, named z indices, the vector field ------------------
+// NXI: the states RK4 integrates (the first NXI; continuous() writes those
+// and reads no other); CA: the spline state then follows the
+// curvature-aware progress update (ca_update below). SL: the z index of
+// slack, a state or an input, -1 where the model has none.
 // z = (a, w, x, y, psi, v, s): ContouringSecondOrderUnicycleModel.
 struct ContouringUnicycle {
   static constexpr int NU = 2, NX = 5, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
   static constexpr int A = 0, W = 1, X = 2, Y = 3, PSI = 4, V = 5, S = 6;
-  static constexpr int SL = -1;
+  static constexpr int SL = -1, NXI = NX;
+  static constexpr bool CA = false;
   template <typename T>
   static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
     dx[0] = x[3] * tcos(x[2]);
@@ -395,7 +448,8 @@ struct ContouringUnicycle {
 struct Unicycle {
   static constexpr int NU = 2, NX = 4, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
   static constexpr int A = 0, W = 1, X = 2, Y = 3, PSI = 4, V = 5, S = -1;
-  static constexpr int SL = -1;
+  static constexpr int SL = -1, NXI = NX;
+  static constexpr bool CA = false;
   template <typename T>
   static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
     dx[0] = x[3] * tcos(x[2]);
@@ -410,7 +464,8 @@ struct Unicycle {
 struct ContouringUnicycleSlack {
   static constexpr int NU = 2, NX = 6, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
   static constexpr int A = 0, W = 1, X = 2, Y = 3, PSI = 4, V = 5, S = 6;
-  static constexpr int SL = 7;
+  static constexpr int SL = 7, NXI = NX;
+  static constexpr bool CA = false;
   template <typename T>
   static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
     dx[0] = x[3] * tcos(x[2]);
@@ -419,6 +474,66 @@ struct ContouringUnicycleSlack {
     dx[3] = u[0];
     dx[4] = x[3];
     dx[5] = Make<T>::constant(typename Real<T>::type(0));
+  }
+};
+
+// The bicycles' vector field (BicycleModel2ndOrder and its curvature-aware
+// variant), both with lr = lf = 1.395 m: x' = v cos(psi + beta), y' = v
+// sin(psi + beta), psi' = (v / lr) sin(beta), v' = a, delta' = w, with
+// beta = atan(lr / (lr + lf) tan(delta)); the plain bicycle adds s' = v.
+template <typename T>
+TMPC_FN void bicycle_field(const T* x, const T* u, T* dx, bool spline) {
+  using R = typename Real<T>::type;
+  const R lr = R(2.79 / 2.0), ratio = R(0.5);
+  const T beta = tatan(ratio * ttan(x[4]));
+  const T heading = x[2] + beta;
+  dx[0] = x[3] * tcos(heading);
+  dx[1] = x[3] * tsin(heading);
+  dx[2] = (x[3] / lr) * tsin(beta);
+  dx[3] = u[0];
+  dx[4] = u[1];
+  if (spline) dx[5] = x[3];
+}
+
+// z = (a, w, slack, x, y, psi, v, delta, s): BicycleModel2ndOrder; slack is
+// an input.
+struct Bicycle {
+  static constexpr int NU = 3, NX = 6, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
+  static constexpr int A = 0, W = 1, X = 3, Y = 4, PSI = 5, V = 6, S = 8;
+  static constexpr int SL = 2, NXI = NX;
+  static constexpr bool CA = false;
+  template <typename T>
+  static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
+    bicycle_field(x, u, dx, true);
+  }
+};
+
+// BicycleModel2ndOrderCurvatureAware: RK4 on (x, y, psi, v, delta), then
+// the progress update.
+struct BicycleCA {
+  static constexpr int NU = 3, NX = 6, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
+  static constexpr int A = 0, W = 1, X = 3, Y = 4, PSI = 5, V = 6, S = 8;
+  static constexpr int SL = 2, NXI = 5;
+  static constexpr bool CA = true;
+  template <typename T>
+  static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
+    bicycle_field(x, u, dx, false);
+  }
+};
+
+// ContouringSecondOrderUnicycleModelCurvatureAware: RK4 on (x, y, psi, v),
+// then the progress update.
+struct ContouringUnicycleCA {
+  static constexpr int NU = 2, NX = 5, NZ = NU + NX, NTRI = NZ * (NZ + 1) / 2;
+  static constexpr int A = 0, W = 1, X = 2, Y = 3, PSI = 4, V = 5, S = 6;
+  static constexpr int SL = -1, NXI = 4;
+  static constexpr bool CA = true;
+  template <typename T>
+  static TMPC_FN void continuous(const T* x, const T* u, T* dx) {
+    dx[0] = x[3] * tcos(x[2]);
+    dx[1] = x[3] * tsin(x[2]);
+    dx[2] = u[1];
+    dx[3] = u[0];
   }
 };
 
@@ -432,6 +547,9 @@ int with_model(int model, F&& f) {
   if (model == MODEL_UNICYCLE) return f(Unicycle{});
   if (model == MODEL_CONTOURING_UNICYCLE_SLACK)
     return f(ContouringUnicycleSlack{});
+  if (model == MODEL_BICYCLE) return f(Bicycle{});
+  if (model == MODEL_BICYCLE_CA) return f(BicycleCA{});
+  if (model == MODEL_CONTOURING_UNICYCLE_CA) return f(ContouringUnicycleCA{});
   return -3;
 }
 
@@ -457,43 +575,56 @@ TMPC_HD Par<R> stage_params(const Col<const R>& P, int t, int T) {
 }
 
 // ---- spline path (ops/spline.py, contouring.py) ---------------------------
-// Segment i at s: value and first derivative of x(s) and y(s), and (when
-// `vref`) the value of the velocity reference v(s), local in the same
-// s - start as the path (modules/contouring.py evaluates
-// Spline(params, "spline_v", ...) on the path's segment starts).
+// Segment i at s: value and first derivative of x(s) and y(s); (when
+// `extra` is SP_V, SP_WL or SP_WR, not 0) the value of the spline whose
+// coefficients start there (the velocity reference, the left or the right
+// road width), local in the same s - start as the path (the modules
+// evaluate Spline(params, name, ...) on the path's segment starts); (when
+// `curv`) the second derivatives of x(s) and y(s).
 template <typename R>
 TMPC_HD void spline_segment(const int* q, const Par<R>& p,
-                            const Jet<R, 1, 1>& s, bool vref,
+                            const Jet<R, 1, 1>& s, int extra, bool curv,
                             Jet<R, 1, 1>* v) {
   const Jet<R, 1, 1> ds = s - p[q[8]];
   v[0] = ((p[q[0]] * ds + p[q[1]]) * ds + p[q[2]]) * ds + p[q[3]];
   v[1] = ((p[q[4]] * ds + p[q[5]]) * ds + p[q[6]]) * ds + p[q[7]];
   v[2] = (R(3) * p[q[0]] * ds + R(2) * p[q[1]]) * ds + p[q[2]];
   v[3] = (R(3) * p[q[4]] * ds + R(2) * p[q[5]]) * ds + p[q[6]];
-  if (vref) v[4] = ((p[q[9]] * ds + p[q[10]]) * ds + p[q[11]]) * ds + p[q[12]];
+  if (extra)
+    v[4] = ((p[q[extra]] * ds + p[q[extra + 1]]) * ds + p[q[extra + 2]]) * ds +
+           p[q[extra + 3]];
+  if (curv) {
+    v[5] = (R(6) * p[q[0]]) * ds + R(2) * p[q[1]];
+    v[6] = (R(6) * p[q[4]]) * ds + R(2) * p[q[5]];
+  }
 }
 
-// The path point, normalized tangent, (when `angle`) tangent angle and
-// (when `vref`) velocity reference at s, as jets in s:
-// out = (x, y, dx_n, dy_n, angle, v_ref).
+// The path point, normalized tangent, (when `angle`) tangent angle, (when
+// `extra`) the extra spline's value and (when `curv`) the second
+// derivatives at s, as jets in s:
+// out = (x, y, dx_n, dy_n, angle, extra, ddx, ddy).
 template <typename R>
 TMPC_FN void path_at(const Ocp& o, const Par<R>& p, R s_val, bool angle,
-                     bool vref, Jet<R, 1, 1>* out) {
+                     int extra, bool curv, Jet<R, 1, 1>* out) {
   using J1 = Jet<R, 1, 1>;
   const J1 s = jet_seed<R, 1, 1>(s_val, 0);
   const int M = o.it[TB_NSEG];
   const int* sp = o.it + o.it[TB_OFF_SPLINE];
   // Blend back to front: out = lam_k v_{k-1} + (1 - lam_k) out, with
   // lam_k = sigmoid(-(s - start_k + 0.02) / 0.1).
-  J1 acc[5], v[5];
-  spline_segment(sp + SP_W * (M - 1), p, s, vref, acc);
+  J1 acc[7], v[7];
+  spline_segment(sp + SP_W * (M - 1), p, s, extra, curv, acc);
   for (int k = M - 1; k >= 1; --k) {
-    spline_segment(sp + SP_W * (k - 1), p, s, vref, v);
+    spline_segment(sp + SP_W * (k - 1), p, s, extra, curv, v);
     const J1 lam =
         tsigmoid(-((s - p[sp[SP_W * k + 8]]) + R(0.02)) / R(0.1));
     const J1 rest = R(1) - lam;
     TMPC_UNROLL for (int q = 0; q < 4; ++q) acc[q] = lam * v[q] + rest * acc[q];
-    if (vref) acc[4] = lam * v[4] + rest * acc[4];
+    if (extra) acc[4] = lam * v[4] + rest * acc[4];
+    if (curv) {
+      acc[5] = lam * v[5] + rest * acc[5];
+      acc[6] = lam * v[6] + rest * acc[6];
+    }
   }
   const J1 norm = tsqrt(acc[2] * acc[2] + acc[3] * acc[3]);
   out[0] = acc[0];
@@ -501,7 +632,11 @@ TMPC_FN void path_at(const Ocp& o, const Par<R>& p, R s_val, bool angle,
   out[2] = acc[2] / norm;
   out[3] = acc[3] / norm;
   if (angle) out[4] = tatan2(out[3], out[2]);
-  if (vref) out[5] = acc[4];
+  if (extra) out[5] = acc[4];
+  if (curv) {
+    out[6] = acc[5];
+    out[7] = acc[6];
+  }
 }
 
 // ---- objective (modules' get_value, summed as ModuleManager.objective) ----
@@ -526,8 +661,8 @@ TMPC_FN S stage_cost(const Ocp& o, const Par<R>& p, const S* z, bool terminal) {
   }
   if constexpr (M::S >= 0) if (flags & FL_CONTOUR) {
     const bool vref = flags & FL_VSPLINE;
-    Jet<R, 1, 1> q[6];
-    path_at(o, p, value(z[M::S]), terminal, vref, q);
+    Jet<R, 1, 1> q[8];
+    path_at(o, p, value(z[M::S]), terminal, vref ? int(SP_V) : 0, false, q);
     const S ex = z[M::X] - lift_s(q[0], z[M::S]);
     const S ey = z[M::Y] - lift_s(q[1], z[M::S]);
     const S dxn = lift_s(q[2], z[M::S]), dyn = lift_s(q[3], z[M::S]);
@@ -550,6 +685,37 @@ TMPC_FN S stage_cost(const Ocp& o, const Par<R>& p, const S* z, bool terminal) {
     }
     cost = cost + c;
   }
+  if constexpr (M::S >= 0) if (flags & FL_CA_CONTOUR) {
+    // curvature_aware_contouring.py: w_c |p - path|^2 + w_v (s_dot -
+    // v_ref)^2, s_dot = v (cos psi, sin psi) . t_hat / (1 - (p - path) .
+    // path''); at the terminal stage the angle error and the terminal
+    // multiplier on both terms.
+    const bool vref = flags & FL_VSPLINE;
+    Jet<R, 1, 1> q[8];
+    path_at(o, p, value(z[M::S]), terminal, vref ? int(SP_V) : 0, true, q);
+    const S ex = z[M::X] - lift_s(q[0], z[M::S]);
+    const S ey = z[M::Y] - lift_s(q[1], z[M::S]);
+    const S dxn = lift_s(q[2], z[M::S]), dyn = lift_s(q[3], z[M::S]);
+    const S ddx = lift_s(q[6], z[M::S]), ddy = lift_s(q[7], z[M::S]);
+    const S ratio = trecip(R(1) - (ex * ddx + ey * ddy));
+    const S s_dot =
+        (z[M::V] * (tcos(z[M::PSI]) * dxn + tsin(z[M::PSI]) * dyn)) * ratio;
+    const S e2 = ex * ex + ey * ey;
+    const S dv = vref ? s_dot - lift_s(q[5], z[M::S])
+                      : s_dot - p[it[TB_CA_VREF]];
+    const S dv2 = dv * dv;
+    const R cw = p[it[TB_CONTOUR]], vw = p[it[TB_VREF_W]];
+    S c = cw * e2;
+    c = c + vw * dv2;
+    if (terminal) {
+      const R tc = p[it[TB_TCONT]];
+      const S err = haar(z[M::PSI] - lift_s(q[4], z[M::S]));
+      c = c + p[it[TB_TANGLE]] * (err * err);
+      c = c + (tc * cw) * e2;
+      c = c + (tc * vw) * dv2;
+    }
+    cost = cost + c;
+  }
   if (flags & FL_CONSIST) {
     const S ex = z[M::X] - p[it[TB_PREV_X]];
     const S ey = z[M::Y] - p[it[TB_PREV_Y]];
@@ -566,27 +732,65 @@ TMPC_FN S stage_cost(const Ocp& o, const Par<R>& p, const S* z, bool terminal) {
 }
 
 // ---- dynamics: the model's vector field, RK4 x 3 over dt ------------------
+// RK4 on the first M::NXI states of x; out receives those.
 template <class M, typename S>
 TMPC_FN void rk4(const S* x, const S* u, double dt, S* out) {
   using R = typename Real<S>::type;
-  constexpr int NX = M::NX;
+  constexpr int NI = M::NXI;
   const double h = dt / 3.0;
   const R half_h = R(0.5 * h), full_h = R(h), sixth_h = R(h / 6.0);
-  S xi[NX], k1[NX], k2[NX], k3[NX], k4[NX], tmp[NX];
-  TMPC_UNROLL for (int i = 0; i < NX; ++i) xi[i] = x[i];
+  S xi[NI], k1[NI], k2[NI], k3[NI], k4[NI], tmp[NI];
+  TMPC_UNROLL for (int i = 0; i < NI; ++i) xi[i] = x[i];
   for (int step = 0; step < 3; ++step) {
     M::continuous(xi, u, k1);
-    TMPC_UNROLL for (int i = 0; i < NX; ++i) tmp[i] = xi[i] + half_h * k1[i];
+    TMPC_UNROLL for (int i = 0; i < NI; ++i) tmp[i] = xi[i] + half_h * k1[i];
     M::continuous(tmp, u, k2);
-    TMPC_UNROLL for (int i = 0; i < NX; ++i) tmp[i] = xi[i] + half_h * k2[i];
+    TMPC_UNROLL for (int i = 0; i < NI; ++i) tmp[i] = xi[i] + half_h * k2[i];
     M::continuous(tmp, u, k3);
-    TMPC_UNROLL for (int i = 0; i < NX; ++i) tmp[i] = xi[i] + full_h * k3[i];
+    TMPC_UNROLL for (int i = 0; i < NI; ++i) tmp[i] = xi[i] + full_h * k3[i];
     M::continuous(tmp, u, k4);
-    TMPC_UNROLL for (int i = 0; i < NX; ++i)
+    TMPC_UNROLL for (int i = 0; i < NI; ++i)
       xi[i] = xi[i] +
               sixth_h * (((k1[i] + R(2) * k2[i]) + R(2) * k3[i]) + k4[i]);
   }
-  TMPC_UNROLL for (int i = 0; i < NX; ++i) out[i] = xi[i];
+  TMPC_UNROLL for (int i = 0; i < NI; ++i) out[i] = xi[i];
+}
+
+// models/dynamics.py::_ca_spline_update: the spline state (the last of x)
+// advances by s + R atan2(vt, R - contour_error - vn), the step's tangential
+// and normal parts vt, vn and the contour error taken against the path's
+// point and unit tangent at the current s, and R = 1 / sqrt(max(ddx^2 +
+// ddy^2, CURVATURE2_FLOOR)) from the path's second derivatives there (its
+// derivative 0 on the floored branch). xi: the integrated (x, y, ...).
+template <class M, typename S, typename R>
+TMPC_FN S ca_progress(const Ocp& o, const Par<R>& p, const S* x, const S* xi) {
+  constexpr int XS = M::S - M::NU;
+  Jet<R, 1, 1> q[8];
+  path_at(o, p, value(x[XS]), false, 0, true, q);
+  const S s = x[XS];
+  const S ex = x[0] - lift_s(q[0], s), ey = x[1] - lift_s(q[1], s);
+  const S tx = lift_s(q[2], s), ty = lift_s(q[3], s);
+  const S ddx = lift_s(q[6], s), ddy = lift_s(q[7], s);
+  const S contour = ty * ex - tx * ey;
+  const S dpx = xi[0] - x[0], dpy = xi[1] - x[1];
+  const S vt = dpx * tx + dpy * ty;
+  const S vn = dpx * ty - dpy * tx;
+  const S k2 = ddx * ddx + ddy * ddy;
+  const S radius =
+      value(k2) >= R(CURVATURE2_FLOOR)
+          ? trecip(tsqrt(k2))
+          : Make<S>::constant(R(1) / m_sqrt(R(CURVATURE2_FLOOR)));
+  const S theta = tatan2(vt, (radius - contour) - vn);
+  return s + radius * theta;
+}
+
+// x_{k+1} = F(x_k, u_k) at stage parameters p: RK4 on the integrated
+// states, then (CA models) the progress update of the spline state.
+template <class M, typename S, typename R>
+TMPC_FN void dynamics(const Ocp& o, const Par<R>& p, const S* x, const S* u,
+                      double dt, S* out) {
+  rk4<M>(x, u, dt, out);
+  if constexpr (M::CA) out[M::NX - 1] = ca_progress<M>(o, p, x, out);
 }
 
 // ---- constraints: h_i(z), over the model's x, y, psi (and slack) ----------
@@ -631,12 +835,30 @@ TMPC_FN S h_row(const Ocp& o, const Par<R>& p, const S* z, int i) {
     const R combined = p[o.it[TB_DISC_R]] + p[q[6]];
     return ((ax * dx + ay * dy) - combined) - y_erfinv * tsqrt(R(2) * a_sigma_a);
   }
-  if (q[0] == HK_SCENARIO) {
-    // a1 px + a2 py - (b + slack); ocp_tables admits it on a slack model only.
-    if constexpr (M::SL >= 0) {
-      S px, py;
-      disc_position<M>(z, p[q[4]], &px, &py);
+  if (q[0] == HK_SCENARIO || q[0] == HK_DECOMP) {
+    // a1 px + a2 py - (b + slack); ocp_tables admits a scenario row on a
+    // model with slack only, a decomp row takes 0 where the model has none.
+    S px, py;
+    disc_position<M>(z, p[q[4]], &px, &py);
+    if constexpr (M::SL >= 0)
       return (p[q[1]] * px + p[q[2]] * py) - (z[M::SL] + p[q[3]]);
+    return (p[q[1]] * px + p[q[2]] * py) - p[q[3]];
+  }
+  if (q[0] == HK_ROADWIDTH) {
+    // +-contour_error + w/2 - width_{right,left}(s) - slack; ocp_tables
+    // admits it on a model with a spline state only.
+    if constexpr (M::S >= 0) {
+      const bool left = q[1] != 0;
+      Jet<R, 1, 1> w[8];
+      path_at(o, p, value(z[M::S]), false, left ? int(SP_WL) : int(SP_WR),
+              false, w);
+      const S ex = z[M::X] - lift_s(w[0], z[M::S]);
+      const S ey = z[M::Y] - lift_s(w[1], z[M::S]);
+      const S contour = lift_s(w[3], z[M::S]) * ex - lift_s(w[2], z[M::S]) * ey;
+      const S side = left ? -contour : contour;
+      const S h = (side + R(o.rt[RT_HALF_WIDTH])) - lift_s(w[5], z[M::S]);
+      if constexpr (M::SL >= 0) return h - z[M::SL];
+      return h;
     }
     return Make<S>::constant(R(0));
   }
@@ -769,7 +991,7 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
   // Dynamics: A = dF/dx, B = dF/du, c = F(z_t) - x_{t+1}.
   {
     J1 F[NX];
-    rk4<M>(zd + NU, zd, dt, F);
+    dynamics<M>(o, p, zd + NU, zd, dt, F);
     TMPC_UNROLL for (int i = 0; i < NX; ++i) {
       TMPC_UNROLL for (int j = 0; j < NX; ++j)
         qp[L.A + (t * NX + i) * NX + j] = F[i].g[NU + j];
@@ -854,7 +1076,7 @@ TMPC_ONCE void merit_stage(const Ocp& o, const Col<const R>& P,
     *cost_out = stage_cost<M>(o, p, z, true);
   } else {
     R F[NX];
-    rk4<M>(z + NU, z, o.rt[RT_DT], F);
+    dynamics<M>(o, p, z + NU, z, o.rt[RT_DT], F);
     TMPC_UNROLL for (int i = 0; i < NX; ++i)
       eq = nanmax(eq, m_abs(F[i] - Z[(t + 1) * NZ + NU + i]));
     *cost_out = stage_cost<M>(o, p, z, body_terminal);

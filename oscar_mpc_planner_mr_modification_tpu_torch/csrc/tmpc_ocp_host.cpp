@@ -58,7 +58,7 @@ int tmpc_qp_layout(int model, int T, int m, int mh, int* out) {
   });
 }
 
-// tmpc::table_layout: the int table's contract (4 ints).
+// tmpc::table_layout: the tables' contract (6 ints).
 void tmpc_table_layout(int* out) { tmpc::table_layout(out); }
 
 // Linearize every problem at Z, stage after stage: the QP fields into qp

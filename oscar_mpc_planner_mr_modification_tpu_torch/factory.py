@@ -12,7 +12,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .models import (ContouringSecondOrderUnicycleModel,
+from .models import (BicycleModel2ndOrder,
+                     BicycleModel2ndOrderCurvatureAware,
+                     ContouringSecondOrderUnicycleModel,
                      ContouringSecondOrderUnicycleModelWithSlack,
                      SecondOrderUnicycleModel)
 from .modules import (ConsistencyModule, ContouringModule,
@@ -115,6 +117,25 @@ def configuration_goal_tmpc(settings, constraint_submodule=None):
         modules.add_module(ConsistencyModule(settings))
     modules.add_module(GuidanceConstraintModule(
         settings, constraint_submodule=constraint_submodule))
+    return model, modules
+
+
+def configuration_bicycle(settings, curvature_aware: bool = False):
+    """The Prius-like bicycle contouring configuration: the bicycle model
+    (or its curvature-aware variant), MPCBase weighing a, w, the slack input
+    and v, contouring and ellipsoid obstacle constraints."""
+    modules = ModuleManager()
+    model = (BicycleModel2ndOrderCurvatureAware() if curvature_aware
+             else BicycleModel2ndOrder())
+    base_module = modules.add_module(MPCBaseModule(settings))
+    base_module.weigh_variable("a", "acceleration")
+    base_module.weigh_variable("w", "angular_velocity")
+    base_module.weigh_variable("slack", "slack")
+    base_module.weigh_variable(
+        "v", ["velocity", "reference_velocity"],
+        cost_function=lambda x, w: w[0] * (x - w[1]) ** 2)
+    modules.add_module(ContouringModule(settings))
+    modules.add_module(EllipsoidConstraintModule(settings))
     return model, modules
 
 

@@ -172,3 +172,130 @@ class ContouringSecondOrderUnicycleModelWithSlack(DynamicsModel):
         psi, v = x[2], x[3]
         return (v * torch.cos(psi), v * torch.sin(psi), w, a, v,
                 torch.zeros_like(v))
+
+
+#: The curvature floor of the curvature-aware progress update, on the
+#: squared curvature: R = 1 / sqrt(max(ddx^2 + ddy^2, CURVATURE2_FLOOR))
+#: caps the radius at 1e5, as 1 / max(|curvature|, 1e-5) does, with a finite
+#: derivative on an exactly straight path (0 on the floored branch).
+CURVATURE2_FLOOR = 1e-10
+
+
+def _ca_spline_update(x, x_integrated, ctx):
+    """Curvature-aware discrete progress update: the spline state advances
+    by the arc of the path's osculating circle that the integrated step
+    projects onto, ``s + R atan2(vt, R - contour_error - vn)``, with the
+    path's point, unit tangent and radius R taken at the current s.
+
+    ctx provides ``params`` (a ParameterView with the path's spline
+    parameters) and ``num_segments``."""
+    from ..ops.spline import Spline2D
+
+    pos_x, pos_y = x[0], x[1]
+    s = x[-1]
+
+    path = Spline2D(ctx["params"], ctx["num_segments"], s)
+    path_x, path_y = path.at(s)
+    tx, ty = path.deriv_normalized(s)
+
+    contour_error = ty * (pos_x - path_x) - tx * (pos_y - path_y)
+
+    dpx = x_integrated[0] - pos_x
+    dpy = x_integrated[1] - pos_y
+    vt_t = dpx * tx + dpy * ty
+    vn_t = dpx * ty - dpy * tx
+
+    ddx, ddy = path.deriv2(s)
+    curvature2 = ddx * ddx + ddy * ddy
+    floor = torch.full((), CURVATURE2_FLOOR, dtype=s.dtype, device=s.device)
+    R = torch.rsqrt(torch.maximum(curvature2, floor))
+
+    theta = torch.atan2(vt_t, R - contour_error - vn_t)
+    return torch.cat([x_integrated, (s + R * theta).unsqueeze(0)])
+
+
+@dataclass(frozen=True)
+class ContouringSecondOrderUnicycleModelCurvatureAware(DynamicsModel):
+    """CA-MPC unicycle: RK4 on (x, y, psi, v), then the spline state by
+    :func:`_ca_spline_update`."""
+
+    name: str = "contouring_second_order_unicycle_curvature_aware"
+    nu: int = 2
+    nx: int = 5
+    states: Tuple[str, ...] = ("x", "y", "psi", "v", "spline")
+    inputs: Tuple[str, ...] = ("a", "w")
+    lower_bound: Tuple[float, ...] = (-4.0, -0.8, -2000.0, -2000.0, -np.pi * 4, -0.01, -1.0)
+    upper_bound: Tuple[float, ...] = (4.0, 0.8, 2000.0, 2000.0, np.pi * 4, 3.0, 10000.0)
+    nx_integrate: Optional[int] = 4
+
+    def continuous(self, x, u):
+        a, w = u[0], u[1]
+        psi, v = x[2], x[3]
+        return (v * torch.cos(psi), v * torch.sin(psi), w, a)
+
+    def discrete_update(self, x, u, x_integrated, ctx):
+        return _ca_spline_update(x, x_integrated, ctx)
+
+
+_WHEEL_BASE = 2.79  # Prius wheel base [m]
+
+
+def _bicycle_field(x, u, lr, ratio):
+    """The kinematic bicycle's (x, y, psi, v, delta) derivatives: slip
+    angle beta = atan(ratio tan(delta)), psi' = (v / lr) sin(beta). The
+    constants are tensors of the state's dtype: under torch.func a Python
+    float beside a 0-d f32 tensor promotes the derivatives to f64."""
+    a, w = u[0], u[1]
+    psi, v, delta = x[2], x[3], x[4]
+    lr_t, ratio_t = (torch.full((), c, dtype=v.dtype, device=v.device)
+                     for c in (lr, ratio))
+    beta = torch.atan(ratio_t * torch.tan(delta))
+    return (v * torch.cos(psi + beta), v * torch.sin(psi + beta),
+            (v / lr_t) * torch.sin(beta), a, w)
+
+
+@dataclass(frozen=True)
+class BicycleModel2ndOrder(DynamicsModel):
+    """Kinematic bicycle with dynamic steering: inputs (a, steering rate w,
+    slack), states (x, y, psi, v, steering angle delta, spline)."""
+
+    name: str = "bicycle_2nd_order"
+    nu: int = 3
+    nx: int = 6
+    states: Tuple[str, ...] = ("x", "y", "psi", "v", "delta", "spline")
+    inputs: Tuple[str, ...] = ("a", "w", "slack")
+    lower_bound: Tuple[float, ...] = (-3.0, -1.5, 0.0, -1.0e6, -1.0e6, -np.pi * 4,
+                                      -0.01, -0.55, -1.0)
+    upper_bound: Tuple[float, ...] = (3.0, 1.5, 1.0e2, 1.0e6, 1.0e6, np.pi * 4, 5.0,
+                                      0.55, 5000.0)
+    width: float = 2.25
+
+    def continuous(self, x, u):
+        lr = _WHEEL_BASE / 2.0
+        lf = _WHEEL_BASE / 2.0
+        return _bicycle_field(x, u, lr, lr / (lr + lf)) + (x[3],)
+
+
+@dataclass(frozen=True)
+class BicycleModel2ndOrderCurvatureAware(DynamicsModel):
+    """CA-MPC bicycle: RK4 on (x, y, psi, v, delta), then the spline state by
+    :func:`_ca_spline_update`."""
+
+    name: str = "bicycle_2nd_order_curvature_aware"
+    nu: int = 3
+    nx: int = 6
+    states: Tuple[str, ...] = ("x", "y", "psi", "v", "delta", "spline")
+    inputs: Tuple[str, ...] = ("a", "w", "slack")
+    lower_bound: Tuple[float, ...] = (-3.0, -1.5, 0.0, -1.0e6, -1.0e6, -np.pi * 4,
+                                      -0.01, -0.55, -1.0)
+    upper_bound: Tuple[float, ...] = (3.0, 1.5, 1.0e2, 1.0e6, 1.0e6, np.pi * 4, 8.0,
+                                      0.55, 5000.0)
+    nx_integrate: Optional[int] = 5
+    width: float = 2.25
+    lr: float = _WHEEL_BASE / 2.0
+
+    def continuous(self, x, u):
+        return _bicycle_field(x, u, self.lr, self.lr / (self.lr + self.lr))
+
+    def discrete_update(self, x, u, x_integrated, ctx):
+        return _ca_spline_update(x, x_integrated, ctx)

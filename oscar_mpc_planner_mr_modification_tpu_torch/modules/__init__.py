@@ -9,3 +9,6 @@ from .guidance_constraints import GuidanceConstraintModule  # noqa: F401
 from .gaussian_constraints import GaussianConstraintModule  # noqa: F401
 from .scenario_constraints import ScenarioConstraintModule  # noqa: F401
 from .path_reference_velocity import PathReferenceVelocityModule  # noqa: F401
+from .curvature_aware_contouring import CurvatureAwareContouringModule  # noqa: F401
+from .contouring_constraints import ContouringConstraintModule  # noqa: F401
+from .decomp_constraints import DecompConstraintModule  # noqa: F401

@@ -75,9 +75,10 @@ _MAX_NU = 3  # the plain version's closed-form SPD inverse
 #: (nx, nu) pairs the kernels are compiled for (template instantiations of
 #: ``csrc/qp_ip.cuh::with_dims``): the port's
 #: ContouringSecondOrderUnicycleModel (5, 2), SecondOrderUnicycleModel
-#: (4, 2) and ContouringSecondOrderUnicycleModelWithSlack (6, 2). A model
-#: with other sizes adds an instantiation there and here.
-INSTANTIATED = ((5, 2), (4, 2), (6, 2))
+#: (4, 2), ContouringSecondOrderUnicycleModelWithSlack (6, 2) and the two
+#: bicycles (6, 3). A model with other sizes adds an instantiation there and
+#: here.
+INSTANTIATED = ((5, 2), (4, 2), (6, 2), (6, 3))
 
 
 # ---------------------------------------------------------------------------

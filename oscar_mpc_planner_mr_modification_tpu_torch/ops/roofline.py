@@ -154,6 +154,35 @@ VREF_MERIT_FLOPS = 32862
 LMPCC_IP_ITER_FLOPS = 66392
 LMPCC_LIN_FLOPS = 84502
 LMPCC_MERIT_FLOPS = 5514
+#: The three counts at the bicycle OCP (``factory.configuration_bicycle``
+#: at ``default_settings()``: N=30, nx=6, nu=3, 4 ellipsoids and 18 box
+#: rows; ``tools/bench_matrix.py::build_bicycle``), which B2 and B1 (at
+#: (6, 3)) run on the bicycle fleet.
+BICYCLE_IP_ITER_FLOPS = 163789
+BICYCLE_LIN_FLOPS = 357436
+BICYCLE_MERIT_FLOPS = 44821
+#: The same at its curvature-aware variant (the same rows; the progress
+#: update adds a path evaluation with its second derivatives to every
+#: dynamics step).
+BICYCLE_CA_IP_ITER_FLOPS = 163789
+BICYCLE_CA_LIN_FLOPS = 399616
+BICYCLE_CA_MERIT_FLOPS = 83551
+#: The bicycle OCP with the two road-width rows of
+#: ``ContouringConstraintModule`` (``build_bicycle(road_width=True)``).
+ROAD_IP_ITER_FLOPS = 183493
+ROAD_LIN_FLOPS = 444676
+ROAD_MERIT_FLOPS = 44821
+#: The CA-MPC OCP (``tools/bench_matrix.py::build_ca_unicycle``: the
+#: curvature-aware unicycle with MPCBase, the CA contouring cost and 3
+#: ellipsoids at N=20).
+CA_IP_ITER_FLOPS = 66392
+CA_LIN_FLOPS = 199560
+CA_MERIT_FLOPS = 59060
+#: The decomp OCP (``tools/bench_matrix.py::build_decomp``:
+#: ``configuration_no_obstacles`` plus 12 decomp rows at N=20, m=26).
+DECOMP_IP_ITER_FLOPS = 110078
+DECOMP_LIN_FLOPS = 153735
+DECOMP_MERIT_FLOPS = 27675
 
 
 def fma_flops(n: int) -> float:

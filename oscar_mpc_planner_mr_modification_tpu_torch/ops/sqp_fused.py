@@ -33,17 +33,23 @@ with ``track_best`` it keeps the best iterate by merit.
   launches and ``merit_launches`` merit-only launches.
 
 What the header covers (:func:`ocp_tables` checks it): the models
-``ContouringSecondOrderUnicycleModel``, ``SecondOrderUnicycleModel`` and
-``ContouringSecondOrderUnicycleModelWithSlack`` (``MODELS``; the kernels are
-compiled for each); the objectives ``MPCBaseModule`` (``a``, ``w``, on the
-slack model optionally ``slack``, and optionally ``(v - v_ref)``),
-``ContouringModule`` without a dynamic velocity reference (on a model with a
-spline state), ``ConsistencyModule`` and ``GoalModule``; the constraints
-``GuidanceConstraintModule`` (topology halfspaces plus its submodule's
-rows), ``EllipsoidConstraintModule`` and ``GaussianConstraintModule`` with
-any number of prediction modes, and ``ScenarioConstraintModule`` (on the
-slack model). So it covers the T-MPC++ OCPs and the five BASELINE
-configurations: goal, contouring, CC-MPC, T-MPC++ and SH-MPC.
+``ContouringSecondOrderUnicycleModel``, ``SecondOrderUnicycleModel``,
+``ContouringSecondOrderUnicycleModelWithSlack``, ``BicycleModel2ndOrder``
+and the curvature-aware ``BicycleModel2ndOrderCurvatureAware`` and
+``ContouringSecondOrderUnicycleModelCurvatureAware`` (``MODELS``; the
+kernels are compiled for each); the objectives ``MPCBaseModule`` (``a``,
+``w``, on a model with slack optionally ``slack``, and optionally ``(v -
+v_ref)``), ``ContouringModule`` and ``CurvatureAwareContouringModule`` (on a
+model with a spline state, with or without the dynamic velocity reference of
+``PathReferenceVelocityModule``), ``ConsistencyModule`` and ``GoalModule``;
+the constraints ``GuidanceConstraintModule`` (topology halfspaces plus its
+submodule's rows), ``EllipsoidConstraintModule`` and
+``GaussianConstraintModule`` with any number of prediction modes,
+``ScenarioConstraintModule`` (on a model with slack),
+``ContouringConstraintModule`` (the road widths, beside a contouring
+module) and ``DecompConstraintModule``. So it covers the T-MPC++ OCPs, the
+five BASELINE configurations (goal, contouring, CC-MPC, T-MPC++ and
+SH-MPC), the bicycles and the curvature-aware unicycle.
 """
 
 from __future__ import annotations
@@ -73,19 +79,28 @@ _IP = dict(mu0=1e2, tau=0.995, s_floor=1e-10, tol_freeze=1e-5)
 # ROW_*, RT_*, REG_*).
 (TB_FLAGS, TB_NSEG, TB_ACC, TB_ANGVEL, TB_VEL, TB_VREF, TB_CONTOUR, TB_LAG,
  TB_TANGLE, TB_TCONT, TB_CONS_W, TB_PREV_X, TB_PREV_Y, TB_DISC_R, TB_MODEL,
- TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y, TB_SLACK, TB_VREF_W, TB_OFF_SPLINE, TB_OFF_H,
- TB_OFF_ROWS, TB_HEADER) = range(24)
-FL_BASE, FL_CONTOUR, FL_CONSIST, FL_BODY_TERMINAL, FL_GOAL, FL_VSPLINE = (
-    1, 2, 4, 8, 16, 32)
+ TB_GOAL_W, TB_GOAL_X, TB_GOAL_Y, TB_SLACK, TB_VREF_W, TB_CA_VREF,
+ TB_OFF_SPLINE, TB_OFF_H, TB_OFF_ROWS, TB_HEADER) = range(25)
+(FL_BASE, FL_CONTOUR, FL_CONSIST, FL_BODY_TERMINAL, FL_GOAL, FL_VSPLINE,
+ FL_CA_CONTOUR) = (1, 2, 4, 8, 16, 32, 64)
 #: Entries per spline segment row: x_a..x_d, y_a..y_d, start, then the
-#: velocity reference's v_a..v_d (0 without a dynamic velocity reference).
-SP_W = 13
+#: velocity reference's v_a..v_d (from SP_V; 0 without a dynamic velocity
+#: reference), the left road width's (from SP_WL) and the right one's (from
+#: SP_WR; 0 without road-width rows).
+SP_V, SP_WL, SP_WR, SP_W = 9, 13, 17, 21
 #: The models the kernels are compiled for (``tmpc::with_model``): class
 #: name -> model id.
 MODELS = {"ContouringSecondOrderUnicycleModel": 0,
           "SecondOrderUnicycleModel": 1,
-          "ContouringSecondOrderUnicycleModelWithSlack": 2}
-HK_HALFSPACE, HK_ELLIPSOID, HK_GAUSSIAN, HK_SCENARIO, H_W = 0, 1, 2, 3, 9
+          "ContouringSecondOrderUnicycleModelWithSlack": 2,
+          "BicycleModel2ndOrder": 3,
+          "BicycleModel2ndOrderCurvatureAware": 4,
+          "ContouringSecondOrderUnicycleModelCurvatureAware": 5}
+(HK_HALFSPACE, HK_ELLIPSOID, HK_GAUSSIAN, HK_SCENARIO, HK_ROADWIDTH, HK_DECOMP,
+ H_W) = 0, 1, 2, 3, 4, 5, 9
+#: The real table's scalars before the row bounds: dt, reg_eps, levenberg,
+#: the merit weight and the road-width rows' half vehicle width.
+RT_BOUNDS = 5
 ROW_KINDS = {"hl": 0, "hu": 1, "zl": 2, "zu": 3}
 REG_KINDS = {"none": 0, "gershgorin": 1, "levenberg": 2}
 
@@ -116,7 +131,7 @@ def _check_model(model) -> int:
     cls = getattr(dynamics, name, None)
     if (name not in MODELS or type(model) is not cls
             or (model.states, model.inputs, model.nx_integrate)
-            != (cls.states, cls.inputs, None)):
+            != (cls.states, cls.inputs, cls.nx_integrate)):
         raise NotImplementedError(
             f"the fused kernel covers the models {sorted(MODELS)}, not "
             f"{name}")
@@ -156,8 +171,10 @@ def _constraint_rows(module, idx):
     order of its ``get_constraints``: one per (obstacle, mode, disc) for
     ellipsoids and Gaussian chance constraints, each row with its own
     parameter indices."""
-    from ..modules import (EllipsoidConstraintModule, GaussianConstraintModule,
-                           GuidanceConstraintModule, ScenarioConstraintModule)
+    from ..modules import (ContouringConstraintModule,
+                           DecompConstraintModule, EllipsoidConstraintModule,
+                           GaussianConstraintModule, GuidanceConstraintModule,
+                           ScenarioConstraintModule)
     from ..modules.linearized_constraints import LinearizedConstraintModule
 
     if type(module) is GuidanceConstraintModule:
@@ -199,6 +216,20 @@ def _constraint_rows(module, idx):
                 + [idx[f"ego_disc_{d}_offset"]]
                 for d in range(module.n_discs)
                 for i in range(module.n_per_disc)]
+    if type(module) is DecompConstraintModule:
+        if not module.use_slack:
+            raise NotImplementedError(
+                "the fused kernel covers decomp rows softened by the model's "
+                "slack where it has one")
+        return [[HK_DECOMP]
+                + [idx[module._constraint_name(i, d) + suffix]
+                   for suffix in ("_a1", "_a2", "_b")]
+                + [idx[f"ego_disc_{d}_offset"]]
+                for d in range(module.n_discs)
+                for i in range(module.max_constraints)]
+    if type(module) is ContouringConstraintModule:
+        # the right width's row, then the left's (get_constraints' order)
+        return [[HK_ROADWIDTH, 0], [HK_ROADWIDTH, 1]]
     raise NotImplementedError(
         f"the fused kernel does not cover the constraint module "
         f"{type(module).__name__}")
@@ -208,8 +239,10 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
     """The kernel's tables for one OCP and (f32-safe) config. Raises
     ``ValueError`` for a regularization the kernel does not run and
     ``NotImplementedError`` for an OCP its header does not cover."""
-    from ..modules import (ConsistencyModule, ContouringModule, GoalModule,
-                           MPCBaseModule, PathReferenceVelocityModule)
+    from ..modules import (ConsistencyModule, ContouringConstraintModule,
+                           ContouringModule, CurvatureAwareContouringModule,
+                           GoalModule, MPCBaseModule,
+                           PathReferenceVelocityModule)
 
     if config.regularization not in REG_KINDS:
         raise ValueError(
@@ -219,7 +252,9 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
     idx = ocp.registry.save_map()
     head = [0] * TB_HEADER
     head[TB_MODEL] = model_id
+    head[TB_CA_VREF] = -1
     flags, spline, h_rows, seen = 0, [], [], set()
+    contouring = None
     for module in ocp.modules:
         kind = type(module)
         if module.module_type != "objective":
@@ -241,19 +276,30 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
             for slot, name in ((TB_GOAL_W, "goal_weight"),
                                (TB_GOAL_X, "goal_x"), (TB_GOAL_Y, "goal_y")):
                 head[slot] = idx[name]
-        elif kind is ContouringModule:
+        elif kind in (ContouringModule, CurvatureAwareContouringModule):
             if "spline" not in ocp.model.states:
                 raise NotImplementedError(
                     "the fused kernel covers contouring on a model with a "
                     "spline state")
             if module.num_segments < 1:
                 raise NotImplementedError("contouring needs a segment")
-            flags |= FL_CONTOUR
-            for slot, name in ((TB_CONTOUR, "contour"), (TB_LAG, "lag"),
+            if contouring is not None:
+                raise NotImplementedError("two contouring modules")
+            contouring = module
+            vref = module.dynamic_velocity_reference
+            if kind is ContouringModule:
+                flags |= FL_CONTOUR
+                head[TB_LAG] = idx["lag"]
+            else:
+                # contour distance and projected progress (CA-MPC)
+                flags |= FL_CA_CONTOUR
+                head[TB_VREF_W] = idx["velocity"]
+                if not vref:
+                    head[TB_CA_VREF] = idx["reference_velocity"]
+            for slot, name in ((TB_CONTOUR, "contour"),
                                (TB_TANGLE, "terminal_angle"),
                                (TB_TCONT, "terminal_contouring")):
                 head[slot] = idx[name]
-            vref = module.dynamic_velocity_reference
             if vref:
                 # w_v (v - v_ref(s))^2 on PathReferenceVelocityModule's
                 # spline, as the module's get_value adds it
@@ -266,7 +312,7 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
             spline = [[idx[f"spline_{xy}{i}_{c}"] for xy in "xy"
                        for c in "abcd"] + [idx[f"spline{i}_start"]]
                       + ([idx[f"spline_v{i}_{c}"] for c in "abcd"] if vref
-                         else [0] * 4)
+                         else [0] * 4) + [0] * 8
                       for i in range(module.num_segments)]
         elif kind is PathReferenceVelocityModule:
             pass  # declares the velocity spline; its own cost is 0
@@ -283,6 +329,19 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
     if len(h_rows) != ocp.nh:
         raise NotImplementedError(
             f"constraint rows {len(h_rows)} != the OCP's nh {ocp.nh}")
+    half_width = 0.0
+    roads = [m for m in ocp.modules if type(m) is ContouringConstraintModule]
+    if roads:
+        # the road widths are splines on the contouring path's segments
+        if (contouring is None
+                or any(m.num_segments != len(spline) for m in roads)):
+            raise NotImplementedError(
+                "the fused kernel covers road-width rows beside a contouring "
+                "module with as many segments")
+        for i, row in enumerate(spline):
+            row[SP_WL:SP_W] = [idx[f"width_{side}{i}_{c}"]
+                               for side in ("left", "right") for c in "abcd"]
+        half_width = roads[0].half_width(ocp.settings)
     if any(r[0] in (HK_ELLIPSOID, HK_GAUSSIAN) for r in h_rows):
         head[TB_DISC_R] = idx["ego_disc_radius"]
     if ocp.settings["N"] - 1 == 1:
@@ -301,8 +360,9 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
     ints = np.asarray(
         head + [v for r in spline + h_rows + rows for v in r], dtype=np.int32)
     reals = np.asarray(
-        [ocp.dt, config.reg_eps, config.levenberg, config.merit_eq_weight]
-        + [float(bounds[k][i]) for k, i in row_spec], dtype=np.float64)
+        [ocp.dt, config.reg_eps, config.levenberg, config.merit_eq_weight,
+         half_width] + [float(bounds[k][i]) for k, i in row_spec],
+        dtype=np.float64)
     generic = tuple(r for r, (k, _) in enumerate(row_spec) if k in ("hl", "hu"))
     return OcpTables(ints=ints, reals=reals,
                      reg=REG_KINDS[config.regularization], model=model_id,
@@ -466,11 +526,11 @@ def _check_layout(lib):
     layout of every model is the one :func:`qp_layout` unpacks."""
     from ..models import dynamics
 
-    table = (ctypes.c_int * 4)()
+    table = (ctypes.c_int * 6)()
     lib.tmpc_table_layout(table)
-    if list(table) != [TB_HEADER, SP_W, H_W, FL_VSPLINE]:
-        raise RuntimeError(f"table layout mismatch: {list(table)} vs "
-                           f"{[TB_HEADER, SP_W, H_W, FL_VSPLINE]}")
+    want = [TB_HEADER, SP_W, H_W, FL_VSPLINE, FL_CA_CONTOUR, RT_BOUNDS]
+    if list(table) != want:
+        raise RuntimeError(f"table layout mismatch: {list(table)} vs {want}")
 
     for name, model in MODELS.items():
         spec = getattr(dynamics, name)()

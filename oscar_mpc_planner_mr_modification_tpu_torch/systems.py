@@ -8,8 +8,9 @@ package's ``systems.py``:
   unless ``device="cpu"``;
 - :class:`LocalPlannerInterface`: the move_base local-planner plugin shape
   (set_plan / compute_velocity_commands / is_goal_reached);
-  :meth:`~LocalPlannerInterface.set_costmap` stores the costmap, which no
-  module of this package reads yet (the decomp constraints are not ported);
+  :meth:`~LocalPlannerInterface.set_costmap` hands the occupancy costmap to
+  the decomp constraints (``modules/decomp_constraints.py``) of a
+  configuration that has them;
 - :class:`WeightTuner`: live tuning of the declared weight parameters,
   clamped to their ranges, applied on the next control cycle.
 """
@@ -64,13 +65,15 @@ def dingo_settings(**overrides) -> Config:
 
 
 def make_system_planner(system: str = "jackalsimulator",
-                        configuration: str = "tmpc_consistency_cost",
+                        configuration="tmpc_consistency_cost",
                         dtype=None, sqp_config=None, clock=None,
                         device="cuda", **overrides):
     """Build the configured planner for a system (the node initializer):
-    ``(planner, model, settings)``. The solves run on ``device`` (pass
-    ``"cpu"`` for the plain versions) in ``dtype`` (f64 by default, as the
-    JAX package's)."""
+    ``(planner, model, settings)``. ``configuration`` names one of
+    :data:`CONFIGURATIONS`, or is a function ``settings -> (model,
+    modules)`` like them (e.g. one that adds ``DecompConstraintModule``).
+    The solves run on ``device`` (pass ``"cpu"`` for the plain versions) in
+    ``dtype`` (f64 by default, as the JAX package's)."""
     settings_fn = {
         "jackalsimulator": jackalsimulator_settings,
         "jackal": jackal_settings,
@@ -78,7 +81,9 @@ def make_system_planner(system: str = "jackalsimulator",
         "rosnavigation": jackalsimulator_settings,
     }[system]
     settings = settings_fn(**overrides)
-    model, modules = CONFIGURATIONS[configuration](settings)
+    configure = (CONFIGURATIONS[configuration]
+                 if isinstance(configuration, str) else configuration)
+    model, modules = configure(settings)
     planner = build_planner(model, modules, settings,
                             dtype=dtype or torch.float64,
                             sqp_config=sqp_config, clock=clock,
@@ -128,7 +133,7 @@ class LocalPlannerInterface:
     """move_base-style local planner plugin (rosnavigation equivalent)."""
 
     def __init__(self, system: str = "rosnavigation",
-                 configuration: str = "basic", device="cuda", **overrides):
+                 configuration="basic", device="cuda", **overrides):
         self.planner, self.model, self.settings = make_system_planner(
             system, configuration, device=device, **overrides)
         from .planner.data_preparation import define_robot_area
@@ -151,8 +156,9 @@ class LocalPlannerInterface:
         return True
 
     def set_costmap(self, costmap) -> None:
-        """Store the occupancy costmap in the planner's data (the decomp
-        constraints that read it are not ported yet)."""
+        """Hand the occupancy costmap to the decomp constraints: the
+        planner's data carries it into ``DecompConstraintModule.update`` on
+        each cycle."""
         self.data.costmap = costmap
 
     def set_obstacles(self, obstacles) -> None:

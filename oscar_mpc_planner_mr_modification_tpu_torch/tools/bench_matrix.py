@@ -243,6 +243,171 @@ def build_dynvref(N, plans):
             z_init.reshape(plans * Pq, *z_init.shape[2:]))
 
 
+def _curved_spline(P, idx, settings, B, rng, seg=8.0):
+    """A path y = k x^2 / 2 along x, its curvature k ~ U(-0.05, 0.05) per
+    problem (radius >= 20 m), as cubic segments of ``seg`` m in local
+    coordinates."""
+    k = rng.uniform(-0.05, 0.05, B)[:, None]
+    for i in range(settings["contouring"]["num_segments"]):
+        s0 = seg * i
+        P[..., idx[f"spline_x{i}_c"]] = 1.0
+        P[..., idx[f"spline_x{i}_d"]] = s0
+        P[..., idx[f"spline_y{i}_b"]] = k / 2.0
+        P[..., idx[f"spline_y{i}_c"]] = k * s0
+        P[..., idx[f"spline_y{i}_d"]] = k * s0 * s0 / 2.0
+        P[..., idx[f"spline{i}_start"]] = s0
+    return k
+
+
+def _along_x(ocp, B, N, v0, dt=0.2):
+    """x0 at rest on the path's start at speed v0, and z0 that state
+    carried along x at v0 (x and the spline state)."""
+    m = ocp.model
+    x0 = np.zeros((B, ocp.nx), dtype=np.float32)
+    x0[:, m.state_index("v")] = v0
+    z0 = np.zeros((B, N + 1, ocp.nvar), dtype=np.float32)
+    z0[:, :, ocp.nu:] = x0[:, None, :]
+    for name in ("x", "spline"):
+        z0[:, :, m.var_index(name)] = np.arange(N + 1)[None] * v0 * dt
+    return x0, z0
+
+
+def _ellipsoids(P, idx, B, rng, n, x_range):
+    for i in range(n):
+        P[..., idx[f"ellipsoid_obst_{i}_x"]] = rng.uniform(*x_range, B)[:, None]
+        P[..., idx[f"ellipsoid_obst_{i}_y"]] = rng.uniform(-1.5, 1.5, B)[:, None]
+        P[..., idx[f"ellipsoid_obst_{i}_chi"]] = 1.0
+        P[..., idx[f"ellipsoid_obst_{i}_r"]] = 0.3
+        P[:, 0, idx[f"ellipsoid_obst_{i}_x"]] = 50.0
+
+
+def _weights(P, idx, settings, names):
+    for name in names:
+        P[..., idx[name]] = settings["weights"][name]
+
+
+def build_bicycle(N, B, rng, curvature_aware=False, road_width=False):
+    """The bicycle fleet (``factory.configuration_bicycle`` at
+    ``default_settings(N=N)``: 4 ellipsoids; nx=6, nu=3 with the slack
+    input), its curvature-aware variant, or with ``road_width`` the
+    road-width rows of ``ContouringConstraintModule`` added (widths 1.5-3.0
+    m on each side): on curved paths (:func:`_curved_spline`) at 3 m/s.
+    Not one of BASELINE's five."""
+    from ..factory import configuration_bicycle
+    from ..modules import ContouringConstraintModule
+    from ..solver import build_ocp
+    from ..utils import default_settings
+
+    settings = default_settings(N=N)
+    model, mm = configuration_bicycle(settings, curvature_aware)
+    if road_width:
+        mm.add_module(ContouringConstraintModule(settings))
+    ocp = build_ocp(model, mm, settings)
+    idx = ocp.registry.save_map()
+    P = np.zeros((B, N, ocp.npar), dtype=np.float32)
+    _weights(P, idx, settings, (
+        "acceleration", "angular_velocity", "slack", "velocity",
+        "reference_velocity", "contour", "lag", "terminal_angle",
+        "terminal_contouring"))
+    _curved_spline(P, idx, settings, B, rng)
+    P[..., idx["ego_disc_radius"]] = 1.0
+    _ellipsoids(P, idx, B, rng, settings["max_obstacles"], (6.0, 20.0))
+    if road_width:
+        for i in range(settings["contouring"]["num_segments"]):
+            for side in ("left", "right"):
+                P[..., idx[f"width_{side}{i}_d"]] = rng.uniform(
+                    1.5, 3.0, B)[:, None]
+    x0, z0 = _along_x(ocp, B, N, 3.0)
+    return ocp, P, x0, z0
+
+
+def ca_unicycle_modules(settings):
+    """The curvature-aware unicycle (``ContouringSecondOrderUnicycleModel
+    CurvatureAware``) with MPCBase weighing a and w, the CA-MPC contouring
+    cost and ellipsoid obstacle constraints."""
+    from ..models import ContouringSecondOrderUnicycleModelCurvatureAware
+    from ..modules import (CurvatureAwareContouringModule,
+                           EllipsoidConstraintModule, ModuleManager,
+                           MPCBaseModule)
+
+    mm = ModuleManager()
+    base = mm.add_module(MPCBaseModule(settings))
+    base.weigh_variable("a", "acceleration")
+    base.weigh_variable("w", "angular_velocity")
+    mm.add_module(CurvatureAwareContouringModule(settings))
+    mm.add_module(EllipsoidConstraintModule(settings))
+    return ContouringSecondOrderUnicycleModelCurvatureAware(), mm
+
+
+def build_ca_unicycle(N, B, rng):
+    """The CA-MPC fleet (:func:`ca_unicycle_modules`, 3 ellipsoids) on
+    curved paths at 1.5 m/s. Not one of BASELINE's five."""
+    from ..solver import build_ocp
+    from ..utils import default_settings
+
+    settings = default_settings(N=N, max_obstacles=3)
+    ocp = build_ocp(*ca_unicycle_modules(settings), settings)
+    idx = ocp.registry.save_map()
+    P = np.zeros((B, N, ocp.npar), dtype=np.float32)
+    _weights(P, idx, settings, (
+        "acceleration", "angular_velocity", "velocity", "reference_velocity",
+        "contour", "terminal_angle", "terminal_contouring"))
+    _curved_spline(P, idx, settings, B, rng, seg=5.0)
+    P[..., idx["ego_disc_radius"]] = 0.325
+    _ellipsoids(P, idx, B, rng, 3, (2.0, 7.0))
+    x0, z0 = _along_x(ocp, B, N, 1.5)
+    return ocp, P, x0, z0
+
+
+def corridor_points(half_width, length=12.0, spacing=0.25):
+    """Occupied points of two walls at y = +-half_width along x in [0,
+    length]: a corridor costmap as (n, 2) world points."""
+    xs = np.arange(0.0, length + 1e-9, spacing)
+    return np.concatenate([np.stack([xs, np.full_like(xs, y)], axis=1)
+                           for y in (half_width, -half_width)])
+
+
+def build_decomp(N, B, rng):
+    """The decomp fleet: ``factory.configuration_no_obstacles`` plus
+    ``DecompConstraintModule`` (12 halfspaces per stage) at 1 m/s down
+    corridors of half-width 1.0-2.0 m, each problem's halfspaces decomposed
+    (``EllipsoidDecomp2D``) around its warm start's path, far-away dummies
+    where a stage has fewer. Not one of BASELINE's five."""
+    from ..factory import configuration_no_obstacles
+    from ..modules import DecompConstraintModule
+    from ..solver import build_ocp
+    from ..utils import default_settings
+
+    settings = default_settings(N=N, max_obstacles=0)
+    model, mm = configuration_no_obstacles(settings)
+    decomp = mm.add_module(DecompConstraintModule(settings))
+    ocp = build_ocp(model, mm, settings)
+    idx = ocp.registry.save_map()
+    P = np.zeros((B, N, ocp.npar), dtype=np.float32)
+    _weights(P, idx, settings, (
+        "acceleration", "angular_velocity", "velocity", "reference_velocity",
+        "contour", "lag", "terminal_angle", "terminal_contouring"))
+    _straight_spline(P, idx, settings)
+    for i in range(settings["contouring"]["num_segments"]):
+        P[..., idx[f"spline_x{i}_d"]] = 5.0 * i
+    x0, z0 = _along_x(ocp, B, N, 1.0)
+    rows = decomp.max_constraints
+    names = [[decomp._constraint_name(i, 0) + f"_{c}" for i in range(rows)]
+             for c in ("a1", "a2", "b")]
+    for (a1, a2, b) in zip(*names):
+        P[..., idx[a1]], P[..., idx[b]] = 1.0, 1000.0
+    half = rng.uniform(1.0, 2.0, B)
+    path = np.stack([z0[0, :N, ocp.nu], np.zeros(N)], axis=1).astype(float)
+    for j in range(B):
+        polys = decomp.decomp.dilate_path(path, corridor_points(half[j]))
+        for k in range(1, N):
+            for i, (a, b) in enumerate(polys[k][:rows]):
+                P[j, k, idx[names[0][i]]] = a[0]
+                P[j, k, idx[names[1][i]]] = a[1]
+                P[j, k, idx[names[2][i]]] = b
+    return ocp, P, x0, z0
+
+
 def cases(N=20, B=512, seed=0) -> dict:
     """name -> (ocp, P (problems, N, npar), x0, z0), numpy f32: the JAX
     tool's builders in its order on one generator, so that the inputs equal

@@ -5,8 +5,8 @@ updates, the parameter fill, the solve, output extraction. Each must give
 a finite plan, solve at least 2 of 3 ticks and move forward, the JAX
 test's assertions. The planners without a guidance or scenario module
 solve through ``Solver.solve``; the others through their optimizer's
-fleet backend (the plain versions on the CPU). The bicycle waits for its
-model (ROADMAP 4d)."""
+fleet backend (the plain versions on the CPU). The bicycle's third input,
+its slack, is held at 0 when the robot moves."""
 
 import numpy as np
 import pytest
@@ -42,6 +42,7 @@ CONFIGS = [
     ("safe_horizon", factory.configuration_safe_horizon,
      {"scenario_constraints.n_samples": 24, "probabilistic.enable": True,
       "_probabilistic_obstacles": True}),
+    ("bicycle", factory.configuration_bicycle, {}),
 ]
 
 

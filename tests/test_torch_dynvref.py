@@ -161,7 +161,8 @@ def test_dynvref_tables_flag_and_spline_rows():
     assert it[sqp_fused.TB_VREF_W] == idx["velocity"]
     rows = it[sqp_fused.TB_HEADER:it[sqp_fused.TB_OFF_H]].reshape(
         5, sqp_fused.SP_W)
-    assert list(rows[2, 9:]) == [idx[f"spline_v2_{c}"] for c in "abcd"]
+    assert list(rows[2, sqp_fused.SP_V:sqp_fused.SP_V + 4]) == [
+        idx[f"spline_v2_{c}"] for c in "abcd"]
     plain, _ = tbench.tmpc_bench_ocp(N=6, n_paths=2)
     off = sqp_fused.ocp_tables(
         plain, tsqp.SQPConfig(regularization="gershgorin")).ints

@@ -283,7 +283,7 @@ def test_what_the_kernels_do_not_cover_raises():
     ocp = build_ocp(models.SecondOrderUnicycleModel(), mm, settings)
     with pytest.raises(NotImplementedError, match="MPCBaseModule"):
         sqp_fused.ocp_tables(ocp, cfg)
-    # B1 and B2 are compiled for (5, 2), (4, 2) and (6, 2)
+    # B1 and B2 are compiled for (5, 2), (4, 2), (6, 2) and (6, 3)
     qp_cuda.check_instantiated(4, 2)
-    with pytest.raises(ValueError, match=r"not \(6, 3\)"):
-        qp_cuda.check_instantiated(6, 3)
+    with pytest.raises(ValueError, match=r"not \(7, 3\)"):
+        qp_cuda.check_instantiated(7, 3)

@@ -170,7 +170,8 @@ def _check_iteration_count(lib, qp, row_mask, row_meta, nx, nu):
     return hand
 
 
-@pytest.mark.parametrize("nx,nu", [(5, 2), (4, 2), (6, 2), (3, 1), (4, 3)])
+@pytest.mark.parametrize("nx,nu", [(5, 2), (4, 2), (6, 2), (6, 3), (3, 1),
+                                   (4, 3)])
 def test_ip_iteration_flops_match_the_kernel_count(count_lib, nx, nu):
     """Generic and box rows, a masked stage, an inactive row, nu 1 to 3."""
     T, m = 6, 5
@@ -666,3 +667,30 @@ def test_slice9_ocp_flops_match_the_kernel_count(count_lib, which):
     if which == "vref":
         assert want[0] == roofline.IP_ITER_FLOPS
         assert want[1] > roofline.LIN_FLOPS
+
+
+@pytest.mark.parametrize("which", ["bicycle", "bicycle_ca", "road", "ca",
+                                   "decomp"])
+def test_item_4d_ocp_flops_match_the_kernel_count(count_lib, which):
+    """The BICYCLE_, BICYCLE_CA_, ROAD_, CA_ and DECOMP_ constants are the
+    hand count and the fused kernel's own counts at tools/bench_matrix.py's
+    bicycle fleets (N=30: plain, curvature-aware, with the road-width rows),
+    its CA-MPC fleet and its decomp fleet (N=20), on every problem."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+
+    rng = np.random.default_rng(0)
+    build = {
+        "bicycle": lambda: bench_matrix.build_bicycle(30, 3, rng),
+        "bicycle_ca": lambda: bench_matrix.build_bicycle(30, 3, rng, True),
+        "road": lambda: bench_matrix.build_bicycle(30, 3, rng,
+                                                   road_width=True),
+        "ca": lambda: bench_matrix.build_ca_unicycle(20, 3, rng),
+        "decomp": lambda: bench_matrix.build_decomp(20, 3, rng)}[which]
+    ocp, *arrays = build()
+    P, x0, Z = (torch.as_tensor(a, dtype=torch.float64) for a in arrays)
+    P = torch.cat([P, P[:, -1:]], dim=1).contiguous()
+    prefix = which.upper()
+    want = tuple(getattr(roofline, f"{prefix}_{kind}_FLOPS")
+                 for kind in ("IP_ITER", "LIN", "MERIT"))
+    assert _counts(count_lib, ocp, P, x0, Z) == want

@@ -44,7 +44,10 @@ def test_port_has_sources():
             "multirobot/comms.py", "multirobot/driver.py",
             "multirobot/interpolation.py", "multirobot/transport.py",
             "multirobot/vehicle_io.py", "sim/environment.py",
-            "utils/datasaver.py"} <= names
+            "utils/datasaver.py", "modules/curvature_aware_contouring.py",
+            "modules/contouring_constraints.py",
+            "modules/decomp_constraints.py", "ops/decomp.py",
+            "ops/decomp_native.py", "native/decomp.cpp"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
