@@ -106,7 +106,23 @@ fleet (12 halfspace rows) through B2 against plain, 3 ticks of JAX's
 corridor scene through LocalPlannerInterface.set_costmap /
 compute_velocity_commands (JAX's assertions; the single-instance solve,
 timed, not gated) and the road-width bicycle fleet through B2 against
-plain. Any failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
+plain. Then (o) the sharded fleet step of parallel/mesh.py, each run with
+the launch counts set to 0 before it: (o1) a 1x1 grid on an NCCL group of
+one rank at the bench fleet (512 x 9, N=20, f32): "auto" resolved to
+"fused", the champions gathered on the card, one B2 launch per step and no
+other kernel, the unsharded fused step's winners (index equal, cost and z
+within 1e-6 relative; whether bitwise equal is printed), both steps timed
+by CUDA events in turns (the difference is the mesh layer's cost), B2
+alone, the step through B2's plain twin, and at f64 (B=64) kernel against
+plain; (o2) a 2x2 grid of four spawned processes on this card in a gloo
+group with host staging, the fleet padded to P=10 with a disabled planner:
+one B2 launch of 1280 problems per rank, the unsharded step's winners, the
+gathered elements against the champion payload, per-rank ms (not gated);
+(o3) the port's dryrun_multichip(4). The spawned processes only load the
+libraries this process built. (o4) The host layers: the terminal
+dashboard and web snapshot of the multi-robot run's MetricsLog, and
+Planner.visualize and SceneRecorder.capture on the tick phase's planner.
+Any failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 each with its bound. Needs one CUDA device; without one it exits with code 2.
 """
@@ -526,6 +542,7 @@ def run_ticks(tick, pipelined, capture_at=None, profile_last=False,
         gc.enable()
         optimizer.__dict__.pop("_dispatch_batch", None)
     rec["progress_m"] = state.get("x") - x_start
+    rec["scene"] = (clock.t, state, data, out)
     for k in ("tick_ms", "host_ms", "wait_ms"):
         rec[k] = np.asarray(rec[k])
     return rec
@@ -627,7 +644,8 @@ def tick_phase(dev, card, reset_counts, counts, none):
         "the tick's shape")
     check_ip_count(mach, ocp, "TICK", "the tick")
     pipe = runs["pipelined"]
-    return dict(launches=pipe["b2"],
+    return dict(scene=(planner, gg, *runs["serial"]["scene"]),
+                launches=pipe["b2"],
                 launches_per_tick=pipe["b2"] / pipe["ticks"],
                 err=err, ms=k_ms, plain_ms=p_ms,
                 flops=roofline.sqp_flops(
@@ -2059,7 +2077,8 @@ def multirobot_phase(dev, card, reset_counts, counts, none):
         f"{np.median(rec['tick_ms']):.3f}; states "
         f"{[a.fsm.name for a in agents]}; communication rates "
         f"{[round(dlog.communication_rate(a.ns), 4) for a in agents]}")
-    return dict(launches=launches, err=err, ms=k_ms, plain_ms=p_ms,
+    return dict(metrics_log=mlog, launches=launches, err=err, ms=k_ms,
+                plain_ms=p_ms,
                 flops=roofline.sqp_flops(
                     P, _phases_of(cfg), lin=roofline.MRTICK_LIN_FLOPS,
                     merit=roofline.MRTICK_MERIT_FLOPS,
@@ -2486,6 +2505,256 @@ def decomp_phase(dev, card, reset_counts, counts, none):
                                       "road-width bicycle", ocp, arrays,
                                       "ROAD", b1=False)["b2"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# (o) The sharded fleet step (parallel/mesh.py) and the host layers
+# ---------------------------------------------------------------------------
+#: The mesh step's tolerance against the unsharded fused step: the same B2
+#: arithmetic per problem, so equal up to 1e-6 relative (printed: bitwise).
+MESH_RTOL = 1e-6
+MESH_TIMEOUT_S = 300.0
+
+
+def same_winners(got, ref, name):
+    """Index equal everywhere, cost and z within MESH_RTOL relative; prints
+    whether the two are bitwise equal. ``got`` is (best_z, best_cost,
+    best_index, any_ok) as numpy, ``ref`` a TMPCStepResult."""
+    z, cost, index, ok = got
+    rz, rcost = ref.best_z.cpu().numpy(), ref.best_cost.cpu().numpy()
+    rindex, rok = ref.best_index.cpu().numpy(), ref.any_success.cpu().numpy()
+    fin = np.isfinite(rcost)
+    dcost = np.abs(cost[fin] - rcost[fin]) / np.abs(rcost[fin])
+    dz = (np.abs(z - rz).reshape(len(z), -1).max(axis=1)
+          / (1.0 + np.abs(rz).reshape(len(z), -1).max(axis=1)))
+    bitwise = (np.array_equal(z, rz) and np.array_equal(cost, rcost)
+               and np.array_equal(index, rindex))
+    log(f"{name} against the unsharded fused step: index equal on "
+        f"{np.mean(index == rindex):.6f} of plans, max rel cost "
+        f"{dcost.max(initial=0.0):.3e}, max per-plan rel z "
+        f"{dz.max(initial=0.0):.3e}; bitwise equal: {bitwise}")
+    check(np.array_equal(index, rindex) and np.array_equal(ok, rok)
+          and np.array_equal(np.isfinite(cost), fin)
+          and dcost.max(initial=0.0) <= MESH_RTOL
+          and dz.max(initial=0.0) <= MESH_RTOL,
+          f"{name}: the unsharded fused step's winners (index, any_ok; cost "
+          f"and z within {MESH_RTOL:g} relative)")
+    return bitwise
+
+
+def mesh_phase(dev, card, reset_counts, counts, none):
+    """(o) The sharded fleet step of ``parallel/mesh.py`` on the card, each
+    run with the launch counts set to 0 just before it. (o1) A 1x1 grid on
+    an NCCL group of one rank at the bench fleet (B=512, P=9, N=20, f32,
+    BENCH_SCHEDULE): "auto" resolves to "fused", the champions stay on the
+    card, one B2 launch per step and no other kernel, the unsharded fused
+    step's winners; the two steps timed by CUDA events (median of 20, in
+    turns), B2 alone, the step through B2's plain twin, and at f64 (B=64)
+    kernel against plain. (o2) A 2x2 grid of four spawned processes on
+    this card in a gloo group (host staging), the fleet padded to P=10 with
+    a disabled planner: one B2 launch of 256 x 5 = 1280 problems per rank,
+    the unsharded step's winners, gathered elements against the champion
+    payload, per-rank ms (not gated: four processes share the card). (o3)
+    ``dryrun_multichip(4)``. The children only load the libraries this
+    process built (``qp_cuda.require_built``). Returns the kernel entry's
+    numbers."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from oscar_mpc_planner_mr_modification_tpu_torch.benchmarks import (
+        build_tmpc_fleet, tmpc_bench_ocp)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        qp_cuda, roofline, sqp_fused)
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel import mesh
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel.batch import (
+        make_batched_tmpc_step, to_torch_fleet)
+
+    t_phase = time.perf_counter()
+    cfg = bench_config()
+    ocp, settings = tmpc_bench_ocp(N=N_MAIN, n_paths=N_PATHS)
+    arrays = build_tmpc_fleet(ocp, settings, B_MAIN, seed=0)
+    args = to_torch_fleet(*arrays, device=dev, dtype=torch.float32)
+    P = N_PATHS + 1
+    payload = (N_MAIN + 1) * ocp.nvar + 2
+    ref_step = make_batched_tmpc_step(ocp, cfg, dtype=torch.float32,
+                                      device=dev, backend="fused")
+    ref = ref_step(*args)
+    sync()
+
+    # ---- (o1) 1x1 on NCCL ------------------------------------------------
+    with tempfile.TemporaryDirectory() as work:
+        dist.init_process_group("nccl", init_method=f"file://{work}/store",
+                                rank=0, world_size=1)
+        try:
+            grid = mesh.make_mesh(1, 1)
+            step = mesh.make_sharded_tmpc_step(ocp, cfg, grid,
+                                               dtype=torch.float32, device=dev)
+            check(step.backend == "fused" and step.staging == "device",
+                  f"(o1) 1x1 NCCL mesh step: backend {step.backend!r} == "
+                  f"'fused' (from 'auto'), staging {step.staging!r} == "
+                  f"'device'")
+            reset_counts()
+            out = step(*args)
+            sync()
+            got = counts()
+            check(got == {**none, "sqp_fused": 1},
+                  f"(o1) mesh step launches {got} (want one B2 launch, no "
+                  f"other kernel)")
+            launches = got["sqp_fused"]
+            bitwise = same_winners(tuple(x.cpu().numpy() for x in out), ref,
+                                   "(o1) mesh step")
+            check(step.gathered_elements == B_MAIN * payload,
+                  f"(o1) gathered {step.gathered_elements} elements = B x "
+                  f"((N+1) nvar + 2) = {B_MAIN * payload}")
+            times = {"mesh": [], "unsharded": []}
+            for name in ("mesh", "unsharded", "unsharded", "mesh"):
+                fn = step if name == "mesh" else ref_step
+                times[name] += cuda_time_ms(lambda: fn(*args), reps=10)[1]
+            mesh_ms = float(np.median(times["mesh"]))
+            ref_ms = float(np.median(times["unsharded"]))
+            flat = flat_fleet(args)
+            f_ms, f_all = cuda_time_ms(lambda: step.fleet_solve(*flat),
+                                       reps=20)
+            log(f"[{card}] (o1) 1x1 mesh step ({B_MAIN} x {P}, N={N_MAIN}, "
+                f"f32, CUDA events, median of 20 in turns): {mesh_ms:.3f} ms "
+                f"against the unsharded fused step {ref_ms:.3f} ms: the mesh "
+                f"layer costs {mesh_ms - ref_ms:.3f} ms; B2 alone {f_ms:.3f} "
+                f"ms (median of 20; {spread(f_all)}); bitwise {bitwise}")
+            with plain_fused_solver(step.fleet_solve):
+                reset_counts()
+                out_p = step(*args)
+                sync()
+                check(counts() == none, "(o1) plain mesh step launched no "
+                      "kernel")
+                plain_ms, _ = cuda_time_ms(lambda: step(*args), reps=2,
+                                           warmup=0)
+            agree = (out[3] == out_p[3]).float().mean().item()
+            log(f"[{card}] (o1) mesh step through B2's plain twin: "
+                f"{plain_ms:.3f} ms (median of 2), any_ok agreement "
+                f"{agree:.6f}")
+            check(agree >= 0.99, "(o1) f32 mesh step any_ok agrees with its "
+                  "plain step on >= 99% of plans")
+
+            ocp64, args64 = bench_fleet(64, torch.float64, dev)
+            step64 = mesh.make_sharded_tmpc_step(ocp64, cfg, grid,
+                                                 dtype=torch.float64,
+                                                 device=dev)
+            out_k = step64(*args64)
+            with plain_fused_solver(step64.fleet_solve):
+                out_p = step64(*args64)
+            sync()
+            dz = (out_k[0] - out_p[0]).abs()
+            rel = (dz.amax(dim=(1, 2))
+                   / (1.0 + out_p[0].abs().amax(dim=(1, 2))))
+            err = dz.max().item()
+            log(f"(o1) f64 mesh step at B=64 ({64 * P} problems), kernel "
+                f"against plain: same index {bool(torch.equal(out_k[2], out_p[2]))}, "
+                f"max|dz| {err:.3e}, max per-plan rel {rel.max().item():.3e}")
+            check(torch.equal(out_k[2], out_p[2])
+                  and torch.equal(out_k[3], out_p[3])
+                  and rel.max().item() <= FUSED_F64_GATE,
+                  f"(o1) f64 mesh step = its plain step: same winners and "
+                  f"any_ok, per plan max|dz| / (1 + max|z|) <= "
+                  f"{FUSED_F64_GATE:g}")
+        finally:
+            dist.destroy_process_group()
+
+    # ---- (o2) 2x2 on one card: four processes, gloo, host staging -------
+    params, xinit, z_init, disabled = arrays
+    pad = lambda x: np.concatenate([x, x[:, -1:]], axis=1)  # noqa: E731
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "fleet.npz")
+        np.savez(path, params=pad(params), xinit=xinit, z_init=pad(z_init),
+                 disabled=np.concatenate(
+                     [disabled, np.ones((B_MAIN, 1), bool)], axis=1))
+        case = mesh.FleetCase("o2", (2, 2), dict(N=N_MAIN, n_paths=N_PATHS),
+                              cfg, path, dtype=torch.float32, repeat=20)
+        qp_cuda.require_built(("sqp_fused",))
+        t = time.perf_counter()
+        ranks = mesh.run_ranks(4, [case], work, devices=[str(dev)] * 4,
+                               dist_backend="gloo",
+                               timeout_s=MESH_TIMEOUT_S)["o2"]
+        spawn_s = time.perf_counter() - t
+    b_loc, p_loc = B_MAIN // 2, (P + 1) // 2
+    for r in ranks:
+        check(str(r["backend"]) == "fused" and str(r["staging"]) == "host"
+              and int(r["b2_launches"]) == 1 and int(r["b1_launches"]) == 0,
+              f"(o2) rank {tuple(int(c) for c in r['coords'])}: backend {r['backend']}, "
+              f"staging {r['staging']}, {int(r['b2_launches'])} B2 launch of "
+              f"{b_loc} x {p_loc} = {b_loc * p_loc} problems, "
+              f"{int(r['b1_launches'])} QP-kernel launches")
+        check(int(r["gathered_elements"]) == b_loc * 2 * payload,
+              f"(o2) rank {tuple(int(c) for c in r['coords'])} gathered "
+              f"{int(r['gathered_elements'])} elements = b_loc x S x "
+              f"((N+1) nvar + 2) = {b_loc * 2 * payload} (the fleet's params "
+              f"hold {params.size})")
+    got = tuple(mesh.gather_rows(ranks, k)
+                for k in ("best_z", "best_cost", "best_index", "any_ok"))
+    bitwise2 = same_winners(got, ref, "(o2) 2x2 mesh step, P padded to 10")
+    for rr in range(2):
+        a, b = [r for r in ranks if int(r["coords"][0]) == rr]
+        check(all(np.array_equal(a[k], b[k]) for k in
+                  ("best_z", "best_cost", "best_index")),
+              f"(o2) both ranks of robots row {rr} return the same winners")
+    ms2 = [float(r["ms"]) for r in ranks]
+    log(f"[{card}] (o2) 2x2 mesh step, four processes on one card (gloo, "
+        f"host staging), per rank median of 20 (not gated): "
+        f"{[round(m, 3) for m in ms2]} ms; spawn to results {spawn_s:.2f} s; "
+        f"bitwise {bitwise2}")
+
+    # ---- (o3) the port's dryrun ------------------------------------------
+    t = time.perf_counter()
+    dry = mesh.dryrun_multichip(4, device=dev)
+    check(dry["backend"] == "fused" and dry["staging"] == "host"
+          and dry["dist_backend"] == "gloo",
+          f"(o3) dryrun_multichip(4) on one card: {dry['dist_backend']}, "
+          f"backend {dry['backend']}, staging {dry['staging']}, finite costs "
+          f"({time.perf_counter() - t:.2f} s)")
+    log(f"(o) mesh phases took {time.perf_counter() - t_phase:.2f} s")
+    n_problems = B_MAIN * P
+    return dict(launches=launches, err=err, ms=f_ms, plain_ms=plain_ms,
+                flops=roofline.sqp_flops(n_problems, BENCH_SCHEDULE),
+                n_bytes=roofline.tensor_bytes(fleet_P(flat[0]), *flat[1:],
+                                              flat[2]) + 8 * n_problems)
+
+
+def host_layers_phase(tick_scene, metrics_log):
+    """(o4) The host layers on the card's run: the terminal dashboard and
+    the web snapshot of the multi-robot phase's MetricsLog, and
+    ``Planner.visualize`` and ``SceneRecorder.capture`` on the tick phase's
+    planner (its last serial tick)."""
+    import tempfile
+
+    from oscar_mpc_planner_mr_modification_tpu_torch.dashboard import (
+        render_dashboard)
+    from oscar_mpc_planner_mr_modification_tpu_torch.dashboard_web import (
+        snapshot)
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils.visualization import (  # noqa: E501
+        SceneRecorder)
+
+    text = render_dashboard(metrics_log)
+    snap = snapshot(metrics_log)
+    robots = sorted(metrics_log.records)
+    log("(o4) dashboard of the multi-robot run:\n" + text)
+    check([r["ns"] for r in snap["robots"]] == robots
+          and all(ns in text for ns in robots),
+          f"(o4) dashboard and snapshot list the robots {robots}")
+    planner, guidance, t, state, data, out = tick_scene
+    check(planner.visualize(state, data) is None,
+          "(o4) Planner.visualize on the tick planner returns None")
+    rec = SceneRecorder()
+    frame = rec.capture(t, state, data, planner=planner, output=out,
+                        guidance=guidance)
+    with tempfile.TemporaryDirectory() as work:
+        payload = json.load(open(rec.save_json(os.path.join(work, "s.json"))))
+    check(len(payload) == 1 and np.all(np.isfinite(frame.robot_pose))
+          and frame.warmstart_trajectory.shape == (N_MAIN + 1, 2),
+          f"(o4) SceneRecorder.capture on the tick planner: pose "
+          f"{np.round(frame.robot_pose, 3).tolist()}, "
+          f"{len(frame.obstacles)} obstacles, "
+          f"{len(frame.guidance_trajectories)} guidance trajectories, "
+          f"planned {frame.planned_trajectory is not None}")
 
 
 def check(cond, msg):
@@ -3102,6 +3371,10 @@ def main():
     ca = ca_phase(dev, card, reset_counts, counts, none)
     dec = decomp_phase(dev, card, reset_counts, counts, none)
 
+    # ---- 34-35. the sharded fleet step and the host layers ---------------
+    mesh_b2 = mesh_phase(dev, card, reset_counts, counts, none)
+    host_layers_phase(tk["scene"], mr_tick["metrics_log"])
+
     # ---- the kernels, each with its bound ---------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, flops,
               n_bytes, **_):
@@ -3200,6 +3473,8 @@ def main():
               f"{jax_ops}/sqp_fused.py:45", **dec["decomp"]),
         entry("sqp_fused_road", "sqp_fused.cu",
               f"{jax_ops}/sqp_fused.py:45", **dec["road"]),
+        entry("sqp_fused_mesh", "sqp_fused.cu",
+              f"{jax_ops}/sqp_fused.py:45", **mesh_b2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

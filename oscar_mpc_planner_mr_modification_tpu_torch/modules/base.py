@@ -75,6 +75,12 @@ class Module:
     def reset(self) -> None:
         pass
 
+    def save_data(self, data_saver) -> None:
+        pass
+
+    def visualize(self, data, module_data) -> None:
+        pass
+
 
 class ObjectiveModule(Module):
     module_type = "objective"

@@ -17,9 +17,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-
-def wrap_angle(a):
-    return np.arctan2(np.sin(a), np.cos(a))
+from ..utils.math import wrap_angle
 
 
 def wrap_angle_difference(d):

@@ -477,6 +477,23 @@ def build(name: str = "qp_ip") -> BuildInfo:
     return build_all((name,))[name]
 
 
+def require_built(names=tuple(KERNELS)) -> dict:
+    """The named libraries as :func:`build_all` left them, without building:
+    raises ``RuntimeError`` where ``build/torch_kernels/`` holds no library
+    of the current sources. Processes that share one build directory (the
+    ranks of a sharded step) call this after their parent has built, so
+    that none of them starts nvcc."""
+    for name in names:
+        if name in _BUILT:
+            continue
+        out = _BUILD_DIR / f"lib{name}_{_digest(_CSRC / KERNELS[name])}.so"
+        if not out.is_file():
+            raise RuntimeError(f"{out} is not built: run qp_cuda.build_all "
+                               "before starting the processes that load it")
+        _BUILT[name] = BuildInfo(str(out), 0.0, "")
+    return {name: _BUILT[name] for name in names}
+
+
 def _bind_qp(lib, suffixes):
     """Argument types of the QP entries (kernel or host build)."""
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double

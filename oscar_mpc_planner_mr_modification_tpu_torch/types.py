@@ -151,7 +151,8 @@ Boundary = ReferencePath
 
 @dataclass
 class Trajectory:
-    """Timed 2D trajectory with orientations."""
+    """Timed 2D trajectory with orientations. The overlap mask and the
+    deviation trigger wrap :mod:`.multirobot.interpolation`."""
 
     dt: float = 0.0
     positions: List[np.ndarray] = field(default_factory=list)
@@ -172,6 +173,18 @@ class Trajectory:
 
     def as_array(self) -> np.ndarray:
         return np.asarray(self.positions, dtype=float).reshape(-1, 2)
+
+    def calc_collision_mask_gk(self, other: "Trajectory", sigma: float) -> float:
+        from .multirobot.interpolation import collision_mask_gk
+
+        return collision_mask_gk(self.as_array(), other.as_array(), sigma)
+
+    def geometric_deviation_trigger(self, broadcasted: "Trajectory",
+                                    max_deviation: float) -> bool:
+        from .multirobot.interpolation import geometric_deviation
+
+        return geometric_deviation(self.as_array(),
+                                   broadcasted.as_array()) > max_deviation
 
 
 @dataclass

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -52,3 +53,13 @@ def erfinv_newton(x):
     for _ in range(2):
         y = y - (torch.erf(y) - x) / (two_over_sqrt_pi * torch.exp(-y * y))
     return y
+
+
+def np_haar_difference(angle1, angle2):
+    """numpy :func:`haar_difference_without_abs` for host code."""
+    return np.fmod(angle1 - angle2 + np.pi, 2.0 * np.pi) - np.pi
+
+
+def wrap_angle(a):
+    """Wrap an angle (numpy) to (-pi, pi]."""
+    return np.arctan2(np.sin(a), np.cos(a))
