@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the three kernel libraries from the checkout, in parallel, and prints
+Builds the four kernel libraries from the checkout, in parallel, and prints
 each ptxas report: the interior-point QP kernel (csrc/qp_ip.cu, with its
 cold, duals/warm and field-layout entries), the fused whole-SQP kernel
-(csrc/sqp_fused.cu, with its linearize entry) and the FP32 roof kernel
-(csrc/fma_roof.cu). B1 and B2 run one warp per problem with its state in
+(csrc/sqp_fused.cu, with its linearize entry), the FP32 roof kernel
+(csrc/fma_roof.cu) and the single-instance SQP kernel S1
+(csrc/sqp_single.cu; its launch plans at the golden, basic, demo and
+bicycle OCPs). B1 and B2 run one warp per problem with its state in
 shared memory: for every entry it prints the launch plan at the bench shape
 and at the goal, CC-MPC and SH-MPC OCPs of BASELINE configs 1, 3 and 5 and at the bicycle OCPs (warps
 per block, dynamic shared memory per block, problems resident per SM,
@@ -36,15 +38,22 @@ and no other per tick, the fused backend, the C++ guidance PRM and
 H-signature, success, progress and (on the first two) clearance to the
 pedestrians; holds B2 at the tick's shape against its plain version and
 times the ticks, the host share, B2 and the PRM, and profiles three pipelined
-ticks. Then the single-instance solve (plain PyTorch, no kernel of the
-port) and BASELINE config 2 (contouring with ellipsoidal obstacles), each
-run with the launch counts set to 0 just before it: the contouring_2obs
-golden through make_sqp_solver at f64 (atol 1e-6, rtol 1e-8; ms and device
-ops per solve); BASELINE's f32 gate (max |U32 - U64| <= 1e-3 against
-tests/golden/validate_contouring_U64.npy) through B1 and through B2, with
-B1 at the gate's QPs against its plain version; the configuration_basic
-planner tick at default_settings (N=30, f64; Planner -> Solver.solve) on
-the card, its first tick against the same solve on the CPU; and the
+ticks. Then the single-instance solve (S1) and BASELINE config 2
+(contouring with ellipsoidal obstacles), each run with the launch counts
+set to 0 just before it: (a) the contouring_2obs golden through
+make_sqp_solver at f64 (one S1 launch and no other kernel; atol 1e-6, rtol
+1e-8; ms and device ops per solve; S1 against its plain version on the
+card within B2's f64 gate); BASELINE's f32 gate (max |U32 - U64| <= 1e-3
+against tests/golden/validate_contouring_U64.npy) through B1, through B2
+and through S1 (backend="xla"), with B1 at the gate's QPs against its
+plain version; (c) the
+configuration_basic planner tick at default_settings (N=30, f64; Planner
+-> Solver.solve, one S1 launch per tick) on the card, its first tick
+against the same solve on the CPU, the tick and solve medians beside the
+44 ms budget, S1 at the tick's inputs against plain; (c2) the T-MPC++
+fleet step through backend="xla" at 8 x 9 = 72 problems (one S1 launch,
+plans agreeing with the fused step's, S1 at f64 against plain on every
+problem); and the
 contouring evaluator of tools/bench_rollout.py (4096 episodes, 60 ticks,
 f32, one B2 launch per tick, nothing read back between ticks, f64 kernel
 against plain on a short rollout, B2 on its first tick against plain at
@@ -52,7 +61,8 @@ f64, every problem, and at f32). Then BASELINE config 1 (goal tracking on
 SecondOrderUnicycleModel, nx=4, with 3 ellipsoids) and the other
 evaluators, each run with the launch counts set to 0 just before it:
 (e) its f32 gate against tests/golden/validate_goal_U64.npy through B1's
-(4, 2) instance and through B2's goal model, B1 at the gate's QPs against
+(4, 2) instance, through B2's goal model and through S1, B1 at the gate's
+QPs against
 its plain version and B2 on them at f64 (the contouring gate runs the same
 B2 check); (f) the goal evaluator (4096 episodes), (g) the multi-robot
 evaluator (1024 episodes x 4 robots, comm="always", then "triggered" with
@@ -90,14 +100,15 @@ the dyn-vref fleet (512 problems) through B2 against its plain version, and
 60 planner ticks on a path whose reference velocity falls, tracked more
 closely over the last 20 ticks than over the first 20; (k) the eight
 configurations of the JAX configuration sweep that the port has, 3 ticks
-each at N=8 (B2 or the single-instance solve), the LMPCC fleet (512
+each at N=8 (B2 or the single-instance solve on S1), the LMPCC fleet (512
 problems) through B2 against its plain version, and one
-LocalPlannerInterface cycle. Then ROADMAP item 4d, each fleet and tick run
+LocalPlannerInterface cycle (one S1 launch). Then ROADMAP item 4d, each fleet and tick run
 with the launch counts set to 0 before it: (l) configuration_bicycle and
 its curvature-aware variant (N=30, nx=6, nu=3, m=22) as 512-problem fleets
 through B2 (the bicycle models) and through B1's (6, 3) instance, each
 against its plain version, their launch plans at T=31, nz=9, and the
-bicycle_contouring golden through make_sqp_solver at f64; (m) the
+bicycle_contouring golden through make_sqp_solver at f64 (one S1
+launch); (m) the
 curvature-aware unicycle: B2's in-kernel linearization (the progress
 update, the CA contouring cost) against torch.func at f64 on curved and
 exactly straight paths with no NaN (the CA bicycle's too), and its fleet
@@ -105,7 +116,7 @@ through B2 against plain; (n) the decomposition's C++ backend, the decomp
 fleet (12 halfspace rows) through B2 against plain, 3 ticks of JAX's
 corridor scene through LocalPlannerInterface.set_costmap /
 compute_velocity_commands (JAX's assertions; the single-instance solve,
-timed, not gated) and the road-width bicycle fleet through B2 against
+one S1 launch per tick, timed, not gated) and the road-width bicycle fleet through B2 against
 plain. Then (o) the sharded fleet step of parallel/mesh.py, each run with
 the launch counts set to 0 before it: (o1) a 1x1 grid on an NCCL group of
 one rank at the bench fleet (512 x 9, N=20, f32): "auto" resolved to
@@ -129,10 +140,12 @@ key, no -1 but vs_baseline, one B2 launch per fleet step, the fleet step
 within 15% of B2's time above, mfu_chip below 1.05; B2 at its 72-problem
 solve and at its device-resident rollout's tick against plain),
 tools/exp_schedule_hw.py, tools/profile_e2e_tick.py in both modes,
-tools/validate.py (both f32 gates through B1), the four demos of
-examples/ (one B2 launch per planning tick; the fleet-process demo's three
-spawned robots) and tools/kernel_check.py (every B1 instance, B2 model
-and h-row kind against plain at f64).
+tools/validate.py (both f32 gates through B1, its f64 cross-checks one S1
+launch each), the four demos of examples/ (one B2 launch per planning
+tick; the fleet-process demo's three spawned robots, the JAX demo's, one
+S1 launch per planning solve, and S1 at their shape against plain) and
+tools/kernel_check.py (every B1 instance, B2 model and h-row kind against
+plain at f64).
 Any failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 each with its bound. Needs one CUDA device; without one it exits with code 2.
@@ -298,6 +311,44 @@ def log_launch_plans(dev):
                                       dtype=torch.float32, device="cpu",
                                       backend="fused")
         log_plans(dev, ocp, solve.tables)
+    log_single_plans(dev)
+
+
+def log_single_plans(dev):
+    """S1's launch plan, f32 and f64, at the contouring_2obs golden (N=15),
+    at BASELINE config 2's planner OCP (N=30, 4 obstacles), at the
+    fleet-process demo's robot (N=10) and at the bicycle OCP (N=30, nz=9)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+        configuration_bicycle)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        sqp_fused, sqp_single)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        SQPConfig)
+    from oscar_mpc_planner_mr_modification_tpu_torch.solver import build_ocp
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools.common import (
+        basic_problem, goal_demo_problem)
+    from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+        default_settings)
+
+    settings = default_settings()
+    for name, ocp in (("golden", basic_ocp(15, 2)),
+                      ("basic", basic_problem()[0]),
+                      ("demo", goal_demo_problem(10)[0]),
+                      ("bicycle", build_ocp(*configuration_bicycle(settings),
+                                            settings))):
+        tables = sqp_fused.ocp_tables(ocp, SQPConfig(), mirror=True)
+        with torch.cuda.device(dev):
+            for dtype in (torch.float32, torch.float64):
+                p = sqp_single.launch_info(dtype, tables)
+                log(f"launch plan sqp_single {str(dtype)[6:]} at {name} "
+                    f"(T={tables.T}, m={tables.m}, (nx, nu) = ({ocp.nx}, "
+                    f"{ocp.nu})): {p['warps_per_block']} warps (problems) "
+                    f"per block, {p['smem_bytes_per_block']} B dynamic "
+                    f"shared memory per block, {p['problems_per_sm']} "
+                    f"problems resident per SM, {p['registers']} registers "
+                    f"and {p['local_bytes']} B local memory per thread")
+                check(p["err"] == 0 and p["problems_per_sm"] > 0,
+                      f"sqp_single {str(dtype)[6:]} at {name} fits the card")
 
 
 def log_plans(dev, ocp, tables):
@@ -609,7 +660,7 @@ def tick_phase(dev, card, reset_counts, counts, none):
 
 
 # ---------------------------------------------------------------------------
-# The single-instance solve (plain PyTorch) and BASELINE config 2
+# The single-instance solve (S1) and BASELINE config 2
 # ---------------------------------------------------------------------------
 #: The golden's config (tests/test_golden.py); BASELINE's f32 gate is
 #: tools/common.py's (GATE_CFG, GATE_B, GATE_FLAVOURS).
@@ -681,29 +732,13 @@ def device_trace(fn, pad=0):
     return ops
 
 
-def solve_launches(make, args, config):
-    """Device ops of one solve at ``config``, from three profiled short
-    solves: the plain solve has no data-dependent branch, so its ops are
-    base + per_sqp * (SQP iterations) + per_ip * (IP iterations). ``make``
-    builds the solve of a config; it is called with ``args``."""
-    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
-        _phases_of)
-
-    def ops(n_sqp, n_qp):
-        fn = make(config._replace(n_sqp=n_sqp, n_qp_iter=n_qp,
-                                  qp_iter_schedule=()))
-        return len(device_trace(lambda: fn(*args)))
-
-    l11, l12, l21 = ops(1, 1), ops(1, 2), ops(2, 1)
-    check(0 < l11 < l12 and l11 < l21, f"profiled short solves traced "
-          f"{l11}, {l12}, {l21} device ops")
-    per_ip = l12 - l11
-    per_sqp = l21 - l11 - per_ip
-    base = l11 - per_sqp - per_ip
-    phases = _phases_of(config)
-    return dict(total=base + per_sqp * sum(n for n, _ in phases)
-                + per_ip * sum(n * q for n, q in phases),
-                base=base, per_sqp=per_sqp, per_ip=per_ip)
+def solve_ops(fn):
+    """The names of the device ops of one call of fn (a solve and its
+    readback), by a padded trace with the padding's ops taken out (their
+    names from a trace of the padding alone)."""
+    pad_names = {e.name for e in device_trace(lambda: None, pad=64)}
+    return [e.name for e in device_trace(fn, pad=64)
+            if e.name not in pad_names]
 
 
 def host_syncs(fn):
@@ -723,14 +758,65 @@ def host_syncs(fn):
             if "synchroniz" in str(w.message)]
 
 
+def s1_against_plain(dev, card, ocp, cfg, args, counts_s1, name,
+                     launches, reps=20):
+    """S1 at f64 on one problem (numpy ``args``: all_params (N, npar), x0,
+    z_init) against its plain version on the card, the same inputs: the
+    same success, max|dZ| / (1 + max|Z|) <= FUSED_F64_GATE (B2's f64
+    gate). Times the launch alone (the input blocks laid out beforehand)
+    and the plain solve, and returns the kernel entry numbers (bound from
+    ``counts_s1``, a ``roofline.SingleCounts``, at the FP64 rate)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import roofline
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        _phases_of, make_sqp_solver)
+
+    s1 = make_sqp_solver(ocp, cfg, dtype=torch.float64, device=dev).batched
+    ins = tuple(torch.as_tensor(np.asarray(a)[None], dtype=torch.float64,
+                                device=dev) for a in args)
+    r_k = s1(*ins)
+    sync()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    r_p = s1.reference(*ins)
+    e1.record()
+    sync()
+    p_ms = e0.elapsed_time(e1)
+    err = (r_k.z - r_p.z).abs().max().item()
+    rel = err / (1.0 + r_p.z.abs().max().item())
+    log(f"f64 S1 at {name} (T={ocp.N + 1}, nz={ocp.nvar}, {cfg.n_sqp} x "
+        f"{cfg.n_qp_iter} or {cfg.qp_iter_schedule}, {cfg.regularization}): "
+        f"max|dZ| {err:.3e} vs plain, rel {rel:.3e}, success "
+        f"{bool(r_k.success[0])} / {bool(r_p.success[0])}, cost "
+        f"{float(r_k.cost[0]):.12f} / {float(r_p.cost[0]):.12f}, qp_comp "
+        f"{float(r_k.qp_comp[0]):.3e} / {float(r_p.qp_comp[0]):.3e}")
+    check(bool(r_k.success[0]) == bool(r_p.success[0])
+          and rel <= FUSED_F64_GATE, f"f64 S1 = plain at {name}: same "
+          f"success, max|dZ| / (1 + max|Z|) <= {FUSED_F64_GATE:g}")
+    x_in = s1.layout(*ins)
+    k_ms, k_all = cuda_time_ms(lambda: s1.launch(x_in), reps=reps)
+    log(f"[{card}] S1 at {name} (f64, one problem): {k_ms:.3f} ms per "
+        f"launch (median of {reps}; {spread(k_all)}), plain {p_ms:.1f} ms "
+        f"on the card")
+    T, nz = ocp.N + 1, ocp.nvar
+    return dict(launches=launches, err=err, ms=k_ms, plain_ms=p_ms,
+                flops=roofline.single_flops(
+                    _phases_of(cfg), counts_s1, T, nz,
+                    mirror=cfg.regularization == "mirror",
+                    track_best=cfg.track_best),
+                n_bytes=8 * (x_in.numel() + T * nz + 5),
+                peak=roofline.PEAK_FP64_FLOPS)
+
+
 def golden_single_phase(dev, card, reset_counts, counts, none):
     """(a) The contouring_2obs golden through make_sqp_solver on the card at
-    f64 (plain PyTorch, no kernel): Z within atol 1e-6, cost within rtol
-    1e-8, success; its ms and device ops per solve; which of its parts wait
-    for the device. Returns the solution Z (numpy)."""
-    from oscar_mpc_planner_mr_modification_tpu_torch.ops import qp as qp_ip
+    f64: one launch of S1 and no other kernel; Z within atol 1e-6, cost
+    within rtol 1e-8, success; its ms, its device ops, which of its calls
+    wait for the device; then S1 against its plain version on the card
+    (``s1_against_plain``). Returns the solution Z (numpy) and S1's
+    kernel entry numbers."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import roofline
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
-        SQPConfig, make_sqp_solver)
+        SQPConfig, fetch_result_single, make_sqp_solver)
 
     gold = np.load(os.path.join(ROOT, "tests", "golden", "contouring_2obs.npz"))
     ocp = basic_ocp(15, 2)
@@ -744,54 +830,36 @@ def golden_single_phase(dev, card, reset_counts, counts, none):
     sync()
     ms = (time.perf_counter() - t0) * 1e3
     got = counts()
-    check(got == none, f"single-instance golden solve launched no kernel of "
-          f"the port ({got})")
+    check(got == {**none, "sqp_single": 1}, f"single-instance golden solve: "
+          f"one S1 launch and no other kernel ({got})")
     check(res.z.device.type == "cuda", f"solution on {res.z.device}")
     zerr = float(np.abs(res.z.cpu().numpy() - gold["Z"]).max())
     cost = float(res.cost)
-    log(f"single-instance golden (f64, cuda): max|Z - Z_gold| {zerr:.3e}, "
-        f"cost {cost:.12f} vs {float(gold['cost']):.12f}, eq_res "
+    log(f"single-instance golden (f64, cuda, S1): max|Z - Z_gold| "
+        f"{zerr:.3e}, cost {cost:.12f} vs {float(gold['cost']):.12f}, eq_res "
         f"{float(res.eq_res):.3e}, qp_comp {float(res.qp_comp):.3e}")
     check(bool(res.success), "single-instance golden solve succeeded")
     check(zerr <= 1e-6, "single-instance golden Z within atol 1e-6")
     check(abs(cost - float(gold["cost"])) <= 1e-8 * abs(float(gold["cost"])),
           "single-instance golden cost within rtol 1e-8")
-    ops = solve_launches(lambda c: make_sqp_solver(
-        ocp, c, dtype=torch.float64, device=dev), args, cfg)
-    # Which parts wait for the device ("mirror" regularization's eigh reads
-    # its convergence flags back to the host).
-    mach = solve.machinery
-    P = torch.as_tensor(gold["P"], device=dev)[None]
-    P = torch.cat([P, P[:, -1:]], dim=1)
-    Z = torch.as_tensor(gold["Z"], device=dev)[None]
-    x0 = torch.as_tensor(gold["x0"], device=dev)[None]
-    qp = mach.build_qp(Z, P, x0)
-    qpd = qp_ip.QPData(qp.H, qp.g, qp.A, qp.B, qp.c, qp.D, qp.e,
-                       torch.as_tensor(mach.stage_mask, device=dev), qp.r0)
-    sync()
-    waits = {"solve_qp (20 IP iterations)": host_syncs(
-                 lambda: qp_ip.solve_qp(qpd, nu=ocp.nu, n_iters=20)),
-             "build_qp, mirror": host_syncs(lambda: mach.build_qp(Z, P, x0)),
-             "merit_of": host_syncs(lambda: mach.merit_of(Z, P, x0))}
-    g_mach = make_sqp_solver(ocp, cfg._replace(regularization="gershgorin"),
-                             dtype=torch.float64, device=dev).machinery
-    waits["build_qp, gershgorin"] = host_syncs(lambda: g_mach.build_qp(Z, P,
-                                                                      x0))
-    log(f"calls that wait for the device (sync debug mode), per call: "
-        f"{ {k: len(v) for k, v in waits.items()} }, at {waits}")
-    log(f"[{card}] single-instance solve (N=15, {cfg.n_sqp} x {cfg.n_qp_iter},"
-        f" f64, plain PyTorch): {ms:.1f} ms per solve; "
-        f"{ops['total']} device ops per solve ({ops['per_ip']} per IP "
-        f"iteration, {ops['per_sqp']} per SQP iteration besides, "
-        f"{ops['base']} once; from three profiled short solves)")
-    return res.z.cpu().numpy()
+    names = solve_ops(lambda: fetch_result_single(solve(*args)))
+    waits = host_syncs(lambda: fetch_result_single(solve(*args)))
+    log(f"[{card}] single-instance solve (N=15, {cfg.n_sqp} x "
+        f"{cfg.n_qp_iter}, f64, S1): {ms:.1f} ms per solve from numpy "
+        f"inputs; {len(names)} device ops per solve and readback "
+        f"({sum('sqp_single' in n for n in names)} S1): {names}; calls that "
+        f"wait for the device (sync debug mode): {waits}")
+    entry = s1_against_plain(dev, card, ocp, cfg, args, roofline.S1_GOLDEN,
+                             "the contouring_2obs golden", got["sqp_single"])
+    return res.z.cpu().numpy(), entry
 
 
 def baseline_gate_phase(dev, card, reset_counts, counts, none, flavour,
                         ref_z=None):
     """BASELINE's f32 gate of one flavour (``tools/validate.py::gate``, the
     port's examples/validate_tpu.py; ``GATE_FLAVOURS``): the golden's
-    problem tiled to B=4 at the f32 operating point through B1 (``"pallas"``) and through B2 (``"fused"``),
+    problem tiled to B=4 at the f32 operating point through B1 (``"pallas"``), through B2 (``"fused"``) and
+    through S1 (``"xla"``),
     each run with the launch counts set to 0 before it; max |U32 - U64| <=
     1e-3 against the committed CPU-f64 controls for each; beside it, where
     given, ``ref_z``, an f64 solve of the golden (the port's make_sqp_solver
@@ -815,9 +883,10 @@ def baseline_gate_phase(dev, card, reset_counts, counts, none, flavour,
              np.tile(x_g[None], (GATE_B, 1)),
              np.tile(z_g[None], (GATE_B, 1, 1)))
     want = {"pallas": {**none, "qp_ip": cfg.n_sqp},
-            "fused": {**none, "sqp_fused": 1}}
+            "fused": {**none, "sqp_fused": 1},
+            "xla": {**none, "sqp_single": 1}}
     launches = {}
-    for backend in ("pallas", "fused"):
+    for backend in ("pallas", "fused", "xla"):
         reset_counts()
         g = validate.gate(flavour, backend, dev)
         sync()
@@ -922,10 +991,14 @@ def basic_tick_phase(dev, card, reset_counts, counts, none):
     among the tick phase's crossing pedestrians, on a simulated clock (no
     budget: the full ladder entry every tick), the launch counts set to 0
     before them. Every tick succeeds, no contact, the solver's tensors on
-    the card, no kernel of the port, and the first tick equals the same
-    solve on the CPU within atol 1e-6."""
+    the card, one S1 launch per tick and no other kernel, and the first
+    tick equals the same solve on the CPU within atol 1e-6; the tick and
+    solve medians beside the 44 ms budget; then S1 at the first tick's
+    inputs against its plain version on the card. Returns S1's kernel
+    entry numbers."""
     from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
         build_planner, configuration_basic)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import roofline
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
         fetch_result_single, make_sqp_solver)
     from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
@@ -981,8 +1054,8 @@ def basic_tick_phase(dev, card, reset_counts, counts, none):
                         solver._loaded_warmstart.copy())
             first_z = solver.get_output_trajectory()
     got = counts()
-    check(got == none, f"basic planner ticks launched no kernel of the port "
-          f"({got})")
+    check(got == {**none, "sqp_single": BASIC_TICKS}, f"basic planner "
+          f"ticks: one S1 launch per tick and no other kernel ({got})")
     check(clearance > 0.0, f"basic planner ticks: smallest clearance to a "
           f"pedestrian {clearance:.4f} m > 0")
     solver._ladder_fns[full] = solve_full
@@ -999,23 +1072,156 @@ def basic_tick_phase(dev, card, reset_counts, counts, none):
     check(gap <= 1e-6, "basic planner's first tick = the CPU solve within "
           "atol 1e-6")
     solve_ms = np.asarray(BENCHMARKERS.get("optimization").durations) * 1e3
-    # device ops per tick: Solver.solve's (uploads, solve, one readback),
-    # extrapolated from short solves; the modules' work is on the host
-    ops = solve_launches(lambda c: (lambda *a: fetch_result_single(
-        make_sqp_solver(solver.ocp, c, dtype=torch.float64, device=dev)(
-            *a))), first_in, solver.config)
+    # device ops of one tick's solve: Solver.solve's upload, S1, readback;
+    # the modules' work is on the host
+    ops = solve_ops(lambda: fetch_result_single(solve_full(*first_in)))
     log(f"[{card}] basic planner tick (configuration_basic, N={N}, "
-        f"{solver.config.n_sqp} x {solver.config.n_qp_iter}, f64, "
-        f"{BASIC_TICKS} ticks, ladder entry {full}): tick "
-        f"{np.median(tick_ms):.1f} ms median ({[round(t, 1) for t in tick_ms]}"
-        f"), solve {np.median(solve_ms):.1f} ms median; "
-        f"{ops['total']} device ops per tick's solve ({ops['per_ip']} per IP "
-        f"iteration, {ops['per_sqp']} per SQP iteration besides); smallest "
-        f"clearance {clearance:.4f} m; progress "
-        f"{state.get('x'):.3f} m")
-    return dict(tick_ms=float(np.median(tick_ms)),
-                solve_ms=float(np.median(solve_ms)),
-                ops=ops["total"])
+        f"{solver.config.n_sqp} x {solver.config.n_qp_iter}, f64, S1, "
+        f"{BASIC_TICKS} ticks, ladder entry {full} of "
+        f"{solver._iter_ladder}): tick {np.median(tick_ms):.1f} ms median "
+        f"({[round(t, 1) for t in tick_ms]}), solve "
+        f"{np.median(solve_ms):.1f} ms median, against the solver's "
+        f"{1e3 / float(settings.get('control_frequency', 20)) - 6.0:.0f} ms "
+        f"budget (1 / control_frequency - 6 ms); {len(ops)} device ops per "
+        f"tick's solve: {ops}; smallest "
+        f"clearance {clearance:.4f} m; progress {state.get('x'):.3f} m")
+    return s1_against_plain(dev, card, solver.ocp, solver.config, first_in,
+                            roofline.S1_BASIC, "the configuration_basic "
+                            "tick", BASIC_TICKS, reps=10)
+
+
+#: The "xla" fleet check's plans: the bench's small batch (tools/bench.py
+#: SMALL_B), 8 plans x 9 planners = 72 problems.
+XLA_PLANS = 8
+#: f32 S1 against its f32 plain version there, per problem max|dZ| / (1 +
+#: max|Z|): at most 7.6e-5, median 3.5e-7 on an H100 80GB HBM3 (700 W).
+S1_F32_MAX_REL = 1e-3
+
+
+def xla_fleet_phase(dev, card, reset_counts, counts, none):
+    """(c2) ``backend="xla"`` on the card: the T-MPC++ fleet step at the
+    bench's small batch (XLA_PLANS plans x 9 planners, N=20, f32, the
+    bench config) through S1, the launch counts set to 0 before it: one S1
+    launch per step and no other kernel, best-of-9 success >= 0.95, and its
+    plans agree with the fused step's as the other backends' do (any_success
+    on >= 99% of plans, the median relative best_cost gap printed); both
+    steps timed. Then S1 on the fleet's 72 problems against its plain
+    version on the same inputs at f64 (every problem within
+    FUSED_F64_GATE, the same success mask) and at f32 (the same success
+    mask, the median problem within 1e-4, B2's f32 gate, every problem
+    within S1_F32_MAX_REL), each beside B2 on the same problems, and
+    S1's launch alone at f32. Returns S1's kernel entry numbers (the f32
+    launch, its max|dZ| against the f32 plain version)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        roofline, sqp_single)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        make_fleet_sqp_solver)
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel.batch import (
+        make_batched_tmpc_step)
+
+    cfg = bench_config()
+    ocp, args = bench_fleet(XLA_PLANS, torch.float32, dev)
+    step_x = make_batched_tmpc_step(ocp, cfg, dtype=torch.float32,
+                                    device=dev, backend="xla")
+    step_f = make_batched_tmpc_step(ocp, cfg, dtype=torch.float32,
+                                    device=dev, backend="fused")
+    reset_counts()
+    out_x = step_x(*args)
+    sync()
+    got = counts()
+    check(got == {**none, "sqp_single": 1}, f"xla fleet step: one S1 launch "
+          f"and no other kernel ({got})")
+    out_f = step_f(*args)
+    sync()
+    n = XLA_PLANS * (N_PATHS + 1)
+    success = out_x.any_success.float().mean().item()
+    agree = (out_x.any_success == out_f.any_success).float().mean().item()
+    same = (out_x.best_index == out_f.best_index).float().mean().item()
+    both = out_x.any_success & out_f.any_success
+    rel_cost = ((out_x.best_cost - out_f.best_cost).abs()
+                / out_f.best_cost.abs().clamp(min=1e-12))[both]
+    x_ms, x_all = cuda_time_ms(lambda: step_x(*args), reps=10)
+    f_ms, _ = cuda_time_ms(lambda: step_f(*args), reps=10)
+    log(f"[{card}] xla fleet step ({XLA_PLANS} plans x {N_PATHS + 1} = {n} "
+        f"problems, f32, S1): success_rate {success:.6f} (fused "
+        f"{out_f.any_success.float().mean().item():.6f}), any_success "
+        f"agreement with the fused step {agree:.6f}, same planner "
+        f"{same:.6f}, median rel best_cost diff "
+        f"{rel_cost.median().item() if both.any() else float('nan'):.6e}; "
+        f"step {x_ms:.3f} ms (median of 10; {spread(x_all)}), fused step "
+        f"{f_ms:.3f} ms")
+    check(success >= 0.95, "xla fleet step: best-of-9 success_rate >= 0.95")
+    check(agree >= 0.99, "xla fleet step any_success agrees with the fused "
+          "step on >= 99% of plans")
+
+    # S1 on the fleet's problems, each dtype against its own plain version
+    # on the same inputs; B2 on the same problems shows what of the steps'
+    # best_cost gap is the algorithm (it stays at f64) and what round-off
+    flat = flat_fleet(args)
+    fused = {dt: make_fleet_sqp_solver(ocp, cfg, dtype=dt, device=dev,
+                                       backend="fused")
+             for dt in (torch.float64, torch.float32)}
+    T, nz = ocp.N + 1, ocp.nvar
+    flops = n * roofline.single_flops(BENCH_SCHEDULE, roofline.S1_BENCH, T,
+                                      nz, mirror=False,
+                                      track_best=cfg.track_best)
+    costs = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype)[6:]
+        ins = tuple(a.to(dtype) for a in flat)
+        s1 = sqp_single.make_single_solver(ocp, cfg, dtype=dtype, device=dev)
+        r_k = s1(*ins)
+        sync()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        r_p = s1.reference(*ins)
+        e1.record()
+        sync()
+        p_ms = e0.elapsed_time(e1)
+        r_b2 = fused[dtype](*ins)
+        sync()
+        rel = ((r_k.z - r_p.z).abs().amax(dim=(1, 2))
+               / (1.0 + r_p.z.abs().amax(dim=(1, 2))))
+        err = (r_k.z - r_p.z).abs().max().item()
+        costs[dtype] = r_k.cost.double()
+        log(f"{tag} S1 on the xla fleet's {n} problems vs its plain version: "
+            f"max|dZ| {err:.3e}, per problem rel median "
+            f"{rel.median().item():.3e} max {rel.max().item():.3e} (<= 1e-4 "
+            f"on {(rel <= 1e-4).float().mean().item():.4f}), same success "
+            f"{(r_k.success == r_p.success).float().mean().item():.4f}, "
+            f"success {r_k.success.float().mean().item():.4f} (plain "
+            f"{r_p.success.float().mean().item():.4f}), cost rel "
+            f"{med_rel(r_k.cost, r_p.cost):.3e} median; vs B2 at {tag} on "
+            f"the same problems: cost rel {med_rel(r_k.cost, r_b2.cost):.3e} "
+            f"median, success {r_b2.success.float().mean().item():.4f}")
+        if dtype == torch.float64:
+            check(bool((r_k.success == r_p.success).all())
+                  and rel.max().item() <= FUSED_F64_GATE, f"f64 S1 = plain "
+                  f"on the xla fleet: same success, per problem max|dZ| / "
+                  f"(1 + max|Z|) <= {FUSED_F64_GATE:g}")
+        else:
+            check(bool((r_k.success == r_p.success).all())
+                  and rel.median().item() <= 1e-4
+                  and rel.max().item() <= S1_F32_MAX_REL, f"f32 S1 = plain "
+                  f"on the xla fleet: same success, median rel <= 1e-4 (B2's "
+                  f"f32 gate), every problem <= {S1_F32_MAX_REL:g}")
+    # the row: the step's own dtype, f32 (s1, err and p_ms from the loop's
+    # last pass)
+    x_in = s1.layout(*ins)
+    k_ms, k_all = cuda_time_ms(lambda: s1.launch(x_in), reps=20)
+    log(f"[{card}] S1 on the xla fleet ({n} problems, f32): {k_ms:.3f} ms "
+        f"per launch (median of 20; {spread(k_all)}), plain {p_ms:.1f} ms")
+    log(f"S1 on the xla fleet's {n} problems, f32 vs f64: cost rel "
+        f"{med_rel(costs[torch.float32], costs[torch.float64]):.3e} median")
+    return dict(launches=got["sqp_single"], err=err, ms=k_ms, plain_ms=p_ms,
+                flops=flops, n_bytes=4 * (x_in.numel() + n * (T * nz + 5)))
+
+
+def med_rel(a, b):
+    """Median over problems of |a - b| / max(|b|, 1e-12), a and b finite."""
+    a, b = a.double(), b.double()
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return ((a - b).abs() / b.abs().clamp(min=1e-12))[ok].median().item()
 
 
 def evaluator_phase(dev, card, reset_counts, counts, none, ev,
@@ -2082,11 +2288,13 @@ def sweep_phase(dev, card, reset_counts, counts, none):
     planner for SWEEP_TICKS ticks at N=8 (f64, 6 x 10 under Gershgorin) on
     its benign scene, with the launch counts set to 0 before each: the
     T-MPC and SH-MPC ones one B2 launch per tick, the others (no guidance or
-    scenario module) the single-instance solve, no kernel; at least 2 of 3 ticks solved and x >
+    scenario module) the single-instance solve, one S1 launch per tick; at
+    least 2 of 3 ticks solved and x >
     0.1. Then the LMPCC fleet (tools/bench_matrix.py::build_lmpcc, 512
     problems) through B2 against its plain version, and one
     ``LocalPlannerInterface.compute_velocity_commands`` cycle (basic, N=8)
-    on the card. Returns the LMPCC fleet's kernel entry numbers."""
+    on the card (one S1 launch). Returns the LMPCC fleet's kernel entry
+    numbers."""
     from oscar_mpc_planner_mr_modification_tpu_torch import factory
     from oscar_mpc_planner_mr_modification_tpu_torch.multirobot.driver import (  # noqa: E501
         integrate_on_host)
@@ -2153,8 +2361,8 @@ def sweep_phase(dev, card, reset_counts, counts, none):
             psim.step([state.get_position()])
         sync()
         got = counts()
-        path = "B2" if b2 else "the single-instance solve"
-        want = {**none, "sqp_fused": SWEEP_TICKS} if b2 else none
+        path = "B2" if b2 else "S1 (the single-instance solve)"
+        want = {**none, ("sqp_fused" if b2 else "sqp_single"): SWEEP_TICKS}
         log(f"[{card}] sweep {name}: {n_ok}/{SWEEP_TICKS} ticks solved "
             f"through {path} in {time.perf_counter() - t0:.2f} s, x "
             f"{state.get('x'):.3f}, launches {got}")
@@ -2179,11 +2387,11 @@ def sweep_phase(dev, card, reset_counts, counts, none):
     got = counts()
     log(f"[{card}] LocalPlannerInterface (basic, N={SWEEP_N}): v {v:.4f}, "
         f"w {w:.4f}, success {ok} in {time.perf_counter() - t0:.2f} s")
-    check(ok and v > 0.3 and abs(w) < 1.0 and got == none
-          and not lp.is_goal_reached(),
+    check(ok and v > 0.3 and abs(w) < 1.0
+          and got == {**none, "sqp_single": 1} and not lp.is_goal_reached(),
           f"LocalPlannerInterface cycle on the card: success, v > 0.3, |w| < "
-          f"1, no kernel launch (the single-instance solve), goal not "
-          f"reached ({got})")
+          f"1, one S1 launch (the single-instance solve) and no other "
+          f"kernel, goal not reached ({got})")
     return entry
 
 #: The item-4d fleets: 512 problems each, f32, tools/bench_matrix.py's
@@ -2202,7 +2410,7 @@ def bicycle_phase(dev, card, reset_counts, counts, none):
     (``"pallas"``, one launch per SQP iteration), each held against its
     plain version (fleet_flavour_phase); their launch plans at T=31, nz=9;
     then the bicycle_contouring golden through make_sqp_solver at f64 on
-    the card (plain PyTorch, no kernel; atol 1e-6, cost rtol 1e-8, as
+    the card (one S1 launch; atol 1e-6, cost rtol 1e-8, as
     tests/test_golden.py holds JAX), with ms per solve. Returns the kernel
     entries by name."""
     from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
@@ -2248,9 +2456,10 @@ def bicycle_phase(dev, card, reset_counts, counts, none):
     log(f"[{card}] bicycle_contouring golden (N=15, 15 x 15, f64, "
         f"make_sqp_solver on {res.z.device}): max|Z - Z_gold| {zerr:.3e}, "
         f"cost {cost:.12f} vs {float(gold['cost']):.12f}, {ms:.1f} ms per "
-        f"solve (host-bound plain PyTorch), launches {got}")
-    check(got == none and res.z.device.type == "cuda",
-          f"bicycle golden on the card, no kernel of the port ({got})")
+        f"solve (S1), launches {got}")
+    check(got == {**none, "sqp_single": 1} and res.z.device.type == "cuda",
+          f"bicycle golden on the card: one S1 launch and no other kernel "
+          f"({got})")
     check(bool(res.success) and zerr <= 1e-6
           and abs(cost - float(gold["cost"])) <= 1e-8 * abs(
               float(gold["cost"])),
@@ -2391,11 +2600,11 @@ def decomp_phase(dev, card, reset_counts, counts, none):
         v = float(x[lp.model.state_index("v")])
     got = counts()
     log(f"[{card}] corridor ticks through LocalPlannerInterface (N="
-        f"{CORRIDOR_N}, f64, the single-instance solve): ms per tick "
+        f"{CORRIDOR_N}, f64, the single-instance solve on S1): ms per tick "
         f"{[round(t, 1) for t in times]}, last plan x {traj[-1, ix]:.3f} m, "
         f"max |y| {np.abs(traj[:, iy]).max():.4f}, launches {got}")
-    check(got == none, f"corridor ticks: the single-instance solve, no "
-          f"kernel of the port ({got})")
+    check(got == {**none, "sqp_single": CORRIDOR_TICKS}, f"corridor ticks: "
+          f"one S1 launch per tick and no other kernel ({got})")
     check(inside and traj[-1, ix] > 1.5, "corridor ticks: every plan inside "
           "|y| < 1.0, the last past x = 1.5 m")
 
@@ -2835,8 +3044,10 @@ def entrypoints_phase(dev, card, reset_counts, counts, none, fleet_b2_ms):
     got = counts()
     log(f"[{card}] (p4) tools/validate.py in {time.perf_counter() - t:.1f} s: "
         f"{summary}; launches {got}")
-    check(summary["ok"] and got["qp_ip"] > 0 and got["sqp_fused"] == 0,
-          "(p4) validate: both f32 gates through B1 pass")
+    check(summary["ok"] and got["qp_ip"] > 0 and got["sqp_fused"] == 0
+          and got["sqp_single"] == len(GATE_FLAVOURS),
+          "(p4) validate: both f32 gates through B1 pass, each f64 "
+          "cross-check one S1 launch")
 
     # (p5) the demos
     with tempfile.TemporaryDirectory() as work:
@@ -2871,11 +3082,18 @@ def entrypoints_phase(dev, card, reset_counts, counts, none, fleet_b2_ms):
           "(p5) demo_multirobot: every robot planned, B2 alone")
     t = time.perf_counter()
     fleet = demo_fleet_processes.main(dev, seconds=ENTRY_FLEET_SECONDS)
-    log(f"[{card}] (p5) demo_fleet_processes in "
-        f"{time.perf_counter() - t:.1f} s: {fleet}")
-    check(len(fleet) == 3 and all(r["ticks"] > 0 for r in fleet.values()),
+    log(f"[{card}] (p5) demo_fleet_processes (the JAX demo's robots: N=10, "
+        f"f64, 4 x 8, mirror, S1) in {time.perf_counter() - t:.1f} s: "
+        f"{fleet}")
+    check(len(fleet) == 3 and all(r["ticks"] > 0 and r["solves"] > 0
+                                  and r["launches"] == r["solves"]
+                                  for r in fleet.values()),
           "(p5) demo_fleet_processes: three robot processes ticked and "
-          "joined")
+          "joined, one S1 launch per planning solve")
+    demo_launches = sum(r["launches"] for r in fleet.values())
+    demo_row = s1_against_plain(
+        dev, card, *_demo_args(), roofline.S1_DEMO, "the fleet-process "
+        "demo's robot", demo_launches)
 
     # (p6) the kernels against their plain versions on small fleets
     t = time.perf_counter()
@@ -2884,7 +3102,21 @@ def entrypoints_phase(dev, card, reset_counts, counts, none, fleet_b2_ms):
     log(f"(p6) tools/kernel_check.py in {time.perf_counter() - t:.1f} s: "
         f"{out6.getvalue().strip()}")
     check(rc == 0, "(p6) kernel_check: every f64 gate holds")
-    return dict(small=small_row, rollout=rollout_row)
+    return dict(small=small_row, rollout=rollout_row, demo=demo_row)
+
+
+def _demo_args():
+    """(ocp, config, numpy args) of the fleet-process demo robot's S1
+    check: ``tools/common.py::goal_demo_problem(10)`` at the robot's SQP."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.examples import (
+        demo_fleet_processes)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        SQPConfig)
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools.common import (
+        goal_demo_problem)
+
+    ocp, *args = goal_demo_problem(10)
+    return ocp, SQPConfig(**demo_fleet_processes.ROBOT_SQP), args
 
 
 def check(cond, msg):
@@ -2902,7 +3134,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
-        qp_cuda, roofline, sqp_fused)
+        qp_cuda, roofline, sqp_fused, sqp_single)
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
         QPData, SQPConfig, make_fleet_sqp_solver)
     from oscar_mpc_planner_mr_modification_tpu_torch.parallel.batch import (
@@ -2923,6 +3155,7 @@ def main():
     qp_cuda._library()
     sqp_fused._library()
     roofline._library()
+    sqp_single._library()
     log(f"built {len(infos)} kernel libraries in {time.perf_counter() - t:.2f} s")
     for name, info in infos.items():
         log(f"{name}: {os.path.relpath(info.path, ROOT)} (nvcc {info.seconds:.2f} s)")
@@ -3258,7 +3491,7 @@ def main():
         qp_cuda.launches = qp_cuda.duals_launches = qp_cuda.warm_launches = 0
         qp_cuda.lanes_launches = sqp_fused.launches = 0
         sqp_fused.linearize_launches = sqp_fused.merit_launches = 0
-        roofline.launches = 0
+        roofline.launches = sqp_single.launches = 0
 
     def counts():
         return {k: v for k, v in launch_counts().items() if k != "fma_roof"}
@@ -3446,10 +3679,12 @@ def main():
         evaluators)
 
     evs = evaluators(N=ROLLOUT_N, n_ticks=ROLLOUT_TICKS)
-    golden_z = golden_single_phase(dev, card, reset_counts, counts, none)
+    golden_z, s1_golden = golden_single_phase(dev, card, reset_counts, counts,
+                                              none)
     gate = baseline_gate_phase(dev, card, reset_counts, counts, none,
                                "contouring", golden_z)
-    basic_tick_phase(dev, card, reset_counts, counts, none)
+    s1_basic = basic_tick_phase(dev, card, reset_counts, counts, none)
+    s1_xla = xla_fleet_phase(dev, card, reset_counts, counts, none)
     ro = evaluator_phase(dev, card, reset_counts, counts, none,
                          evs["contouring"], short_ticks=5,
                          f32_share=F32_ROLLOUT_SHARE)
@@ -3506,8 +3741,8 @@ def main():
 
     # ---- the kernels, each with its bound ---------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, flops,
-              n_bytes, **_):
-        bound, by = roofline.bound_ms(flops, n_bytes)
+              n_bytes, peak=roofline.PEAK_FP32_FLOPS, **_):
+        bound, by = roofline.bound_ms(flops, n_bytes, peak)
         return {"name": name, "route": "cuda",
                 "source": f"oscar_mpc_planner_mr_modification_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
@@ -3608,6 +3843,15 @@ def main():
               f"{jax_ops}/sqp_fused.py:45", **ep["small"]),
         entry("sqp_fused_resident_rollout", "sqp_fused.cu",
               f"{jax_ops}/sqp_fused.py:45", **ep["rollout"]),
+        entry("sqp_single", "sqp_single.cu", f"{jax_ops}/sqp.py:437",
+              **s1_golden),
+        {**entry("sqp_single_basic_tick", "sqp_single.cu",
+                 f"{jax_ops}/sqp.py:437", **s1_basic),
+         "launches_per_tick": s1_basic["launches"] / BASIC_TICKS},
+        entry("sqp_single_xla_fleet", "sqp_single.cu",
+              f"{jax_ops}/sqp.py:437", **s1_xla),
+        entry("sqp_single_demo", "sqp_single.cu", f"{jax_ops}/sqp.py:437",
+              **ep["demo"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 // Operation counts of the kernels' per-problem code: the interior-point
-// solve of qp_ip.cuh and the linearization and merit of tmpc_ocp.cuh,
+// solve of qp_ip.cuh, the linearization and merit of tmpc_ocp.cuh, and the
+// single-instance kernel's mirror pass and QP solve (sqp_single.cuh),
 // compiled for the host with a scalar type that counts every floating-point
 // operation it executes, by kind. The lane-group code runs with 32 emulated
 // lanes (warp.cuh), so each operation of the algorithm counts once. It is the
 // witness for the counts that bound the kernels (ops/roofline.py):
-// ip_iter_flops and IP_ITER_FLOPS, LIN_FLOPS and MERIT_FLOPS.
+// ip_iter_flops and IP_ITER_FLOPS, LIN_FLOPS and MERIT_FLOPS, and the S1_*
+// counts.
 //
 //   g++ -std=c++17 -O1 -shared -fPIC -o libqp_ip_count.so qp_ip_count.cpp
 //
@@ -42,6 +44,7 @@ inline R fabs(R a) { return R(::fabs(a.v)); }
 inline bool operator<(R a, R b) { return a.v < b.v; }
 inline bool operator>(R a, R b) { return a.v > b.v; }
 inline bool operator>=(R a, R b) { return a.v >= b.v; }
+inline bool operator<=(R a, R b) { return a.v <= b.v; }
 inline bool operator!=(R a, R b) { return a.v != b.v; }
 inline bool operator==(R a, R b) { return a.v == b.v; }
 
@@ -73,6 +76,7 @@ inline R haar(R d) {
 }  // namespace opcount
 
 #include "sqp_fused.cuh"
+#include "sqp_single.cuh"
 
 using opcount::R;
 
@@ -194,6 +198,64 @@ int tmpc_count_ops(const double* P, const double* x0, const double* Z,
     delete[] Zr;
     delete[] qp;
     delete[] red;
+    return 0;
+  });
+}
+
+// S1 at one problem of a fused OCP (model id `model`) at Z, as the kernel
+// runs it (lane group, 32 emulated lanes): the linearization (lin_out), the
+// mirror pass (mirror_out; zeros unless reg is REG_MIRROR) and one QP
+// solve of n_iters interior-point iterations on that QP (qp_out), with the
+// stage mask and row table of ops/qp_cuda.py::_row_tables and the scalars as
+// the S1 entry derives them. Each out as qp_ip_count_ops'. Returns -3 for a
+// model with no instantiation.
+int sqp_single_count_ops(const double* P, const double* x0, const double* Z,
+                         const int* itab, const double* rtab,
+                         const double* mask, const int* rinfo, int T,
+                         int npar, int m, int mh, int model, int reg,
+                         int n_iters, double mu0, double mu_min, double tau,
+                         double w_max, double s_floor, double tol_freeze,
+                         double n_act, long long* lin_out,
+                         long long* mirror_out, long long* qp_out) {
+  return tmpc::with_model(model, [&](auto mdl) {
+    using M = decltype(mdl);
+    const SingleOffsets<M> F(T, m, mh);
+    const tmpc::QpLayout<M>& L = F.L;
+    R* Pr = lift(P, npar * T);
+    R* xr = lift(x0, M::NX);
+    R* Zr = lift(Z, T * M::NZ);
+    R* mask_r = lift(mask, T * m);
+    R* mem = new R[F.total];
+    R* qp = mem + F.qp;
+    const tmpc::Ocp o{itab, rtab};
+    const tmpc::Col<const R> Pc{Pr, 1, 0}, xc{xr, 1, 0}, Zc{Zr, 1, 0};
+    reset();
+    tmpc::linearize_warp<M, R>(Lanes{}, o, Pc, xc, Zc, tmpc::Col<R>{qp, 1, 0},
+                               L, reg);
+    report(lin_out);
+    reset();
+    if (reg == REG_MIRROR)
+      mirror_pass<M::NX, M::NU>(Lanes{}, qp + L.H, T, R(rtab[tmpc::RT_REG_EPS]),
+                                mem + F.ip);
+    report(mirror_out);
+    const SingleParams<R> prm{R(mu0),       R(mu_min),
+                              R(tau),       R(w_max),
+                              R(s_floor),   R(tol_freeze),
+                              R(100.0 * tol_freeze), R(1e3 * tol_freeze),
+                              R(n_act),     R(1e30)};
+    const SingleState<R> st = SingleScratch<M::NX, M::NU>(F.sz).state(mem + F.ip);
+    const QpView<R> q{qp + L.H, qp + L.g, qp + L.A, qp + L.B,
+                      qp + L.c, qp + L.D, qp + L.e, qp + L.r0};
+    R comp, eq;
+    reset();
+    solve_qp_problem<R, M::NX, M::NU>(Lanes{}, q, Rows<R>{mask_r, rinfo},
+                                      F.sz, st, n_iters, prm, &comp, &eq);
+    report(qp_out);
+    delete[] Pr;
+    delete[] xr;
+    delete[] Zr;
+    delete[] mask_r;
+    delete[] mem;
     return 0;
   });
 }

@@ -5,7 +5,9 @@
 //   the fused kernel's lane-group form;
 // - the QP kernel's entries and the fused kernel's solve (qp_ip.cuh,
 //   sqp_fused.cuh), each problem run by 32 emulated lanes (warp.cuh): the
-//   card's partition of the work in the card's reduction order.
+//   card's partition of the work in the card's reduction order;
+// - the single-instance kernel's solve (sqp_single.cuh, S1) and its two
+//   parts alone: the "mirror" of symmetric blocks and the QP solve.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libtmpc_ocp_host.so tmpc_ocp_host.cpp
 //
@@ -16,6 +18,7 @@
 #include <vector>
 
 #include "sqp_fused.cuh"
+#include "sqp_single.cuh"
 
 namespace {
 
@@ -43,6 +46,33 @@ int host_qp_solve(bool duals, const double* H, const double* g,
               lam0, z, lam_out, prm);
         return 0;
       });
+}
+
+// S1's QP dimensions on the host: qp_ip.cuh::with_dims and nx = 3 with
+// nu = 1..4 (the random QPs of the JAX suite; nu = 4 factors Quu by
+// Cholesky).
+template <class F>
+int host_single_dims(int nx, int nu, F&& f) {
+  if (nx == 3 && nu == 1) return f(Dims<3, 1>{});
+  if (nx == 3 && nu == 2) return f(Dims<3, 2>{});
+  if (nx == 3 && nu == 3) return f(Dims<3, 3>{});
+  if (nx == 3 && nu == 4) return f(Dims<3, 4>{});
+  return with_dims(nx, nu, f);
+}
+
+template <int N>
+void mirror_blocks(const double* H, int count, double eps, double* out) {
+  constexpr int NTRI = N * (N + 1) / 2;
+  std::vector<double> hp(NTRI), ws(2 * N * N);
+  for (int b = 0; b < count; ++b) {
+    const double* Hb = H + (size_t)b * N * N;
+    for (int i = 0; i < N; ++i)
+      for (int j = i; j < N; ++j) hp[tri_index(i, j, N)] = Hb[i * N + j];
+    mirror_stage<N>(hp.data(), N, 0, eps, ws.data(), ws.data() + N * N);
+    for (int i = 0; i < N; ++i)
+      for (int j = 0; j < N; ++j)
+        out[(size_t)b * N * N + i * N + j] = hp[tri_index(i, j, N)];
+  }
 }
 
 }  // namespace
@@ -158,6 +188,91 @@ int qp_ip_solve_duals_host_f64(const double* H, const double* g,
                        lam_out, Bt, T, nx, nu, m, mhp, any_active,
                        n_iters, mu0, mu_min, tau, w_max, s_floor, tol_freeze,
                        n_act);
+}
+
+// The S1 entry of sqp_single.cu (same arguments), problem after problem.
+int sqp_single_solve_host_f64(const double* in, double* out,
+                              const double* mask, const int* rinfo,
+                              const int* itab, const double* rtab,
+                              const int* phases, int n_phases, int Bt, int T,
+                              int m, int mh, int npar, int model,
+                              int track_best, int reg, double mu0,
+                              double mu_min, double tau, double w_max,
+                              double s_floor, double tol_freeze, double n_act,
+                              double res_eq_tol, void*) {
+  const Rows<double> rw{mask, rinfo};
+  return single_solve_entry<double>(
+      model, Bt, T, m, mh, npar, n_phases, mu0, mu_min, tau, w_max, s_floor,
+      tol_freeze, n_act, [&](const auto& F, const SingleParams<double>& prm) {
+        using M = typename std::decay_t<decltype(F)>::Model;
+        std::vector<double> mem(F.total);
+        for (int b = 0; b < Bt; ++b)
+          sqp_single_column<M, double>(Lanes{}, tmpc::Ocp{itab, rtab}, in, out,
+                                       b, npar, mem.data(), rw, phases,
+                                       n_phases, F, track_best, reg, prm,
+                                       res_eq_tol);
+        return 0;
+      });
+}
+
+// S1's mirror_stage on `count` symmetric n x n blocks H (count, n, n), read
+// from their upper triangles: out (count, n, n) = V max(|w|, eps) V^T.
+// Returns -1 for n outside 1..9.
+int sqp_single_mirror_host_f64(const double* H, int count, int n, double eps,
+                               double* out) {
+  switch (n) {
+    case 1: mirror_blocks<1>(H, count, eps, out); return 0;
+    case 2: mirror_blocks<2>(H, count, eps, out); return 0;
+    case 3: mirror_blocks<3>(H, count, eps, out); return 0;
+    case 4: mirror_blocks<4>(H, count, eps, out); return 0;
+    case 5: mirror_blocks<5>(H, count, eps, out); return 0;
+    case 6: mirror_blocks<6>(H, count, eps, out); return 0;
+    case 7: mirror_blocks<7>(H, count, eps, out); return 0;
+    case 8: mirror_blocks<8>(H, count, eps, out); return 0;
+    case 9: mirror_blocks<9>(H, count, eps, out); return 0;
+    default: return -1;
+  }
+}
+
+// S1's solve_qp_problem on one QP in its layout (tmpc::QpLayout's fields:
+// H the upper triangles, D the generic rows dense over z, contiguous), with
+// the stage mask and row table of ops/qp_cuda.py::_row_tables: the best
+// iterate into z_out (T*nz), s_out and lam_out (T*m), its complementarity
+// and equality residual into comp_eq (2). Returns -1 for sizes out of range,
+// -3 for an (nx, nu) with no host instantiation.
+int sqp_single_qp_host_f64(const double* H, const double* g, const double* A,
+                           const double* Bm, const double* c, const double* D,
+                           const double* e, const double* r0,
+                           const double* mask, const int* rinfo, int T, int nx,
+                           int nu, int m, int mhp, int n_iters, double mu0,
+                           double mu_min, double tau, double w_max,
+                           double s_floor, double tol_freeze, double n_act,
+                           double* z_out, double* s_out, double* lam_out,
+                           double* comp_eq) {
+  if (T < 2 || m < 1 || mhp < 1 || n_iters < 0) return -1;
+  const Sizes sz{T, m, mhp};
+  const SingleParams<double> prm{mu0,       mu_min,         tau,
+                                 w_max,     s_floor,        tol_freeze,
+                                 100.0 * tol_freeze, 1e3 * tol_freeze,
+                                 n_act,     1e30};
+  return host_single_dims(nx, nu, [&](auto dims) {
+    using Dim = decltype(dims);
+    constexpr int NZ = Dim::NX + Dim::NU;
+    const SingleScratch<Dim::NX, Dim::NU> sc(sz);
+    std::vector<double> mem(sc.total);
+    const SingleState<double> st = sc.state(mem.data());
+    const QpView<double> q{H, g, A, Bm, c, D, e, r0};
+    solve_qp_problem<double, Dim::NX, Dim::NU>(Lanes{}, q,
+                                               Rows<double>{mask, rinfo}, sz,
+                                               st, n_iters, prm, &comp_eq[0],
+                                               &comp_eq[1]);
+    for (int f = 0; f < T * NZ; ++f) z_out[f] = st.bz[f];
+    for (int f = 0; f < T * m; ++f) {
+      s_out[f] = st.bs[f];
+      lam_out[f] = st.blam[f];
+    }
+    return 0;
+  });
 }
 
 }  // extern "C"

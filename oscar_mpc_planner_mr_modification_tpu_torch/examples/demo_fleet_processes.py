@@ -12,12 +12,15 @@ while the parent serves ``dashboard_web`` on the loopback interface, fed by
 the metrics the children send back over a queue. Each robot ticks for
 ``FLEET_SECONDS`` (20) seconds of wall time.
 
-Each robot plans with ``configuration_goal_tmpc`` (N=10, 2 obstacles, 5
-planners): on the card f32 under Gershgorin, one launch of kernel B2 per
-planning tick; ``device="cpu"``: f64 at the JAX demo's ``SQPConfig(n_sqp=4,
-n_qp_iter=8)``. The parent builds the kernels and the PRM library before
-it spawns; the children only load them (``qp_cuda.require_built``). Every
-join is bounded, and every child is killed when one fails or overstays.
+Each robot is the JAX demo's (:func:`build_robot`): MPCBase on a and w,
+the goal and ellipsoidal obstacles on ``SecondOrderUnicycleModel``
+(``tools/common.py::goal_demo_modules``), N=10, 2 obstacles, f64,
+``SQPConfig(n_sqp=4, n_qp_iter=8)`` under ``"mirror"``, planned by
+``Solver.solve``: on the card one launch of the single-instance kernel S1
+per planning tick, on the CPU its plain version. The parent builds the
+kernel before it spawns; the children only load it
+(``qp_cuda.require_built``). Every join is bounded, and every child is
+killed when one fails or overstays.
 """
 
 from __future__ import annotations
@@ -39,34 +42,49 @@ GOALS = [(19.0, 0.0), (11.0, 0.8), (15.0, -3.0)]
 SLACK_S = 90.0
 
 
-def robot_main(ns, index, address, start, goal, duration_s, metrics_q,
-               device):
-    """One robot process: its planner, its ``SocketBus`` on the broker, and
-    ticks until ``duration_s`` have passed, each tick's metrics put on
-    ``metrics_q``."""
-    from ..factory import (build_planner, configuration_goal_tmpc,
-                           prewarm_planner)
-    from ..multirobot.driver import RobotAgent
-    from ..multirobot.transport import SocketBus
+#: The JAX demo's SQP: 4 iterations of 8 interior-point iterations each,
+#: "mirror" (the default regularization).
+ROBOT_SQP = dict(n_sqp=4, n_qp_iter=8)
+
+
+def build_robot(device):
+    """The JAX demo's robot: ``(planner, model, settings)``, f64 on
+    ``device``."""
+    from ..factory import build_planner
     from ..ops.sqp import SQPConfig
+    from ..tools.common import goal_demo_modules
     from ..utils import default_settings
 
-    cuda = torch.device(device).type == "cuda"
-    if cuda:
-        from ..ops import qp_cuda
-
-        qp_cuda.require_built(("sqp_fused",))
     settings = default_settings(N=10, max_obstacles=2, weights={"goal": 5.0},
                                 JULES={"synchronized_start": True})
-    model, modules = configuration_goal_tmpc(settings)
-    cfg = (SQPConfig(n_sqp=4, n_qp_iter=8, regularization="gershgorin")
-           if cuda else SQPConfig(n_sqp=4, n_qp_iter=8))
-    planner = build_planner(model, modules, settings,
-                            dtype=torch.float32 if cuda else torch.float64,
-                            sqp_config=cfg, device=device)
+    model, modules = goal_demo_modules(settings)
+    planner = build_planner(model, modules, settings, dtype=torch.float64,
+                            sqp_config=SQPConfig(**ROBOT_SQP), device=device)
+    return planner, model, settings
+
+
+def robot_main(ns, index, address, start, goal, duration_s, metrics_q,
+               device, stats_q):
+    """One robot process: its planner, its ``SocketBus`` on the broker, and
+    ticks until ``duration_s`` have passed, each tick's metrics put on
+    ``metrics_q``; at the end ``(ns, solves, S1 launches, median solve
+    ms)`` of its ticks on ``stats_q``."""
+    from ..factory import prewarm_planner
+    from ..multirobot.driver import RobotAgent
+    from ..multirobot.transport import SocketBus
+    from ..ops import sqp_single
+    from ..utils.profiling import BENCHMARKERS
+
+    if torch.device(device).type == "cuda":
+        from ..ops import qp_cuda
+
+        qp_cuda.require_built(("sqp_single",))
+    planner, model, settings = build_robot(device)
     # Built before joining the fleet: a robot that stalls mid-episode
     # leaves its peers planning on stale trajectories.
     prewarm_planner(planner, model, settings, start_pose=start, goal=goal)
+    BENCHMARKERS.reset()
+    launches0 = sqp_single.launches
     bus = SocketBus(ns, address)
     try:
         agent = RobotAgent(ns, index, planner, model, settings,
@@ -81,13 +99,19 @@ def robot_main(ns, index, address, start, goal, duration_s, metrics_q,
             time.sleep(0.03)
     finally:
         bus.close()
+    solves = BENCHMARKERS.get("optimization").durations
+    stats_q.put((ns, len(solves), sqp_single.launches - launches0,
+                 float(np.median(solves)) * 1e3 if solves else None))
 
 
 def main(device="cuda", seconds=None) -> dict:
     """The fleet for ``seconds`` (``FLEET_SECONDS``, 20) of ticking; prints
     the dashboard's address, the final dashboard and each robot's ticks and
-    communication rate. Returns ``{ns: {ticks, comm_rate}}``; raises if a
-    child fails or does not finish in time."""
+    communication rate. Returns ``{ns: {ticks, comm_rate, solves,
+    launches, solve_ms}}`` (``launches``: the robot's S1 launches, one per
+    solve on the card, 0 on the CPU; ``solve_ms``: its median solve, the
+    planner's "optimization" span); raises if a child fails or does not
+    finish in time."""
     from ..dashboard import render_dashboard
     from ..dashboard_web import DashboardServer
     from ..metrics import MetricsLog
@@ -98,18 +122,16 @@ def main(device="cuda", seconds=None) -> dict:
         require_card("demo_fleet_processes")
         from ..ops import qp_cuda
 
-        qp_cuda.build_all(("sqp_fused",))
-    from ..guidance import cpp_backend
-
-    cpp_backend.available()  # the PRM library, built once for all children
+        qp_cuda.build_all(("sqp_single",))
     duration = float(seconds if seconds is not None
                      else os.environ.get("FLEET_SECONDS", "20"))
     ctx = mp.get_context("spawn")
     broker = TransportBroker()
-    q = ctx.Queue()
+    q, stats_q = ctx.Queue(), ctx.Queue()
     procs = [ctx.Process(target=robot_main, name=f"robot{i}",
                          args=(f"robot{i}", i, tuple(broker.address),
-                               STARTS[i], GOALS[i], duration, q, str(device)))
+                               STARTS[i], GOALS[i], duration, q, str(device),
+                               stats_q))
              for i in range(len(STARTS))]
     log = MetricsLog()
     server = DashboardServer(log).start()
@@ -144,13 +166,19 @@ def main(device="cuda", seconds=None) -> dict:
         raise RuntimeError(f"robot processes did not finish cleanly: exit "
                            f"codes {codes} (None: still running at the "
                            f"deadline, killed)")
+    stats = {}
+    while len(stats) < len(procs):
+        ns, solves, launches, solve_ms = stats_q.get(timeout=10.0)
+        stats[ns] = dict(solves=solves, launches=launches, solve_ms=solve_ms)
     print(render_dashboard(log))
     robots = {}
     for ns in sorted(log.records):
         robots[ns] = dict(ticks=len(log.records[ns]),
-                          comm_rate=log.communication_rate(ns))
+                          comm_rate=log.communication_rate(ns), **stats[ns])
         print(f"{ns}: {robots[ns]['ticks']} ticks, comm rate "
-              f"{robots[ns]['comm_rate']:.2f}", flush=True)
+              f"{robots[ns]['comm_rate']:.2f}, {stats[ns]['solves']} solves, "
+              f"{stats[ns]['launches']} S1 launches, median solve "
+              f"{stats[ns]['solve_ms']} ms", flush=True)
     return robots
 
 

@@ -1,8 +1,10 @@
 """Stagewise constrained-QP solver: Mehrotra predictor-corrector IPM + Riccati.
 
-Counterpart of the JAX package's ``ops/qp.py``, the reference solver of the
-single-instance SQP solve (:func:`..ops.sqp.make_sqp_solver`) and of the
-``"xla"`` fleet backend. Each QP
+Counterpart of the JAX package's ``ops/qp.py``: the plain version of the
+single-instance SQP solve (:func:`..ops.sqp.make_sqp_solver` and the
+``"xla"`` fleet backend on the CPU; on a CUDA device the kernel S1,
+``csrc/sqp_single.cuh::solve_qp_problem``, runs the same iteration). Each
+QP
 
     min  sum_k 1/2 z_k^T H_k z_k + g_k^T z_k          z_k = (u_k, x_k)
     s.t. dx_{k+1} = A_k dx_k + B_k du_k + c_k

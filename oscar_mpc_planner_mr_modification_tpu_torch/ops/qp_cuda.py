@@ -67,7 +67,7 @@ lanes_launches = 0
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Kernel libraries: name -> CUDA source in ``csrc/``.
 KERNELS = {"qp_ip": "qp_ip.cu", "sqp_fused": "sqp_fused.cu",
-           "fma_roof": "fma_roof.cu"}
+           "fma_roof": "fma_roof.cu", "sqp_single": "sqp_single.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -18,16 +18,19 @@ fleet bench's OCP; the ``TICK_``, ``ROLLOUT_``, ``GATE_`` and ``GOAL_``
 constants are the same three counts at the planner tick's OCP, the
 contouring evaluator's, BASELINE config 2's f32 gate's and BASELINE config
 1's goal OCP, and the ``CCMPC_``, ``CCMPC6_`` and ``SHMPC_`` constants at the
-OCPs of BASELINE configs 3 and 5. :func:`bound_ms` is the least time the card could take
-for a given work:
-the larger of bytes over the memory rate and operations over the FP32 rate,
-both the published H100 SXM figures at its 700 W limit.
+OCPs of BASELINE configs 3 and 5. ``S1_GOLDEN``, ``S1_BASIC`` and
+``S1_DEMO`` are the single-instance kernel's counts (:class:`SingleCounts`,
+:func:`single_flops`). :func:`bound_ms` is the least time the card could
+take for a given work: the larger of bytes over the memory rate and
+operations over the FP32 (or, for f64 work, the FP64) rate, all the
+published H100 SXM figures at its 700 W limit.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,8 +46,10 @@ FMA_A, FMA_B = 1.000000119, 1.1920929e-07  # rounded to f32 where used
 FMA_THREADS = 256  # threads per block of csrc/fma_roof.cu
 
 #: Published H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor
-#: cores, and HBM3 bandwidth.
+#: cores; FP64 the larger of its two rates, the tensor cores' 67 TFLOP/s
+#: (full IEEE FP64; 34 outside them); HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 #: Algorithmic FLOPs of one bench fleet solve per problem (N=20, nz=7,
@@ -185,6 +190,52 @@ DECOMP_LIN_FLOPS = 153735
 DECOMP_MERIT_FLOPS = 27675
 
 
+class SingleCounts(NamedTuple):
+    """Operations of the single-instance kernel S1 per problem
+    (``csrc/sqp_single.cuh``), counted by ``csrc/qp_ip_count.cpp``'s
+    ``sqp_single_count_ops`` and ``tmpc_count_ops`` at one problem: a
+    linearization (no shift; the Gershgorin shift adds a few hundred), the
+    mirror pass (its Jacobi sweeps depend on the Hessians: counted at that
+    problem's start), one interior-point iteration, a QP solve's work
+    outside its iterations (start, comp and eq_res of the returned
+    iterate) and a merit evaluation."""
+
+    lin: int
+    mirror: int
+    ip_iter: int
+    qp: int
+    merit: int
+
+
+#: S1's counts at the contouring_2obs golden (``configuration_basic`` at
+#: N=15, 2 obstacles; the golden's start), at BASELINE config 2's planner
+#: OCP (N=30, 4 obstacles; ``tools/common.py::basic_problem``), at the
+#: fleet-process demo's robot (N=10, 2 obstacles;
+#: ``tools/common.py::goal_demo_problem``), each under "mirror", and at the
+#: fleet bench's first problem under its Gershgorin config (no mirror; the
+#: linearization and merit are then ``LIN_FLOPS`` and ``MERIT_FLOPS``).
+#: tests/test_torch_roofline.py recomputes them.
+S1_GOLDEN = SingleCounts(105529, 15202, 46294, 2154, 21040)
+S1_BASIC = SingleCounts(217774, 29947, 106552, 4445, 40945)
+S1_DEMO = SingleCounts(31138, 4766, 23135, 1096, 2362)
+S1_BENCH = SingleCounts(162321, 0, 90938, 3215, 27822)
+
+
+def single_flops(schedule, counts: SingleCounts, T: int, nz: int,
+                 mirror: bool = True, track_best: bool = True) -> int:
+    """Operations of one S1 solve of one problem on the schedule ((n_sqp,
+    n_qp_iter), ...): per SQP iteration a linearization, the mirror pass
+    (``mirror``), a QP solve and the step (its NaN test and the update, 2 T
+    nz); the IP iterations; and the merit of the start and of every iterate
+    (``track_best``) and of the returned one."""
+    n_lin = sum(n for n, _ in schedule)
+    n_ip = sum(n * q for n, q in schedule)
+    per_sqp = (counts.lin + counts.qp + 2 * T * nz
+               + (counts.mirror if mirror else 0))
+    n_merit = 1 + (1 + n_lin if track_best else 0)
+    return n_lin * per_sqp + n_ip * counts.ip_iter + n_merit * counts.merit
+
+
 def fma_flops(n: int) -> float:
     """FLOPs of one roof launch on n elements (one FMA = 2)."""
     return 2.0 * FMA_STEPS * n
@@ -265,11 +316,12 @@ def qp_bytes(T, nx, nu, m, mh, n_problems, itemsize, lam_in=False,
     return fields * n_problems * itemsize
 
 
-def bound_ms(flops: float, n_bytes: float):
+def bound_ms(flops: float, n_bytes: float, peak: float = PEAK_FP32_FLOPS):
     """``(ms, "operations" | "bytes")``: the least time of work that does
-    ``flops`` FP32 operations and moves ``n_bytes`` (each input read once,
-    each output written once), and which of the two bounds it."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    ``flops`` operations at ``peak`` per second (by default FP32's;
+    ``PEAK_FP64_FLOPS`` for f64 work) and moves ``n_bytes`` (each input
+    read once, each output written once), and which of the two bounds it."""
+    t_ops = flops / peak * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 

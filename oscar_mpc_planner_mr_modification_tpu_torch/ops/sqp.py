@@ -27,8 +27,9 @@ launch per fleet solve, linearization included). ``backend="lanes"`` keeps
 the batch on the trailing axis: per SQP iteration one launch of the fused
 kernel's linearization (:mod:`.linearize`) and one of the QP kernel on its
 output buffer. ``backend="xla"`` (the JAX package's name for its reference
-path) solves the QPs with :func:`.qp.solve_qp`, the plain PyTorch
-interior-point solver, as :func:`make_sqp_solver` does for one problem.
+path) solves every problem as :func:`make_sqp_solver` does: in one launch of
+the single-instance kernel (:mod:`.sqp_single`, S1) on a CUDA device, with
+:func:`.qp.solve_qp`, the plain PyTorch interior-point solver, on the CPU.
 
 For runtime ticks, :func:`make_buffered_packed_solve` wraps a batched solve
 into one upload, one solve and one readback (:func:`pack_results`,
@@ -462,19 +463,38 @@ def _make_reference_solver(ocp, config: SQPConfig, dtype, device):
     return solve
 
 
+def _make_batched_single(ocp, config: SQPConfig, dtype, device):
+    """The single-instance solve over a leading batch: one launch of the
+    kernel S1 (:func:`.sqp_single.make_single_solver`) on a CUDA device, its
+    plain version :func:`_make_reference_solver` on the CPU."""
+    if torch.device(device).type == "cuda":
+        from .sqp_single import make_single_solver
+
+        return make_single_solver(ocp, config, dtype=dtype, device=device)
+    return _make_reference_solver(ocp, config, dtype, device)
+
+
 def make_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
                     device="cuda"):
     """The single-instance SQP solve: ``solve(all_params (N, npar),
     xinit (nx,), z_init (N+1, nvar)) -> SQPResult`` with batchless fields
     on ``device`` (0-d cost, eq_res, qp_comp, success, exit_code), the JAX
     package's ``make_sqp_solver``. Inputs may be numpy arrays or tensors.
-    It is plain PyTorch (:func:`.qp.solve_qp`): no kernel of this package.
-    ``solve.batched`` solves a leading batch of problems, each as alone."""
-    batched = _make_reference_solver(ocp, config, dtype, device)
+    On a CUDA device every call is one launch of the single-instance kernel
+    (:mod:`.sqp_single`, S1; numpy inputs go up in one copy; the library is
+    loaded at the first call), and building the solver raises for an OCP
+    the kernel does not cover; on the CPU the plain version
+    (:func:`_make_reference_solver`, :func:`.qp.solve_qp`).
+    ``solve.batched`` solves a leading batch of problems, each as alone, in
+    one call."""
+    device = torch.device(device)
+    batched = _make_batched_single(ocp, config, dtype, device)
+
+    def lead(x):
+        return x[None] if isinstance(x, torch.Tensor) else np.asarray(x)[None]
 
     def solve(all_params, xinit, z_init) -> SQPResult:
-        res = batched(*(torch.as_tensor(x, dtype=dtype, device=device)[None]
-                        for x in (all_params, xinit, z_init)))
+        res = batched(*(lead(x) for x in (all_params, xinit, z_init)))
         return SQPResult(*(x[0] for x in res))
 
     solve.batched, solve.machinery = batched, batched.machinery
@@ -496,8 +516,9 @@ def make_fleet_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
     the QP kernel on its output (:func:`_make_lane_fleet_solver`). The fused
     and lane backends raise for an OCP or regularization the fused kernel
     does not cover, and for ``n_qp_iter_warm > 0``. ``backend="xla"``: the
-    reference path, every problem as :func:`make_sqp_solver` solves it
-    (plain PyTorch, no kernel) but with ``qp_comp`` 0, as the JAX fleet
+    reference path, every problem as :func:`make_sqp_solver` solves it (one
+    launch of the single-instance kernel S1 per call on a CUDA device, the
+    plain PyTorch solve on the CPU) but with ``qp_comp`` 0, as the JAX fleet
     backends return it; it too raises for ``n_qp_iter_warm > 0``.
     ``"pallas"`` raises ``ValueError`` at build on a CUDA device when the QP
     kernel is not compiled for the OCP's (nx, nu).
@@ -515,13 +536,13 @@ def make_fleet_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
         if config.n_qp_iter_warm > 0:
             raise ValueError("backend='xla' solves its QPs cold; "
                              "n_qp_iter_warm needs backend='pallas'")
-        reference = _make_reference_solver(ocp, config, dtype, device)
+        single = _make_batched_single(ocp, config, dtype, device)
 
         def solve(all_params, xinit, z_init) -> SQPResult:
-            res = reference(all_params, xinit, z_init)
+            res = single(all_params, xinit, z_init)
             return res._replace(qp_comp=torch.zeros_like(res.cost))
 
-        solve.machinery = reference.machinery
+        solve.machinery = single.machinery
         return solve
     if backend != "pallas":
         raise ValueError(f"unknown backend {backend!r}; expected 'fused', "

@@ -103,6 +103,9 @@ MODELS = {"ContouringSecondOrderUnicycleModel": 0,
 RT_BOUNDS = 5
 ROW_KINDS = {"hl": 0, "hu": 1, "zl": 2, "zu": 3}
 REG_KINDS = {"none": 0, "gershgorin": 1, "levenberg": 2}
+#: The tables' code for ``"mirror"``, which only the single-instance kernel
+#: runs (``csrc/sqp_single.cuh::REG_MIRROR``).
+REG_MIRROR = 3
 
 
 class OcpTables(NamedTuple):
@@ -235,16 +238,19 @@ def _constraint_rows(module, idx):
         f"{type(module).__name__}")
 
 
-def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
+def ocp_tables(ocp, config: SQPConfig, mirror: bool = False) -> OcpTables:
     """The kernel's tables for one OCP and (f32-safe) config. Raises
     ``ValueError`` for a regularization the kernel does not run and
-    ``NotImplementedError`` for an OCP its header does not cover."""
+    ``NotImplementedError`` for an OCP its header does not cover. With
+    ``mirror`` (the single-instance kernel, :mod:`.sqp_single`)
+    ``"mirror"`` is accepted too, as ``REG_MIRROR``."""
     from ..modules import (ConsistencyModule, ContouringConstraintModule,
                            ContouringModule, CurvatureAwareContouringModule,
                            GoalModule, MPCBaseModule,
                            PathReferenceVelocityModule)
 
-    if config.regularization not in REG_KINDS:
+    reg_kinds = {**REG_KINDS, "mirror": REG_MIRROR} if mirror else REG_KINDS
+    if config.regularization not in reg_kinds:
         raise ValueError(
             "the fused kernel supports elementwise regularizations only "
             f"(gershgorin/levenberg/none), not {config.regularization!r}")
@@ -365,7 +371,7 @@ def ocp_tables(ocp, config: SQPConfig) -> OcpTables:
         dtype=np.float64)
     generic = tuple(r for r, (k, _) in enumerate(row_spec) if k in ("hl", "hu"))
     return OcpTables(ints=ints, reals=reals,
-                     reg=REG_KINDS[config.regularization], model=model_id,
+                     reg=reg_kinds[config.regularization], model=model_id,
                      nx=ocp.nx, nu=ocp.nu, T=ocp.N + 1,
                      npar=ocp.npar, m=len(rows), mh=len(generic), generic=generic)
 

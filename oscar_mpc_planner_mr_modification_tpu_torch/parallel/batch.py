@@ -4,8 +4,8 @@ solves plus per-plan best-planner selection, counterpart of the JAX package's
 
 The backend ``"auto"`` is resolved from the device when the step is built,
 never on an exception: ``"pallas"`` (the QP kernel) on a CUDA device,
-``"xla"`` (the plain single-instance solve) on the CPU. The built step
-records it as ``plan_step.backend``."""
+``"xla"`` (the single-instance solve, its plain version there) on the
+CPU. The built step records it as ``plan_step.backend``."""
 
 from __future__ import annotations
 

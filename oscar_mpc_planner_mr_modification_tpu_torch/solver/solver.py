@@ -8,9 +8,10 @@ the budget ladder of SQP iteration counts (``select_iterations``,
 ``note_solve_time``). Buffers are numpy.
 
 :meth:`Solver.solve` runs the single-instance SQP
-(:func:`..ops.sqp.make_sqp_solver`, plain PyTorch on the solver's device)
-at the ladder entry that fits the tick's budget, with one device-to-host
-copy of the result; it serves configurations whose modules do not claim the
+(:func:`..ops.sqp.make_sqp_solver`: one launch of the single-instance
+kernel S1 on a CUDA device, the plain PyTorch solve on the CPU) at the
+ladder entry that fits the tick's budget, with one device-to-host copy of
+the result; it serves configurations whose modules do not claim the
 optimization (``factory.configuration_basic``). The T-MPC optimizer
 (:mod:`..parallel.tmpc`) instead stacks the buffers over its planners,
 solves them as one fleet and hands the winner back through

@@ -94,14 +94,15 @@ def bench_config():
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by name (B1's four entries, B2's
-    three, B3)."""
-    from ..ops import qp_cuda, roofline, sqp_fused
+    three, B3, S1)."""
+    from ..ops import qp_cuda, roofline, sqp_fused, sqp_single
 
     return dict(qp_ip=qp_cuda.launches, duals=qp_cuda.duals_launches,
                 warm=qp_cuda.warm_launches, lanes=qp_cuda.lanes_launches,
                 sqp_fused=sqp_fused.launches,
                 linearize=sqp_fused.linearize_launches,
-                merit=sqp_fused.merit_launches, fma_roof=roofline.launches)
+                merit=sqp_fused.merit_launches, fma_roof=roofline.launches,
+                sqp_single=sqp_single.launches)
 
 
 def launches_since(before: dict) -> dict:
@@ -255,6 +256,88 @@ def goal_ocp():
     from ..parallel.rollout import _goal_ellipsoid_ocp
 
     return _goal_ellipsoid_ocp(3, 20)[0]
+
+
+def basic_problem():
+    """BASELINE config 2's planner OCP (``configuration_basic`` at
+    ``default_settings()``: N=30, 4 obstacles) and one problem on a straight
+    path from rest at 1 m/s, the golden's two obstacles ahead and two far
+    off: ``(ocp, P (N, npar), x0, z_init)``, numpy f64. S1's counts
+    (``ops/roofline.py::S1_BASIC``) are taken here."""
+    from ..factory import configuration_basic
+    from ..solver import build_ocp
+    from ..utils import default_settings
+
+    settings = default_settings()
+    ocp = build_ocp(*configuration_basic(settings), settings)
+    idx, N = ocp.registry.save_map(), ocp.N
+    P = np.zeros((N, ocp.npar))
+    w = settings["weights"]
+    for name in ("acceleration", "angular_velocity", "velocity",
+                 "reference_velocity", "contour", "lag", "terminal_angle",
+                 "terminal_contouring"):
+        P[:, idx[name]] = w[name]
+    for i in range(settings["contouring"]["num_segments"]):
+        P[:, idx[f"spline_x{i}_c"]] = 1.0  # the straight path x(s) = s
+        P[:, idx[f"spline{i}_start"]] = 5.0 * i
+    P[:, idx["ego_disc_radius"]] = 0.325
+    for i, (ox, oy) in enumerate([(2.5, 0.3), (4.5, -0.4), (30.0, 20.0),
+                                  (40.0, -20.0)]):
+        P[:, idx[f"ellipsoid_obst_{i}_x"]] = ox
+        P[:, idx[f"ellipsoid_obst_{i}_y"]] = oy
+        P[:, idx[f"ellipsoid_obst_{i}_chi"]] = 1.0
+        P[:, idx[f"ellipsoid_obst_{i}_r"]] = 0.3
+    x0 = np.array([0.0, 0.0, 0.0, 1.0, 0.0])
+    z_init = np.zeros((N + 1, ocp.nvar))
+    z_init[:, ocp.nu:] = x0
+    return ocp, P, x0, z_init
+
+
+def goal_demo_modules(settings):
+    """The robot of the JAX package's ``examples/demo_fleet_processes.py``:
+    ``(model, modules)`` with MPCBase on a and w, the goal and ellipsoidal
+    obstacles on ``SecondOrderUnicycleModel``."""
+    from ..models import SecondOrderUnicycleModel
+    from ..modules import (EllipsoidConstraintModule, GoalModule,
+                           ModuleManager, MPCBaseModule)
+
+    mm = ModuleManager()
+    base = mm.add_module(MPCBaseModule(settings))
+    base.weigh_variable("a", "acceleration")
+    base.weigh_variable("w", "angular_velocity")
+    mm.add_module(GoalModule(settings))
+    mm.add_module(EllipsoidConstraintModule(settings))
+    return SecondOrderUnicycleModel(), mm
+
+
+def goal_demo_problem(N=10):
+    """The demo robot's OCP (``goal_demo_modules`` at N, 2 obstacles, goal
+    weight 5) and one problem: from (0, 0) at 0.5 m/s towards the goal
+    (4, 0.5), one obstacle near the straight line to it and one far off:
+    ``(ocp, P (N, npar), x0, z_init)``, numpy f64. S1's counts
+    (``ops/roofline.py::S1_DEMO``) are taken here at N=10."""
+    from ..solver import build_ocp
+    from ..utils import default_settings
+
+    settings = default_settings(N=N, max_obstacles=2, weights={"goal": 5.0})
+    ocp = build_ocp(*goal_demo_modules(settings), settings)
+    idx = ocp.registry.save_map()
+    P = np.zeros((N, ocp.npar))
+    w = settings["weights"]
+    for name in ("acceleration", "angular_velocity"):
+        P[:, idx[name]] = w[name]
+    P[:, idx["goal_weight"]] = 5.0
+    P[:, idx["goal_x"]], P[:, idx["goal_y"]] = 4.0, 0.5
+    P[:, idx["ego_disc_radius"]] = 0.325
+    for i, (ox, oy) in enumerate([(1.2, 0.25), (30.0, 30.0)]):
+        P[:, idx[f"ellipsoid_obst_{i}_x"]] = ox
+        P[:, idx[f"ellipsoid_obst_{i}_y"]] = oy
+        P[:, idx[f"ellipsoid_obst_{i}_chi"]] = 1.0
+        P[:, idx[f"ellipsoid_obst_{i}_r"]] = 0.3
+    x0 = np.array([0.0, 0.0, 0.0, 0.5])
+    z_init = np.zeros((N + 1, ocp.nvar))
+    z_init[:, ocp.nu:] = x0
+    return ocp, P, x0, z_init
 
 
 #: The gate by flavour: the golden (inputs and CPU-f64 solve), the committed

@@ -13,7 +13,8 @@ the port's counterpart of the JAX package's ``examples/validate_tpu.py``.
    the committed CPU-f64 controls (``validate_{goal,contouring}_U64.npy``).
 2. Beside each, a diagnostic cross-check, not gated: the same problem
    through ``make_sqp_solver`` at f64 (n_sqp=30, n_qp_iter=20, mu_min
-   1e-9), the plain single-instance solve, with its time.
+   1e-9), the single-instance solve (one launch of S1 on the card), with
+   its time.
 3. A throughput sample: ``make_batched_tmpc_step`` on the bench fleet
    (B=512 plans x 9 planners, N=20, f32) at ``SQPConfig(n_sqp=10,
    n_qp_iter=15, Gershgorin)`` through the port's default backend; median

@@ -7,8 +7,8 @@ both sides, JAX's ``"auto"`` on the CPU): the reached and collided flags are
 equal and ``min_obstacle_dist`` agrees within 1e-6 (the same algorithm; a
 QP frozen at its residual tolerance one iteration sooner or later moves the
 trajectory by less). Every demo runs to its end and returns a finite
-summary; the fleet-process demo's three robot processes tick for about two
-seconds and join within bounded waits. Without a card, each demo exits with
+summary; the fleet-process demo's three robot processes (the JAX demo's
+robot) tick for about two seconds and join within bounded waits. Without a card, each demo exits with
 code 2 unless asked for the CPU.
 """
 
@@ -86,11 +86,31 @@ def test_demo_multirobot_runs(capsys):
     assert "planning cycles" in capsys.readouterr().out
 
 
+def test_demo_fleet_processes_robot_is_the_jax_demo_s():
+    """The robot of the JAX demo: MPCBase on a and w, goal and ellipsoids
+    on SecondOrderUnicycleModel, N=10, 2 obstacles, f64, 4 x 8 under
+    "mirror", solved by Solver.solve (no module claims the optimization)."""
+    planner, model, settings = demo_fleet_processes.build_robot("cpu")
+    assert type(model).__name__ == "SecondOrderUnicycleModel"
+    modules = list(planner.modules)
+    assert [type(m).__name__ for m in modules] == [
+        "MPCBaseModule", "GoalModule", "EllipsoidConstraintModule"]
+    assert list(modules[0]._variables_per_function) == ["a", "w"]
+    solver = planner.solver
+    assert (solver.N, settings["max_obstacles"]) == (10, 2)
+    assert solver.dtype == torch.float64
+    assert (solver.config.n_sqp, solver.config.n_qp_iter,
+            solver.config.regularization) == (4, 8, "mirror")
+    assert settings["weights"]["goal"] == 5.0
+
+
 def test_demo_fleet_processes_runs():
     out = demo_fleet_processes.main("cpu", seconds=2.0)
     assert sorted(out) == ["robot0", "robot1", "robot2"]
     for r in out.values():
         assert r["ticks"] > 0 and 0.0 <= r["comm_rate"] <= 1.0
+        assert r["solves"] > 0 and r["launches"] == 0  # the plain solve
+        assert r["solve_ms"] > 0.0
 
 
 @pytest.mark.parametrize("demo", [demo_single_robot, demo_monte_carlo,

@@ -131,6 +131,9 @@ def count_lib(tmp_path_factory):
     lib.qp_ip_count_ops.restype = i32
     lib.tmpc_count_ops.argtypes = [ptr] * 5 + [i32] * 6 + [ptr] * 2
     lib.tmpc_count_ops.restype = i32
+    lib.sqp_single_count_ops.argtypes = ([ptr] * 7 + [i32] * 7 + [f64] * 7
+                                         + [ptr] * 3)
+    lib.sqp_single_count_ops.restype = i32
     return lib
 
 
@@ -694,3 +697,87 @@ def test_item_4d_ocp_flops_match_the_kernel_count(count_lib, which):
     want = tuple(getattr(roofline, f"{prefix}_{kind}_FLOPS")
                  for kind in ("IP_ITER", "LIN", "MERIT"))
     assert _counts(count_lib, ocp, P, x0, Z) == want
+
+
+def _single_counts(lib, ocp, cfg, P, x0, Z):
+    """S1's counts (``roofline.SingleCounts``) at one problem (numpy P (N,
+    npar), x0, Z): the linearization and mirror of ``sqp_single_count_ops``,
+    one IP iteration (2 iterations less 1), the QP solve's rest and the
+    merit of ``tmpc_count_ops``."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import sqp_single
+
+    tables = sqp_fused.ocp_tables(ocp, cfg, mirror=True)
+    mach = tsqp._make_machinery(ocp, cfg, torch.float64, "cpu")
+    T, m = tables.T, tables.m
+    rows = qp_cuda._rows(mach.stage_mask, mach.row_meta, T, m)
+    mask, table = qp_cuda._row_tables(
+        (rows.row_meta, rows.stage_mask.tobytes(), rows.active), T, m,
+        torch.float64, "cpu")
+    Pt = np.ascontiguousarray(np.concatenate([P, P[-1:]]).T)
+    x0, Z = (np.ascontiguousarray(a, dtype=np.float64) for a in (x0, Z))
+    itab = np.ascontiguousarray(tables.ints)
+    rtab = np.ascontiguousarray(tables.reals)
+    heads = [c.ctypes.data for c in (Pt, x0, Z, itab, rtab)]
+
+    def run(n_iters):
+        out = [np.zeros(5, np.int64) for _ in range(3)]
+        assert lib.sqp_single_count_ops(
+            *heads, mask.data_ptr(), table.data_ptr(), T, tables.npar, m,
+            tables.mh, tables.model, tables.reg, n_iters, 1e2, cfg.mu_min,
+            0.995, cfg.w_max, 1e-12, sqp_single.tol_freeze(cfg.mu_min),
+            rows.n_act, *[o.ctypes.data for o in out]) == 0
+        return [int(o.sum()) for o in out]
+
+    one, two = run(1), run(2)
+    lin, merit = np.zeros(5, np.int64), np.zeros(5, np.int64)
+    assert lib.tmpc_count_ops(*heads, T, tables.npar, m, tables.mh,
+                              tables.model, tables.reg, lin.ctypes.data,
+                              merit.ctypes.data) == 0
+    assert int(lin.sum()) == one[0]
+    ip_iter = two[2] - one[2]
+    return roofline.SingleCounts(one[0], one[1], ip_iter, one[2] - ip_iter,
+                                 int(merit.sum()))
+
+
+@pytest.mark.parametrize("which", ["golden", "basic", "demo", "bench"])
+def test_single_instance_counts_match_the_kernel_count(count_lib, which):
+    """S1_GOLDEN, S1_BASIC, S1_DEMO and S1_BENCH are S1's own counts (the
+    header compiled with the counting scalar type) at the contouring_2obs
+    golden's start, at ``tools/common.py::basic_problem`` (configuration_basic
+    at N=30) and at ``goal_demo_problem(10)``, each under its config
+    ("mirror"; the Gershgorin linearization adds only its shift), and at
+    the fleet bench's first problem under the bench config (Gershgorin: the
+    fused kernel's LIN_FLOPS and MERIT_FLOPS)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import common
+
+    if which == "bench":
+        ocp, args = common.bench_fleet(1, torch.float64, "cpu")
+        got = _single_counts(count_lib, ocp, common.bench_config(),
+                             args[0][0, 0].numpy(), args[1][0].numpy(),
+                             args[2][0, 0].numpy())
+        assert got == roofline.S1_BENCH and got.mirror == 0
+        assert (got.lin, got.merit) == (roofline.LIN_FLOPS,
+                                        roofline.MERIT_FLOPS)
+        return
+    if which == "golden":
+        ocp, P, x0, Z, _ = common.gate_inputs("contouring")
+        cfg = tsqp.SQPConfig(n_sqp=30, n_qp_iter=20, mu_min=1e-10)
+    elif which == "basic":
+        ocp, P, x0, Z = common.basic_problem()
+        cfg = tsqp.SQPConfig(n_sqp=10, n_qp_iter=18)
+    else:
+        ocp, P, x0, Z = common.goal_demo_problem(10)
+        cfg = tsqp.SQPConfig(n_sqp=4, n_qp_iter=8)
+    want = getattr(roofline, f"S1_{which.upper()}")
+    got = _single_counts(count_lib, ocp, cfg, P, x0, Z)
+    assert got == want
+    g = _single_counts(count_lib, ocp, cfg._replace(
+        regularization="gershgorin"), P, x0, Z)
+    T, nz = ocp.N + 1, ocp.nvar
+    assert g.mirror == 0 and 0 < g.lin - want.lin < 2 * nz * (nz + 2) * T
+    flops = roofline.single_flops(((cfg.n_sqp, cfg.n_qp_iter),), want, T, nz)
+    assert flops == cfg.n_sqp * (want.lin + want.mirror + want.qp
+                                 + 2 * T * nz) + (
+        cfg.n_sqp * cfg.n_qp_iter * want.ip_iter
+        + (cfg.n_sqp + 2) * want.merit)
+

@@ -49,7 +49,8 @@ def test_port_has_sources():
             "modules/decomp_constraints.py", "ops/decomp.py",
             "ops/decomp_native.py", "native/decomp.cpp", "parallel/mesh.py",
             "dashboard.py", "dashboard_web.py", "utils/logging.py",
-            "utils/visualization.py"} <= names
+            "utils/visualization.py", "csrc/sqp_single.cu",
+            "csrc/sqp_single.cuh", "ops/sqp_single.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
