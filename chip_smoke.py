@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the four kernel libraries from the checkout, in parallel, and prints
+Builds the five kernel libraries from the checkout, in parallel, and prints
 each ptxas report: the interior-point QP kernel (csrc/qp_ip.cu, with its
 cold, duals/warm and field-layout entries), the fused whole-SQP kernel
 (csrc/sqp_fused.cu, with its linearize entry), the FP32 roof kernel
 (csrc/fma_roof.cu) and the single-instance SQP kernel S1
 (csrc/sqp_single.cu; its launch plans at the golden, basic, demo and
-bicycle OCPs). B1 and B2 run one warp per problem with its state in
+bicycle OCPs) and the mirror linearize entry (csrc/sqp_linearize_mirror.cu). B1 and B2 run one warp per problem with its state in
 shared memory: for every entry it prints the launch plan at the bench shape
 and at the goal, CC-MPC and SH-MPC OCPs of BASELINE configs 1, 3 and 5 and at the bicycle OCPs (warps
 per block, dynamic shared memory per block, problems resident per SM,
@@ -85,7 +85,7 @@ test's scene; (c) the SH-MPC fleet (m=40, the slack model) through B2 and
 B1 at (6, 2), held as in (a); (d) the SH-MPC planner tick
 (configuration_safe_horizon, build_planner, 4 scenario solvers, 60 serial
 ticks under Gershgorin with one B2 launch each, then ticks under "mirror"
-with B1 (6, 2) once per SQP iteration): success, no contact with the
+on the lane path, (m3) below): success, no contact with the
 pedestrians' mean positions, ms per tick, support and certificate. Then
 the multi-robot coordination path and the rest of 4a, each run with the
 launch counts set to 0 before it: (i) three goal_tmpc RobotAgents
@@ -146,6 +146,24 @@ tick; the fleet-process demo's three spawned robots, the JAX demo's, one
 S1 launch per planning solve, and S1 at their shape against plain) and
 tools/kernel_check.py (every B1 instance, B2 model and h-row kind against
 plain at f64).
+The default regularization, "mirror", on the lane path (each run with the
+launch counts set to 0 before it): (m1) after the lane step, the mirror
+linearize entry (csrc/sqp_linearize_mirror.cu) against its plain version
+(torch.func and eigh) at f64 on the bench fleet (4608 problems, T=21) and
+the SH-MPC (nz=8) and bicycle (nz=9) fleets of 512, every field within
+LIN_F64_RTOL / LIN_F64_ATOL, a NaN cost weight at one stage giving that
+stage's H block all NaN and changing nothing else, timed beside the
+Gershgorin linearize entry on the same inputs; (m2) after the tick, the
+T-MPC++ tick with the planner built from the settings (sqp_config=None:
+10 x 18 under "mirror"): the "lanes" backend, per tick 10 mirror linearize,
+10 B1 field and 1 merit launch and nothing else, success, no contact,
+median, p99 and spikes against 44 ms, the same tick through "pallas"
+(torch.func and eigh) beside it, the two backends' winners at f64 on one
+tick's problems, and B1's field entry at the tick's shape against plain;
+(m3) in (d), the SH-MPC tick under "mirror" on the lane path the same way,
+against its Gershgorin ticks. B2's solve kernels keep the registers and
+stack of the parent's build (B2_PTXAS) and its time at the bench shape
+(B2_BENCH_MS).
 Any failed phase raises, so the script exits non-zero and prints no result. The last line is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 each with its bound. Needs one CUDA device; without one it exits with code 2.
@@ -155,6 +173,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -172,6 +191,20 @@ from oscar_mpc_planner_mr_modification_tpu_torch.tools.common import (  # noqa: 
     launch_counts, tick_scene)
 
 B_MAIN, N_MAIN, N_PATHS = 512, 20, 8
+#: B2's fused solve at the bench shape, f32, over the runs of its PERF.md
+#: row (ms), which this PR's mirror variant must not move.
+B2_BENCH_MS = (16.77, 17.31)
+#: B2's solve kernels as ptxas reported them for the sources before the
+#: mirror variant (sqp_fused.cu without it, built on an H100 beside the
+#: sources with it): "dtype model" -> (registers, cumulative stack
+#: bytes).
+B2_PTXAS = {
+    "d ContouringUnicycle": (255, 1488), "d Unicycle": (255, 912),
+    "d ContouringUnicycleSlack": (255, 1840), "d Bicycle": (255, 2520),
+    "d BicycleCA": (255, 2320), "d ContouringUnicycleCA": (255, 1448),
+    "f ContouringUnicycle": (255, 480), "f Unicycle": (168, 560),
+    "f ContouringUnicycleSlack": (255, 656), "f Bicycle": (255, 904),
+    "f BicycleCA": (255, 816), "f ContouringUnicycleCA": (255, 432)}
 T0 = time.perf_counter()
 #: B3's kernel rounds once per step (fmaf), its plain version twice: over
 #: 256 steps the two may part by up to 3 roundings of 2^-24 per step.
@@ -376,6 +409,25 @@ def log_plans(dev, ocp, tables):
                       f"{name} {str(dtype)[6:]} fits the card")
 
 
+def ptxas_entries(build_log):
+    """``{kernel entry: (registers, cumulative stack bytes)}`` from an nvcc
+    build log with ptxas' report (``-Xptxas -v``), by mangled name."""
+    import re
+
+    out, entry = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers.* (\d+) bytes cumulative stack",
+                      line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), int(m.group(2)))
+            entry = None
+    return out
+
+
 def spread(times):
     """min / max of a list of ms, for the log."""
     return f"min {min(times):.3f}, max {max(times):.3f}"
@@ -416,9 +468,9 @@ def build_tick_scene(dev):
 
 
 def run_ticks(scene, pipelined, capture_at=None, profile_last=False,
-              bench_timing=False):
-    """TICKS ticks of the scenario from its start (the first TICK_SKIP not
-    timed), serial (``solve_mpc``) or pipelined (``solve_mpc_start``, the
+              bench_timing=False, n_ticks=TICKS):
+    """``n_ticks`` ticks of the scenario from its start (the first TICK_SKIP
+    not timed), serial (``solve_mpc``) or pipelined (``solve_mpc_start``, the
     next tick's pedestrians, data and ``prepare``, ``solve_mpc_finish``).
     With ``capture_at`` the inputs dispatched at that tick are kept; with
     ``profile_last`` PROFILED_TICKS more ticks run under torch.profiler.
@@ -487,7 +539,7 @@ def run_ticks(scene, pipelined, capture_at=None, profile_last=False,
            "ticks": 0, "min_clearance": np.inf, "captured": None}
     gc.collect()
     try:
-        for i in range(TICKS):
+        for i in range(n_ticks):
             gc.disable()
             t0 = time.perf_counter()
             out, data, a, w, world = one_tick(data)
@@ -1404,7 +1456,7 @@ def triggered_phase(dev, card, reset_counts, counts, none, ev):
 MATRIX_B, CONFIG3_B, CONFIG3_OBS = 512, 256, 6
 #: The SH-MPC tick: serial ticks under Gershgorin (B2), then ticks under
 #: "mirror" (B1 at (6, 2) once per SQP iteration).
-SH_TICKS, SH_MIRROR_TICKS = 60, 3
+SH_TICKS, SH_MIRROR_TICKS = 60, 30
 #: Pedestrians crossing the SH-MPC tick's straight 20 m path: start (x, y)
 #: and velocity (vx, vy), m and m/s.
 SH_PEDESTRIANS = [((5.0, 2.0), (0.0, -0.4)), ((10.0, -2.2), (0.0, 0.4))]
@@ -1751,14 +1803,17 @@ def shmpc_tick_phase(dev, card, reset_counts, counts, none):
     one B2 launch (4 problems) per tick and nothing else, the fused backend,
     success on >= 90% of ticks, no contact with the pedestrians' mean
     positions, progress; B2 at the tick's shape against its plain version
-    (f64 within FUSED_F64_GATE, same success) and timed. Then SH_MIRROR_TICKS
-    ticks under "mirror": B1 at (6, 2) once per SQP iteration and nothing
-    else, success, and B1 at that tick's QPs against its plain version.
-    Returns the kernel entry numbers of B2 and B1 in the tick."""
-    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
-        qp_cuda, roofline)
+    (f64 within FUSED_F64_GATE, same success) and timed. Then (m3)
+    SH_MIRROR_TICKS ticks under "mirror": the ``"lanes"`` backend, per
+    tick one mirror linearize launch and one B1 (6, 2) field launch per SQP
+    iteration and one merit launch, nothing else; success on >= 90% of
+    ticks without contact, the median, p99 and spikes against 44 ms and
+    against the Gershgorin ticks' median; and B1's field entry at that
+    tick's QPs against its plain version. Returns the kernel entry numbers
+    of B2 and B1 in the tick."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import roofline
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
-        _make_machinery, _phases_of, make_fleet_sqp_solver)
+        _phases_of, make_fleet_sqp_solver)
 
     def summary(name, recs, state):
         ms = [r["ms"] for r in recs]
@@ -1782,6 +1837,7 @@ def shmpc_tick_phase(dev, card, reset_counts, counts, none):
     reset_counts()
     recs, captured, state = run_sh_ticks(planner, model, settings, opt,
                                          SH_TICKS, capture_at=SH_TICKS // 2)
+    recs_g = recs
     got = counts()
     check(got == {**none, "sqp_fused": SH_TICKS}, f"SH-MPC ticks: launches "
           f"{got} (want one B2 launch per tick, {SH_TICKS}, and nothing "
@@ -1836,61 +1892,365 @@ def shmpc_tick_phase(dev, card, reset_counts, counts, none):
                   a32[2], a32[2]) + 8 * P)
     del planner
 
-    # "mirror": the per-iteration path, B1 at (6, 2) once per SQP iteration
+    # (m3) "mirror": the lane path, the mirror linearize entry and B1's
+    # field entry at (6, 2) once per SQP iteration each
     planner, model, settings, opt = build_sh_planner(dev, "mirror")
-    check(opt.fleet_backend == "pallas", f"SH-MPC backend under 'mirror' "
-          f"{opt.fleet_backend!r} == 'pallas'")
+    check(opt.fleet_backend == "lanes", f"SH-MPC backend under 'mirror' "
+          f"{opt.fleet_backend!r} == 'lanes'")
     reset_counts()
     recs, captured, state = run_sh_ticks(planner, model, settings, opt,
                                          SH_MIRROR_TICKS, capture_at=1)
     got = counts()
     n_sqp = planner.solver.config.n_sqp
-    check(got == {**none, "qp_ip": n_sqp * SH_MIRROR_TICKS}, f"SH-MPC "
-          f"'mirror' ticks: launches {got} (want B1 (6, 2) once per SQP "
-          f"iteration, {n_sqp * SH_MIRROR_TICKS}, and nothing else)")
-    summary("'mirror', B1 (6, 2)", recs, state)
-    check(all(r["success"] for r in recs) and min(
-        r["clearance"] for r in recs) > 0.0, "SH-MPC 'mirror' ticks succeed "
-          "without contact")
-    params, xinit, warm = captured
+    want = {**none, "linearize_mirror": n_sqp * SH_MIRROR_TICKS,
+            "lanes": n_sqp * SH_MIRROR_TICKS, "merit": SH_MIRROR_TICKS}
+    check(got == want, f"(m3) SH-MPC 'mirror' ticks: launches {got} (want "
+          f"per tick {n_sqp} mirror linearize, {n_sqp} B1 field and 1 merit "
+          f"launch, and nothing else)")
+    summary("'mirror', mirror linearize + B1 (6, 2)", recs, state)
+    check(np.mean([r["success"] for r in recs]) >= 0.9 and min(
+        r["clearance"] for r in recs) > 0.0, "(m3) SH-MPC 'mirror' ticks "
+          "succeed on >= 90% of ticks without contact")
+    ms_m = tick_summary(card, "(m3) SH-MPC tick under 'mirror' (lanes)",
+                        np.asarray([r["ms"] for r in recs[1:]]))
+    ms_g = float(np.median([r["ms"] for r in recs_g]))
+    log(f"[{card}] (m3) SH-MPC tick median: 'mirror' {ms_m:.3f} ms against "
+        f"Gershgorin {ms_g:.3f} ms in this run ({ms_m / ms_g:.2f}x) and the "
+        f"1.58 s of the 'pallas' path (PERF.md section 5)")
     ocp, cfg = planner.solver.ocp, planner.solver.config
-    for dtype in (torch.float64, torch.float32):
-        mach = _make_machinery(ocp, cfg, dtype, dev)
-        Pd = torch.as_tensor(params, dtype=dtype, device=dev)
-        Zd = torch.as_tensor(warm, dtype=dtype, device=dev)
-        xd = torch.as_tensor(xinit, dtype=dtype, device=dev)[None].expand(
-            P, -1)
-        qp = mach.build_qp(Zd, torch.cat([Pd, Pd[:, -1:]], dim=1), xd)
-        kw = dict(nu=ocp.nu, n_iters=cfg.n_qp_iter, mu_min=1e-6, w_max=1e6,
-                  row_meta=mach.row_meta)
-        qa = (qp.H, qp.g, qp.A, qp.B, qp.c, qp.D, qp.e, mach.stage_mask,
-              qp.r0)
-        dz_k = qp_cuda.solve_qp_batched(*qa, **kw)
-        dz_p = qp_cuda.ip_solve_reference(*qa, **kw)
-        sync()
-        b1_err = (dz_k - dz_p).abs().max().item()
-        scale = 1.0 + dz_p.abs().max().item()
-        log(f"{str(dtype)[6:]} B1 (6, 2) at the SH-MPC tick's QPs ({P} "
-            f"problems, m={qp.D.shape[2]}, {cfg.n_qp_iter} iterations): "
-            f"max|ddz| {b1_err:.3e}, max|dz| {scale - 1:.3e}")
-        if dtype == torch.float64:
-            check(b1_err <= QP_F64_GATE * scale, "f64 B1 (6, 2) = plain at "
-                  f"the SH-MPC tick's QPs: max|ddz| <= {QP_F64_GATE:g} "
-                  "(1 + max|dz|)")
-    k1_ms, k1_all = cuda_time_ms(lambda: qp_cuda.solve_qp_batched(*qa, **kw),
-                                 reps=20)
-    p1_ms, _ = cuda_time_ms(lambda: qp_cuda.ip_solve_reference(*qa, **kw),
-                            reps=3)
-    log(f"[{card}] B1 (6, 2) at the SH-MPC tick ({P} problems, f32, "
-        f"{cfg.n_qp_iter} iterations): {k1_ms:.3f} ms per launch (median of "
-        f"20; {spread(k1_all)}), plain {p1_ms:.1f} ms")
-    mh = sum(meta[0] == "h" for meta in mach.row_meta)
-    b1 = dict(launches=got["qp_ip"], err=b1_err, ms=k1_ms, plain_ms=p1_ms,
-              flops=roofline.ip_flops(P, cfg.n_qp_iter,
-                                      ip_iter=roofline.SHMPC_IP_ITER_FLOPS),
-              n_bytes=roofline.qp_bytes(qp.g.shape[1], ocp.nx, ocp.nu,
-                                        qp.D.shape[2], mh, P, 4))
+    b1 = dict(lanes_b1_against_plain(dev, card, ocp, cfg, captured,
+                                     "the SH-MPC 'mirror' tick"),
+              launches=got["lanes"])
+    b1["tick_ms"], b1["mirror_launches"] = ms_m, got["linearize_mirror"]
     return dict(b2=b2, b1=b1)
+
+
+# ---------------------------------------------------------------------------
+# The default regularization, "mirror", on the lane path: the mirror
+# linearize entry (csrc/sqp_linearize_mirror.cu), then B1's field entry
+# ---------------------------------------------------------------------------
+#: (m1)'s fleets: the bench fleet (B_MAIN plans x 9 planners, T=21) and
+#: tools/bench_matrix.py's SH-MPC (nz=8) and bicycle (nz=9) fleets of
+#: MATRIX_B problems.
+MIRROR_FLEETS = ("bench", "SH-MPC", "bicycle")
+#: The stage and problem (m1) feeds a NaN cost weight.
+MIRROR_NAN_STAGE, MIRROR_NAN_PROBLEM = 3, 7
+
+
+def mirror_fleet(name, dtype, dev):
+    """``(ocp, P (B, T, npar) with stage N repeating N-1, x0, Z)`` of one
+    of MIRROR_FLEETS on ``dev``."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix)
+
+    if name == "bench":
+        ocp, args = bench_fleet(B_MAIN, dtype, dev)
+        P, x0, Z = flat_fleet(args)
+        return ocp, fleet_P(P), x0, Z
+    rng = np.random.default_rng(14)
+    ocp, *arrays = (bench_matrix.build_shmpc(N_MAIN, MATRIX_B, rng)
+                    if name == "SH-MPC" else
+                    bench_matrix.build_bicycle(BICYCLE_N, MATRIX_B, rng))
+    P, x0, Z = (torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays)
+    return ocp, fleet_P(P), x0, Z
+
+
+def mirror_lin_phase(dev, card):
+    """(m1) The mirror linearize entry against its plain version
+    (``sqp_fused.linearize_reference``: ``torch.func`` and ``eigh``, on the
+    card) at f64 on MIRROR_FLEETS: every field within LIN_F64_RTOL /
+    LIN_F64_ATOL; one stage of one problem fed a NaN cost weight comes out
+    with that stage's H block all NaN and every other output equal to the
+    run without it; every body block's smallest eigenvalue at least
+    reg_eps. Times per launch, f64 and f32, beside the Gershgorin linearize
+    entry's on the same inputs, and the plain version's. Returns, per
+    fleet, the numbers of its kernel entry (f32 times)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        roofline, sqp_fused)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.linearize import (
+        make_lane_linearizer)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import QPData
+
+    cfg = bench_config()._replace(regularization="mirror")
+    out = {}
+    for name in MIRROR_FLEETS:
+        res = {}
+        for dtype in (torch.float64, torch.float32):
+            ocp, P, x0, Z = mirror_fleet(name, dtype, dev)
+            lin = make_lane_linearizer(ocp, cfg, dtype=dtype, device=dev)
+            tables = lin.tables
+            check(tables.reg == sqp_fused.REG_MIRROR,
+                  f"{name}: the lane linearizer's tables say REG_MIRROR")
+            g_tables = sqp_fused.ocp_tables(
+                ocp, cfg._replace(regularization="gershgorin"))
+            ins = sqp_fused._lanes_in(P, x0, Z)
+            B = Z.shape[0]
+            if dtype == torch.float64:
+                qp, mo = sqp_fused.linearize_fields(tables, *ins)
+                got = sqp_fused.unpack_qp(qp, tables)
+                want = sqp_fused.linearize_reference(lin.machinery, tables,
+                                                     P, x0, Z)
+                sync()
+                worst, err = [], 0.0
+                for field, a, b in zip(QPData._fields + ("merit", "cost",
+                                                         "eq_res"),
+                                       (*got, mo[0], mo[1], mo[2]),
+                                       (*want[0], *want[1:])):
+                    d = (a - b).abs().max().item()
+                    err = max(err, d)
+                    if not torch.allclose(a, b, rtol=LIN_F64_RTOL,
+                                          atol=LIN_F64_ATOL):
+                        worst.append(field)
+                    if field == "H":
+                        log(f"f64 {name} mirror linearize ({B} problems): H "
+                            f"max|d| {d:.3e}, max|ref| "
+                            f"{b.abs().max().item():.3e}")
+                log(f"f64 {name} mirror linearize ({B} problems, T="
+                    f"{tables.T}, nz={tables.nx + tables.nu}): max|d| "
+                    f"{err:.3e} over every field")
+                check(not worst, f"f64 {name}: mirror linearize entry = "
+                      f"build_qp under 'mirror' on every field within rtol "
+                      f"{LIN_F64_RTOL:g}, atol {LIN_F64_ATOL:g} (failed: "
+                      f"{worst})")
+                H = got.H
+                # on the host: cuSOLVER refuses the bench's 92160 blocks
+                w_min = torch.linalg.eigvalsh(H[:, :-1].cpu()).min().item()
+                check(w_min >= cfg.reg_eps * (1 - 1e-9), f"f64 {name}: every "
+                      f"body block's smallest eigenvalue {w_min:.6e} >= "
+                      f"reg_eps {cfg.reg_eps:g}")
+                # one stage of one problem fed a NaN cost weight
+                Pn = P.clone()
+                Pn[MIRROR_NAN_PROBLEM, MIRROR_NAN_STAGE,
+                   ocp.registry.index("acceleration")] = float("nan")
+                qn, mn = sqp_fused.linearize_fields(
+                    tables, *sqp_fused._lanes_in(Pn, x0, Z))
+                Hn = sqp_fused.unpack_qp(qn, tables).H
+                sync()
+                b, t = MIRROR_NAN_PROBLEM, MIRROR_NAN_STAGE
+                rest = Hn.clone()
+                rest[b, t] = H[b, t]
+                others = torch.ones(B, dtype=torch.bool, device=dev)
+                others[b] = False
+                check(bool(torch.isnan(Hn[b, t]).all())
+                      and torch.equal(rest, H)
+                      and torch.equal(qn[:, others], qp[:, others])
+                      and torch.equal(mn[:, others], mo[:, others]),
+                      f"f64 {name}: a NaN cost weight at stage {t} of "
+                      f"problem {b} makes that stage's H block all NaN, and "
+                      f"no other H block and no other problem changes")
+                res["err"] = err
+            reps = 10 if name == "bench" else 20
+            m_ms, m_all = cuda_time_ms(
+                lambda: sqp_fused.linearize_fields(tables, *ins), reps=reps)
+            g_ms, g_all = cuda_time_ms(
+                lambda: sqp_fused.linearize_fields(g_tables, *ins), reps=reps)
+            p_ms, _ = cuda_time_ms(
+                lambda: sqp_fused.linearize_reference(lin.machinery, tables,
+                                                      P, x0, Z),
+                reps=2, warmup=1)
+            plan = sqp_fused.mirror_launch_info(dtype, tables)
+            log(f"[{card}] {name} linearize entries ({B} problems, T="
+                f"{tables.T}, nz={tables.nx + tables.nu}, "
+                f"{str(dtype)[6:]}): mirror {m_ms:.3f} ms per launch "
+                f"({spread(m_all)}), Gershgorin {g_ms:.3f} ms ("
+                f"{spread(g_all)}), ratio {m_ms / g_ms:.3f}; plain "
+                f"(torch.func + eigh) {p_ms:.1f} ms; mirror entry's plan "
+                f"{plan}")
+            if dtype == torch.float32:
+                per = {"bench": roofline.LIN_MIRROR_FLOPS,
+                       "SH-MPC": roofline.SHMPC_LIN_MIRROR_FLOPS,
+                       "bicycle": roofline.BICYCLE_LIN_MIRROR_FLOPS}[name]
+                merit = {"bench": roofline.MERIT_FLOPS,
+                         "SH-MPC": roofline.SHMPC_MERIT_FLOPS,
+                         "bicycle": roofline.BICYCLE_MERIT_FLOPS}[name]
+                n_out = sqp_fused.qp_layout(tables.T, tables.m, tables.mh,
+                                            tables.nx, tables.nu)["total"] + 3
+                res.update(ms=m_ms, plain_ms=p_ms, gershgorin_ms=g_ms,
+                           flops=(per + merit) * B,
+                           n_bytes=roofline.tensor_bytes(*ins)
+                           + 4 * B * n_out)
+        out[name] = res
+    return out
+
+
+#: (m2)'s ticks through the "pallas" backend (the picture before this
+#: path): that tick runs torch.func and eigh per SQP iteration.
+PALLAS_TICKS = 8
+
+
+def lanes_b1_against_plain(dev, card, ocp, cfg, captured, name):
+    """B1's field entry at a tick's shape under "mirror": the captured
+    dispatch's problems linearized by the mirror entry, then B1 at f64
+    against its plain version (QP_F64_GATE) and at f32 timed beside it.
+    Returns its kernel entry's numbers (f32)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        qp_cuda, roofline)
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.linearize import (
+        make_lane_linearizer)
+
+    params, xinit, warm = captured
+    P = params.shape[0]
+    for dtype in (torch.float64, torch.float32):
+        lin = make_lane_linearizer(ocp, cfg, dtype=dtype, device=dev)
+        Pt = torch.as_tensor(params, dtype=dtype, device=dev)
+        Pt = torch.cat([Pt, Pt[:, -1:]], dim=1)
+        x0 = torch.as_tensor(xinit, dtype=dtype, device=dev)[None].expand(
+            P, -1)
+        Z = torch.as_tensor(warm, dtype=dtype, device=dev)
+        fields, _ = lin.fields(Pt.permute(2, 1, 0).contiguous(),
+                               Z.permute(1, 2, 0).contiguous(),
+                               x0.t().contiguous())
+        kw = dict(nu=ocp.nu, n_iters=cfg.n_qp_iter, mu_min=cfg.mu_min,
+                  w_max=cfg.w_max, row_meta=lin.machinery.row_meta)
+        mask = lin.machinery.stage_mask
+        zk = qp_cuda.solve_qp_fields(fields, mask, **kw)
+        zp = qp_cuda.fields_reference(fields, mask, **kw)
+        sync()
+        err = (zk - zp).abs().max().item()
+        scale = 1.0 + zp.abs().max().item()
+        log(f"{str(dtype)[6:]} B1 field entry at {name} ({P} problems, "
+            f"{cfg.n_qp_iter} iterations, the mirror entry's QPs): max|d| "
+            f"{err:.3e}, max|ref| {scale - 1:.3e}")
+        if dtype == torch.float64:
+            check(err <= QP_F64_GATE * scale, f"f64 B1 field entry = plain "
+                  f"at {name}: max|d| <= {QP_F64_GATE:g} (1 + max|ref|)")
+    k_ms, k_all = cuda_time_ms(lambda: qp_cuda.solve_qp_fields(
+        fields, mask, **kw), reps=20)
+    p_ms, _ = cuda_time_ms(lambda: qp_cuda.fields_reference(
+        fields, mask, **kw), reps=3)
+    m_ms, _ = cuda_time_ms(lambda: lin.fields(
+        Pt.permute(2, 1, 0).contiguous(), Z.permute(1, 2, 0).contiguous(),
+        x0.t().contiguous()), reps=20)
+    log(f"[{card}] at {name} ({P} problems, f32): B1 field entry "
+        f"{k_ms:.3f} ms per launch ({cfg.n_qp_iter} iterations; "
+        f"{spread(k_all)}), plain {p_ms:.1f} ms; the mirror linearize entry "
+        f"{m_ms:.3f} ms per launch")
+    mh = sum(meta[0] == "h" for meta in lin.machinery.row_meta)
+    ip_iter = roofline.ip_iter_flops(lin.machinery.row_meta, mask, ocp.nx,
+                                     ocp.nu)
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, mirror_ms=m_ms,
+                flops=roofline.ip_flops(P, cfg.n_qp_iter, ip_iter=ip_iter),
+                n_bytes=roofline.qp_bytes(Z.shape[1], ocp.nx, ocp.nu,
+                                          len(mask[0]), mh, P, 4))
+
+
+def tick_summary(card, name, t_ms):
+    """Median, p99 and spike share of a run's tick times, logged beside
+    the 44 ms budget; returns the median."""
+    med = float(np.median(t_ms))
+    log(f"[{card}] {name}: {len(t_ms)} timed ticks, median {med:.3f} ms, "
+        f"p99 {np.percentile(t_ms, 99):.3f} ms, max {t_ms.max():.3f} ms, "
+        f"spike share (> 1.5x median) {np.mean(t_ms > 1.5 * med):.4f}, "
+        f"within the 44 ms budget on {np.mean(t_ms <= 44.0):.4f} of ticks")
+    return med
+
+
+def mirror_tick_phase(dev, card, reset_counts, counts, none):
+    """(m2) The T-MPC++ tick of tools/common.py's scene with the planner
+    built from the settings (``sqp_config=None``: 10 SQP x 18 IP
+    iterations under "mirror"), serial: the ``"lanes"`` backend, per tick
+    n_sqp launches of the mirror linearize entry, n_sqp of B1's field entry
+    and one merit launch, no B2, no S1, no torch.func; success, progress,
+    no contact; median, p99 and spikes against 44 ms. Then the same tick
+    through ``"pallas"`` (torch.func and eigh per SQP iteration, B1
+    batch-major), PALLAS_TICKS ticks, with its median; and the lane and
+    pallas fleet solves at f64 on one captured tick's inputs: the same
+    success and winner, every problem within FUSED_F64_GATE. Then B1's
+    field entry at the tick's shape against its plain version. Returns the
+    kernel entries' numbers."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (
+        make_fleet_sqp_solver)
+
+    t = time.perf_counter()
+    scene = tick_scene(dev, torch.float32, N_MAIN, from_settings=True)
+    log(f"settings-built tick planner built and prewarmed in "
+        f"{time.perf_counter() - t:.2f} s")
+    planner, opt = scene.planner, scene.optimizer
+    cfg = planner.solver.config
+    check((cfg.regularization, cfg.n_sqp, cfg.n_qp_iter, cfg.n_qp_iter_warm)
+          == ("mirror", 10, 18, 0), f"settings-built config: "
+          f"{cfg.regularization!r}, {cfg.n_sqp} x {cfg.n_qp_iter}, warm "
+          f"{cfg.n_qp_iter_warm}")
+    check(opt.fleet_backend == "lanes", f"settings-built tick fleet backend "
+          f"{opt.fleet_backend!r} == 'lanes'")
+    reset_counts()
+    rec = run_ticks(scene, False, capture_at=TICKS // 3)
+    got = counts()
+    n = rec["ticks"]
+    want = {**none, "linearize_mirror": cfg.n_sqp * n,
+            "lanes": cfg.n_sqp * n, "merit": n}
+    check(got == want, f"settings-built ticks: launches {got} (want per "
+          f"tick {cfg.n_sqp} mirror linearize, {cfg.n_sqp} B1 field and 1 "
+          f"merit launch, {n} ticks, and no other kernel)")
+    share = rec["success"] / n
+    check(share >= 0.95, f"settings-built ticks: success {rec['success']}/{n}"
+          f" = {share:.4f} >= 0.95")
+    check(rec["min_clearance"] > 0.0 and rec["progress_m"] >= 10.0,
+          f"settings-built ticks: smallest clearance "
+          f"{rec['min_clearance']:.4f} m > 0, progress "
+          f"{rec['progress_m']:.3f} m >= 10 m")
+    lanes_ms = tick_summary(card, "settings-built T-MPC++ tick ('mirror', "
+                            "'lanes', 10 x 18, P=5, N=20, f32, serial)",
+                            rec["tick_ms"])
+    log(f"settings-built tick host-serial median "
+        f"{np.median(rec['host_ms']):.3f} ms, fetch wait median "
+        f"{np.median(rec['wait_ms']):.3f} ms")
+    captured = rec["captured"]
+
+    # the same tick through "pallas", the path before this one
+    from oscar_mpc_planner_mr_modification_tpu_torch.parallel import tmpc
+
+    opt.fleet_backend = "pallas"
+    opt._packed_solve = {opt._fleet_n_full: tmpc.packed_fleet_solve(
+        planner.solver, opt.n_planners, "pallas", opt._fleet_n_full)}
+    reset_counts()
+    rec_p = run_ticks(scene, False, n_ticks=PALLAS_TICKS)
+    got_p = counts()
+    check(got_p == {**none, "qp_ip": cfg.n_sqp * rec_p["ticks"]},
+          f"'pallas' ticks: launches {got_p} (B1 batch-major once per SQP "
+          f"iteration)")
+    pallas_ms = tick_summary(card, "the same tick through 'pallas' "
+                             "(torch.func + eigh, B1 batch-major)",
+                             rec_p["tick_ms"])
+    log(f"[{card}] settings-built tick: 'lanes' median {lanes_ms:.3f} ms "
+        f"against 'pallas' {pallas_ms:.3f} ms in this run ("
+        f"{pallas_ms / lanes_ms:.2f}x)")
+
+    # winners at f64 on one tick's inputs, lanes against pallas
+    params, xinit, warm = captured
+    P = params.shape[0]
+    a64 = (torch.as_tensor(params, dtype=torch.float64, device=dev),
+           torch.as_tensor(xinit, dtype=torch.float64,
+                           device=dev)[None].expand(P, -1).contiguous(),
+           torch.as_tensor(warm, dtype=torch.float64, device=dev))
+    ocp = planner.solver.ocp
+    r = {b: make_fleet_sqp_solver(ocp, cfg, dtype=torch.float64, device=dev,
+                                  backend=b)(*a64)
+         for b in ("lanes", "pallas")}
+    sync()
+    rl, rp = r["lanes"], r["pallas"]
+    rel = ((rl.z - rp.z).abs().amax(dim=(1, 2))
+           / (1.0 + rp.z.abs().amax(dim=(1, 2))))
+
+    def winner(res):
+        cost = torch.where(res.success, res.cost,
+                           torch.full_like(res.cost, float("inf")))
+        return int(torch.argmin(cost))
+
+    log(f"f64 settings-built tick's {P} problems, 'lanes' vs 'pallas': max "
+        f"rel dZ {rel.max().item():.3e}, success {rl.success.tolist()} / "
+        f"{rp.success.tolist()}, winners {winner(rl)} / {winner(rp)}")
+    check(bool((rl.success == rp.success).all()) and winner(rl) == winner(rp)
+          and rel.max().item() <= FUSED_F64_GATE, "f64 'lanes' = 'pallas' on "
+          f"the tick's problems: same success and winner, max|dZ| / (1 + "
+          f"max|Z|) <= {FUSED_F64_GATE:g}")
+    b1 = lanes_b1_against_plain(dev, card, ocp, cfg, captured,
+                                "the settings-built tick")
+    return dict(b1=dict(b1, launches=got["lanes"]),
+                mirror_launches=got["linearize_mirror"],
+                launches_per_tick=(got["linearize_mirror"] + got["lanes"]
+                                   + got["merit"]) / n,
+                ms=lanes_ms, pallas_ms=pallas_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -3164,6 +3524,19 @@ def main():
                 log(f"ptxas {name}: {line.strip()}")
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    b2_ptxas = {}
+    for name, v in ptxas_entries(infos["sqp_fused"].log).items():
+        m = re.search(r"sqp_fused_kernelI([fd])N4tmpc\d+(\w+?)EE", name)
+        if m:
+            b2_ptxas[f"{m.group(1)} {m.group(2)}"] = v
+    if infos["sqp_fused"].log:
+        check(b2_ptxas == B2_PTXAS, f"B2's solve kernels: (registers, stack "
+              f"bytes) per dtype and model {b2_ptxas} = the parent's build's "
+              f"(the mirror variant is compiled in sqp_linearize_mirror.cu "
+              f"alone)")
+    else:
+        log("B2's library was reused from an earlier build: its ptxas "
+            "report is not in this run")
     log_launch_plans(dev)
 
     # ---- 3. kernel against the plain version (B=64 -> 576 problems) -------
@@ -3378,6 +3751,8 @@ def main():
         f"T={N_MAIN + 1}, schedule {BENCH_SCHEDULE}, f32): kernel {f_ms:.3f} "
         f"ms per launch (median of 10; {spread(f_all)}), plain "
         f"fused_fleet_reference {fp_ms:.3f} ms (median of 3)")
+    check(f_ms <= B2_BENCH_MS[1] * 1.1, f"B2 at the bench shape {f_ms:.3f} "
+          f"ms within 10% of its row's range {B2_BENCH_MS} ms (PERF.md)")
     lin_in = (fleet_P(flat[0]), flat[1], flat[2])
     l_ms, _ = cuda_time_ms(
         lambda: sqp_fused.linearize(step.fleet_solve.tables, *lin_in), reps=10)
@@ -3491,6 +3866,7 @@ def main():
         qp_cuda.launches = qp_cuda.duals_launches = qp_cuda.warm_launches = 0
         qp_cuda.lanes_launches = sqp_fused.launches = 0
         sqp_fused.linearize_launches = sqp_fused.merit_launches = 0
+        sqp_fused.mirror_launches = 0
         roofline.launches = sqp_single.launches = 0
 
     def counts():
@@ -3610,6 +3986,9 @@ def main():
         f"f32): kernel {lk_ms:.3f} ms (median of 20; {spread(lk_all)}), "
         f"plain {lp_ms:.3f} ms")
 
+    # ---- 12b. (m1) the mirror linearize entry against its plain version ---
+    mir = mirror_lin_phase(dev, card)
+
     # ---- 13. path (c): kernel B3, the FP32 roof, achieved FLOP/s ----------
     gen = torch.Generator(device=dev).manual_seed(0)
     x_r = torch.randn(bench_roofline.ROOF_SHAPES[0][0], device=dev,
@@ -3673,6 +4052,8 @@ def main():
 
     # ---- 14. the planner tick: Planner -> TMPCOptimizer -> one B2 --------
     tk = tick_phase(dev, card, reset_counts, counts, none)
+    # ---- 14b. (m2) the settings-built tick: "mirror" on the lane path ----
+    mt = mirror_tick_phase(dev, card, reset_counts, counts, none)
 
     # ---- 15-18. the single-instance solve and BASELINE config 2 ----------
     from oscar_mpc_planner_mr_modification_tpu_torch.tools.bench_rollout import (  # noqa: E501
@@ -3815,8 +4196,17 @@ def main():
               **sh["b1"]),
         entry("sqp_fused_shmpc_tick", "sqp_fused.cu",
               f"{jax_ops}/sqp_fused.py:45", **sh_tick["b2"]),
-        entry("qp_ip_6_2_tick", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
-              **sh_tick["b1"]),
+        entry("qp_ip_lanes_shmpc_tick", "qp_ip.cu",
+              f"{jax_ops}/qp_pallas.py:794", **sh_tick["b1"]),
+        entry("sqp_linearize_mirror", "sqp_linearize_mirror.cu",
+              f"{jax_ops}/sqp_fused.py:45", mt["mirror_launches"],
+              **mir["bench"]),
+        entry("sqp_linearize_mirror_shmpc", "sqp_linearize_mirror.cu",
+              f"{jax_ops}/sqp_fused.py:45",
+              sh_tick["b1"]["mirror_launches"], **mir["SH-MPC"]),
+        {**entry("qp_ip_lanes_tick", "qp_ip.cu",
+                 f"{jax_ops}/qp_pallas.py:794", **mt["b1"]),
+         "launches_per_tick": mt["launches_per_tick"]},
         entry("sqp_fused_multirobot_tick", "sqp_fused.cu",
               f"{jax_ops}/sqp_fused.py:45", **mr_tick),
         entry("sqp_fused_dynvref", "sqp_fused.cu",

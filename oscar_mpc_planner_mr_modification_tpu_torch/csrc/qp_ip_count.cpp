@@ -5,8 +5,8 @@
 // operation it executes, by kind. The lane-group code runs with 32 emulated
 // lanes (warp.cuh), so each operation of the algorithm counts once. It is the
 // witness for the counts that bound the kernels (ops/roofline.py):
-// ip_iter_flops and IP_ITER_FLOPS, LIN_FLOPS and MERIT_FLOPS, and the S1_*
-// counts.
+// ip_iter_flops and IP_ITER_FLOPS, LIN_FLOPS and MERIT_FLOPS, the
+// LIN_MIRROR counts of the mirror linearize entry and the S1_* counts.
 //
 //   g++ -std=c++17 -O1 -shared -fPIC -o libqp_ip_count.so qp_ip_count.cpp
 //
@@ -198,6 +198,36 @@ int tmpc_count_ops(const double* P, const double* x0, const double* Z,
     delete[] Zr;
     delete[] qp;
     delete[] red;
+    return 0;
+  });
+}
+
+// The mirror linearize entry (sqp_linearize_mirror.cu) at one problem of a
+// fused OCP (model id `model`) at Z, as the kernel runs it (lane group, 32
+// emulated lanes; its Jacobi sweeps as this Z needs them): its
+// linearization with the mirror pass (lin_out; reg is REG_MIRROR), as
+// tmpc_count_ops' lin_out. Returns -3 for a model with no instantiation.
+int linearize_mirror_count_ops(const double* P, const double* x0,
+                               const double* Z, const int* itab,
+                               const double* rtab, int T, int npar, int m,
+                               int mh, int model, long long* lin_out) {
+  return tmpc::with_model(model, [&](auto mdl) {
+    using M = decltype(mdl);
+    const tmpc::QpLayout<M> L(T, m, mh);
+    R* Pr = lift(P, npar * T);
+    R* xr = lift(x0, M::NX);
+    R* Zr = lift(Z, T * M::NZ);
+    R* qp = new R[L.total];
+    const tmpc::Ocp o{itab, rtab};
+    const tmpc::Col<const R> Pc{Pr, 1, 0}, xc{xr, 1, 0}, Zc{Zr, 1, 0};
+    reset();
+    tmpc::linearize_warp<M, R, true>(Lanes{}, o, Pc, xc, Zc,
+                                     tmpc::Col<R>{qp, 1, 0}, L, REG_MIRROR);
+    report(lin_out);
+    delete[] Pr;
+    delete[] xr;
+    delete[] Zr;
+    delete[] qp;
     return 0;
   });
 }

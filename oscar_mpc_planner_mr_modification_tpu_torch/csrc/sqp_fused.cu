@@ -39,12 +39,15 @@
 //
 // The linearize entry (sqp_fused_linearize_*) runs the same per-stage code,
 // a warp per problem, into a field-major (fields, Bt) buffer in global
-// memory, for the lane path.
+// memory, for the lane path; under "mirror" (REG_MIRROR) the QP comes from
+// sqp_linearize_mirror.cu's entry instead, and this one gives the merit
+// terms alone.
 //
 // The kernels allocate nothing and do not synchronize. Each extern "C" entry
 // returns cudaGetLastError() after the launch, -1 when a size is out of
-// range, -2 when no block fits the card's shared memory, or -3 for a model
-// id with no instantiation.
+// range, -2 when no block fits the card's shared memory, -3 for a model
+// id with no instantiation, or -4 for a QP asked of the linearize entry
+// under REG_MIRROR.
 
 #include "sqp_fused.cuh"
 
@@ -87,38 +90,10 @@ sqp_fused_kernel(const real* __restrict__ P, const real* __restrict__ x0,
                          n_phases, F, any_active, track_best, reg, prm);
 }
 
-// The linearization alone, at Z: QP fields (L.total, Bt) and
-// (merit, cost, eq_res) (3, Bt); with qp null, the merit terms alone.
-template <typename real, class M>
-__global__ void __launch_bounds__(MAX_WARPS * WIDTH)
-sqp_fused_linearize_kernel(const real* __restrict__ P,
-                           const real* __restrict__ x0,
-                           const real* __restrict__ Z, real* __restrict__ qp,
-                           real* __restrict__ merit_out,
-                           const int* __restrict__ itab,
-                           const double* __restrict__ rtab,
-                           tmpc::QpLayout<M> L, int Bt, int reg) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  real* sm = reinterpret_cast<real*>(smem_raw);
-  const int wid = threadIdx.x / WIDTH, b = blockIdx.x * (blockDim.x / WIDTH) + wid;
-  if (b >= Bt) return;
-  linearize_column<M, real>(Lanes{(int)(threadIdx.x % WIDTH)},
-                         tmpc::Ocp{itab, rtab}, P, x0, Z, qp, merit_out, Bt, b,
-                         L, reg, sm + (size_t)wid * linearize_red(L.T));
-}
-
 template <typename real, class M>
 warp::LaunchPlan solve_plan(const FusedOffsets<M>& F) {
   return warp::cached_plan(sqp_fused_kernel<real, M>, F.L.T, F.L.m, F.L.mh,
                            [&](int W) { return solve_block_bytes<real>(F, W); });
-}
-
-template <typename real, class M>
-warp::LaunchPlan linearize_plan(int T) {
-  return warp::cached_plan(sqp_fused_linearize_kernel<real, M>, T, 0, 0,
-                           [&](int W) {
-                             return sizeof(real) * (size_t)W * linearize_red(T);
-                           });
 }
 
 template <typename real>
@@ -144,27 +119,6 @@ int launch_solve(const void* P, const void* x0, const void* Z, void* out,
                 any_active, track_best, reg, prm);
         return (int)cudaGetLastError();
       });
-}
-
-template <typename real>
-int launch_linearize(const void* P, const void* x0, const void* Z, void* qp,
-                     void* merit_out, const void* itab, const void* rtab,
-                     int Bt, int T, int m, int mh, int model, int reg,
-                     void* stream) {
-  if (!fused_sizes_ok(Bt, T, m, mh)) return -1;
-  return tmpc::with_model(model, [&](auto mdl) {
-    using M = decltype(mdl);
-    const tmpc::QpLayout<M> L(T, m, mh);
-    const warp::LaunchPlan p = linearize_plan<real, M>(T);
-    if (p.err != 0) return p.err;
-    const int blocks = (Bt + p.warps - 1) / p.warps;
-    sqp_fused_linearize_kernel<real, M>
-        <<<blocks, p.warps * WIDTH, p.bytes, (cudaStream_t)stream>>>(
-            (const real*)P, (const real*)x0, (const real*)Z, (real*)qp,
-            (real*)merit_out, (const int*)itab, (const double*)rtab, L, Bt,
-            reg);
-    return (int)cudaGetLastError();
-  });
 }
 
 }  // namespace
@@ -193,7 +147,8 @@ void sqp_fused_launch_info(int f64, int model, int T, int m, int mh,
     using M = decltype(mdl);
     const FusedOffsets<M> F(T, m, mh);
     s = f64 ? solve_plan<double>(F) : solve_plan<float>(F);
-    l = f64 ? linearize_plan<double, M>(T) : linearize_plan<float, M>(T);
+    l = f64 ? linearize_plan<double, M, false>(T)
+            : linearize_plan<float, M, false>(T);
     return 0;
   });
   warp::plan_out(s, solve_out);
@@ -214,12 +169,15 @@ void sqp_fused_launch_info(int f64, int model, int T, int m, int mh,
                               w_max, s_floor, tol_freeze, n_act, stream);     \
   }
 
+// The mirrored QP is sqp_linearize_mirror.cu's; the merit terms alone do
+// not depend on the regularization.
 #define LINEARIZE_ENTRY(NAME, REAL)                                           \
   int NAME(const void* P, const void* x0, const void* Z, void* qp,            \
            void* merit_out, const void* itab, const void* rtab, int Bt,       \
            int T, int m, int mh, int model, int reg, void* stream) {          \
-    return launch_linearize<REAL>(P, x0, Z, qp, merit_out, itab, rtab, Bt, T, \
-                                  m, mh, model, reg, stream);                 \
+    if (reg == tmpc::REG_MIRROR && qp != nullptr) return -4;                  \
+    return launch_linearize<REAL, false>(P, x0, Z, qp, merit_out, itab, rtab, \
+                                         Bt, T, m, mh, model, reg, stream);   \
   }
 
 SOLVE_ENTRY(sqp_fused_solve_f32, float)

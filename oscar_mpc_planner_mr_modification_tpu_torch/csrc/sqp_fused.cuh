@@ -142,8 +142,9 @@ __host__ __device__ inline int linearize_red(int T) {
 
 // The linearize entry's problem b: the QP fields into column b of qp
 // (L.total, Bt) unless qp is null, and (merit, cost, eq_res) into column b
-// of merit_out (3, Bt). `red`: linearize_red(T) reals.
-template <class M, typename real>
+// of merit_out (3, Bt). `red`: linearize_red(T) reals. MIRROR: the
+// Hessians mirrored (REG_MIRROR; tmpc::linearize_stage).
+template <class M, typename real, bool MIRROR = false>
 __device__ void linearize_column(const Lanes& lanes, const tmpc::Ocp& o,
                                  const real* P, const real* x0, const real* Z,
                                  real* qp, real* merit_out, int Bt, int b,
@@ -152,8 +153,8 @@ __device__ void linearize_column(const Lanes& lanes, const tmpc::Ocp& o,
   const size_t B = Bt;
   const Col<const real> Pc{P, B, b}, xc{x0, B, b}, Zc{Z, B, b};
   if (qp != nullptr)
-    tmpc::linearize_warp<M, real>(lanes, o, Pc, xc, Zc, Col<real>{qp, B, b},
-                                  L, reg);
+    tmpc::linearize_warp<M, real, MIRROR>(lanes, o, Pc, xc, Zc,
+                                          Col<real>{qp, B, b}, L, reg);
   real mv, cost, eq;
   const int n = (linearize_red(L.T) - 1) / 3;
   tmpc::merit_warp<M, real>(lanes, o, Pc, xc, Zc, L.T, red, n, &mv, &cost,
@@ -166,5 +167,63 @@ __device__ void linearize_column(const Lanes& lanes, const tmpc::Ocp& o,
     }
   });
 }
+
+#if defined(__CUDACC__)
+// The linearize entry's kernel, one warp per problem: the QP fields
+// (L.total, Bt) and (merit, cost, eq_res) (3, Bt) at Z; with qp null, the
+// merit terms alone. The variant without MIRROR is sqp_fused.cu's, the one
+// with it sqp_linearize_mirror.cu's, so that each source compiles one.
+constexpr int LINEARIZE_WARPS = 4;
+
+template <typename real, class M, bool MIRROR>
+__global__ void __launch_bounds__(LINEARIZE_WARPS * WIDTH)
+sqp_fused_linearize_kernel(const real* __restrict__ P,
+                           const real* __restrict__ x0,
+                           const real* __restrict__ Z, real* __restrict__ qp,
+                           real* __restrict__ merit_out,
+                           const int* __restrict__ itab,
+                           const double* __restrict__ rtab,
+                           tmpc::QpLayout<M> L, int Bt, int reg) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  real* sm = reinterpret_cast<real*>(smem_raw);
+  const int wid = threadIdx.x / WIDTH, b = blockIdx.x * (blockDim.x / WIDTH) + wid;
+  if (b >= Bt) return;
+  linearize_column<M, real, MIRROR>(Lanes{(int)(threadIdx.x % WIDTH)},
+                                    tmpc::Ocp{itab, rtab}, P, x0, Z, qp,
+                                    merit_out, Bt, b, L, reg,
+                                    sm + (size_t)wid * linearize_red(L.T));
+}
+
+template <typename real, class M, bool MIRROR>
+warp::LaunchPlan linearize_plan(int T) {
+  return warp::cached_plan(sqp_fused_linearize_kernel<real, M, MIRROR>, T, 0,
+                           0, [&](int W) {
+                             return sizeof(real) * (size_t)W * linearize_red(T);
+                           });
+}
+
+// One launch of the linearize kernel: -1 for sizes out of range, -3 for a
+// model with no instantiation, else the plan's error or cudaGetLastError().
+template <typename real, bool MIRROR>
+int launch_linearize(const void* P, const void* x0, const void* Z, void* qp,
+                     void* merit_out, const void* itab, const void* rtab,
+                     int Bt, int T, int m, int mh, int model, int reg,
+                     void* stream) {
+  if (!fused_sizes_ok(Bt, T, m, mh)) return -1;
+  return tmpc::with_model(model, [&](auto mdl) {
+    using M = decltype(mdl);
+    const tmpc::QpLayout<M> L(T, m, mh);
+    const warp::LaunchPlan p = linearize_plan<real, M, MIRROR>(T);
+    if (p.err != 0) return p.err;
+    const int blocks = (Bt + p.warps - 1) / p.warps;
+    sqp_fused_linearize_kernel<real, M, MIRROR>
+        <<<blocks, p.warps * WIDTH, p.bytes, (cudaStream_t)stream>>>(
+            (const real*)P, (const real*)x0, (const real*)Z, (real*)qp,
+            (real*)merit_out, (const int*)itab, (const double*)rtab, L, Bt,
+            reg);
+    return (int)cudaGetLastError();
+  });
+}
+#endif
 
 }  // namespace

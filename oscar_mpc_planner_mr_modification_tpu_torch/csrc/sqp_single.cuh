@@ -34,6 +34,7 @@
 
 #include <type_traits>
 
+#include "mirror.cuh"
 #include "qp_ip.cuh"
 #include "tmpc_ocp.cuh"
 
@@ -42,12 +43,10 @@ namespace {
 using tmpc::Col;
 
 // The tables' regularization kind for "mirror" (ops/sqp_fused.py::
-// ocp_tables(..., mirror=True)): the linearization stores the raw Hessian
+// ocp_tables(..., mirror=True)): S1's linearization stores the raw Hessian
 // (tmpc::store_hessian shifts only for REG_GERSHGORIN and REG_LEVENBERG) and
 // S1 mirrors it.
-constexpr int REG_MIRROR = 3;
-// Jacobi sweeps of mirror_stage at most; a 9 x 9 block converges in fewer.
-constexpr int MIRROR_MAX_SWEEPS = 24;
+using tmpc::REG_MIRROR;
 
 template <typename real>
 struct SingleParams {
@@ -620,81 +619,29 @@ __device__ void solve_qp_problem(const Lanes& L, const QpView<real>& q,
 
 // ---- the "mirror" regularization ----------------------------------------
 // The n x n block at (off, off) of one stage's packed upper triangle Hp
-// (NZ x NZ, tmpc::QpLayout's H) replaced by V max(|w|, eps) V^T, w and V
-// its eigenvalues and eigenvectors by cyclic Jacobi: sweeps of rotations
-// over every (p, q) until the off-diagonal Frobenius norm is at most the
-// real type's epsilon times the block's (or MIRROR_MAX_SWEEPS sweeps). A
-// block with a non-finite entry comes out all NaN, as JAX's eigh gives it.
-// A and V: n * n reals of workspace each.
+// (NZ x NZ, tmpc::QpLayout's H) replaced by V max(|w|, eps) V^T
+// (mirror.cuh, shared with the linearize entry's mirror variant). A block
+// with a non-finite entry comes out all NaN, as JAX's eigh gives it. A and
+// V: n * n reals of workspace each.
 template <int NZ, typename real>
 WARP_FN void mirror_stage(real* Hp, int n, int off, real eps, real* A,
                           real* V) {
-  const real tol =
-      real(sizeof(real) == sizeof(float) ? 1.1920929e-07 : 2.220446049250313e-16);
   bool finite_all = true;
   for (int i = 0; i < n; ++i)
     for (int j = 0; j < n; ++j) {
       const real v = Hp[tri_index(off + i, off + j, NZ)];
       A[i * n + j] = v;
-      V[i * n + j] = i == j ? real(1) : real(0);
-      finite_all = finite_all && is_finite(v);
+      finite_all = finite_all && mirror::is_finite(v);
     }
   if (!finite_all) {
     for (int i = 0; i < n; ++i)
       for (int j = i; j < n; ++j) Hp[tri_index(off + i, off + j, NZ)] = real(NAN);
     return;
   }
-  for (int sweep = 0; sweep < MIRROR_MAX_SWEEPS; ++sweep) {
-    real offd = real(0), nrm = real(0);
-    for (int i = 0; i < n; ++i)
-      for (int j = 0; j < n; ++j) {
-        const real a2 = A[i * n + j] * A[i * n + j];
-        nrm = nrm + a2;
-        if (i != j) offd = offd + a2;
-      }
-    if (!(offd > tol * tol * nrm)) break;
-    for (int pp = 0; pp < n - 1; ++pp)
-      for (int qq = pp + 1; qq < n; ++qq) {
-        const real apq = A[pp * n + qq];
-        if (apq == real(0)) continue;
-        const real theta = (A[qq * n + qq] - A[pp * n + pp]) / (real(2) * apq);
-        const real at = fabs(theta);
-        real t;
-        if (at > real(1e18)) {
-          t = real(0.5) / theta;
-        } else {
-          t = real(1) / (at + sqrt(theta * theta + real(1)));
-          if (theta < real(0)) t = -t;
-        }
-        const real c = real(1) / sqrt(t * t + real(1));
-        const real s = t * c;
-        for (int k = 0; k < n; ++k) {  // A <- A J
-          const real akp = A[k * n + pp], akq = A[k * n + qq];
-          A[k * n + pp] = c * akp - s * akq;
-          A[k * n + qq] = s * akp + c * akq;
-        }
-        for (int k = 0; k < n; ++k) {  // A <- J^T A
-          const real apk = A[pp * n + k], aqk = A[qq * n + k];
-          A[pp * n + k] = c * apk - s * aqk;
-          A[qq * n + k] = s * apk + c * aqk;
-        }
-        A[pp * n + qq] = real(0);
-        A[qq * n + pp] = real(0);
-        for (int k = 0; k < n; ++k) {  // V <- V J
-          const real vkp = V[k * n + pp], vkq = V[k * n + qq];
-          V[k * n + pp] = c * vkp - s * vkq;
-          V[k * n + qq] = s * vkp + c * vkq;
-        }
-      }
-  }
-  // A's diagonal -> max(|w|, eps) (kept in the diagonal), then V |w| V^T
-  for (int j = 0; j < n; ++j) A[j * n + j] = nmax(fabs(A[j * n + j]), eps);
+  mirror::jacobi(A, V, n, eps);
   for (int i = 0; i < n; ++i)
-    for (int k = i; k < n; ++k) {
-      real acc = V[i * n] * A[0] * V[k * n];
-      for (int j = 1; j < n; ++j) acc = acc + V[i * n + j] * A[j * n + j] * V[k * n + j];
-      Hp[tri_index(off + i, off + k, NZ)] = acc;
-    }
+    for (int k = i; k < n; ++k)
+      Hp[tri_index(off + i, off + k, NZ)] = mirror::entry(A, V, n, i, k);
 }
 
 // Workspace reals of the mirror pass: two NZ x NZ blocks per lane slot.

@@ -44,8 +44,9 @@
 // (make_lane_linearizer, make_lane_merit): stage conventions of
 // solver/ocp.py (body stages at stage_idx 1, the terminal cost at
 // stage_idx N-1 and u = 0), the terminal block (identity on u, H_T on x), the
-// Gershgorin / Levenberg shift, and masked placeholder rows at stage N
-// (generic D rows 0, e 1).
+// Gershgorin / Levenberg shift or (the MIRROR variant) the "mirror" of
+// mirror.cuh, and masked placeholder rows at stage N (generic D rows 0,
+// e 1).
 //
 // A kernel has no autodiff. Every function is a template on its scalar type
 // S and runs with S = real for values, S = Jet<real, NZ, 0> (value and
@@ -70,6 +71,7 @@
 
 #pragma once
 
+#include "mirror.cuh"
 #include "warp.cuh"
 
 #include <math.h>
@@ -144,7 +146,10 @@ enum { RT_DT = 0, RT_REG_EPS, RT_LEVENBERG, RT_MERIT_W, RT_HALF_WIDTH,
 // The squared-curvature floor of the curvature-aware progress update
 // (models/dynamics.py::CURVATURE2_FLOOR).
 constexpr double CURVATURE2_FLOOR = 1e-10;
-enum { REG_NONE = 0, REG_GERSHGORIN, REG_LEVENBERG };
+// REG_MIRROR: the "mirror" regularization, which the linearization runs
+// only in its MIRROR variant (linearize_stage); elsewhere the Hessian is
+// stored raw and the single-instance kernel mirrors it.
+enum { REG_NONE = 0, REG_GERSHGORIN, REG_LEVENBERG, REG_MIRROR };
 
 struct Ocp {
   const int* it;
@@ -933,9 +938,40 @@ TMPC_FN void store_hessian(R* Hs, int reg, double reg_eps, double levenberg,
     TMPC_UNROLL for (int j = i; j < NZ; ++j, ++k) qp[f0 + k] = Hs[i * NZ + j];
 }
 
+// The "mirror" regularization of the dense symmetric (NZ, NZ) stage block
+// Hs (mirror.cuh): for t < N the whole block, at stage N only the x block
+// (the u block stays the identity, the u-x blocks 0), as JAX's build_qp
+// under "mirror"; a block with a non-finite entry becomes all NaN. A and V:
+// NZ * NZ reals each.
+template <int NZ, typename R>
+TMPC_FN void mirror_hessian(R* Hs, int n, int off, R eps, R* A, R* V) {
+  bool finite_all = true;
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < n; ++j) {
+      const R v = Hs[(off + i) * NZ + off + j];
+      A[i * n + j] = v;
+      finite_all = finite_all && mirror::is_finite(v);
+    }
+  if (!finite_all) {
+    for (int i = 0; i < n; ++i)
+      for (int j = 0; j < n; ++j) Hs[(off + i) * NZ + off + j] = R(NAN);
+    return;
+  }
+  mirror::jacobi(A, V, n, eps);
+  for (int i = 0; i < n; ++i)
+    for (int k = i; k < n; ++k) {
+      const R v = mirror::entry(A, V, n, i, k);
+      Hs[(off + i) * NZ + off + k] = v;
+      Hs[(off + k) * NZ + off + i] = v;
+    }
+}
+
 // Linearize stage t of one problem at its iterate Z: the stage's fields of
-// QpLayout (all but r0).
-template <class M, typename R>
+// QpLayout (all but r0). MIRROR (the linearize entry's variant for
+// REG_MIRROR) mirrors the stage's Hessian before it is stored; without it
+// the code and workspace of the mirror are not compiled in, so the fused
+// solve, which calls this too, does not carry them.
+template <class M, typename R, bool MIRROR = false>
 TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
                                const Col<const R>& Z, const Col<R>& qp,
                                const QpLayout<M>& L, int reg, int t) {
@@ -975,6 +1011,13 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
     }
     TMPC_UNROLL for (int i = 0; i < NZ; ++i)
       qp[L.g + t * NZ + i] = (t == N && i < NU) ? R(0) : cost.g[i];
+    if constexpr (MIRROR) {
+      R A[NZ * NZ], V[NZ * NZ];
+      if (t < N)
+        mirror_hessian<NZ>(Hs, NZ, 0, R(reg_eps), A, V);
+      else
+        mirror_hessian<NZ>(Hs, NX, NU, R(reg_eps), A, V);
+    }
     store_hessian<NZ>(Hs, reg, reg_eps, lev, qp, L.H + t * NTRI);
   }
 
@@ -1032,24 +1075,25 @@ TMPC_HD void linearize_r0(const Col<const R>& x0, const Col<const R>& Z,
 }
 
 // Every field of QpLayout, stage after stage: the host's serial form.
-template <class M, typename R>
+template <class M, typename R, bool MIRROR = false>
 TMPC_HD void linearize(const Ocp& o, const Col<const R>& P,
                        const Col<const R>& x0, const Col<const R>& Z,
                        const Col<R>& qp, const QpLayout<M>& L, int reg) {
-  for (int t = 0; t < L.T; ++t) linearize_stage(o, P, Z, qp, L, reg, t);
+  for (int t = 0; t < L.T; ++t)
+    linearize_stage<M, R, MIRROR>(o, P, Z, qp, L, reg, t);
   linearize_r0(x0, Z, qp, L);
 }
 
 // Every field of QpLayout with one lane group: lane t linearizes stage t,
 // lane 0 writes r0.
-template <class M, typename R>
+template <class M, typename R, bool MIRROR = false>
 TMPC_WARP void linearize_warp(const warp::Lanes& lanes, const Ocp& o,
                               const Col<const R>& P, const Col<const R>& x0,
                               const Col<const R>& Z, const Col<R>& qp,
                               const QpLayout<M>& L, int reg) {
   lanes.run([&](int l) {
     for (int t = l; t < L.T; t += warp::WIDTH)
-      linearize_stage(o, P, Z, qp, L, reg, t);
+      linearize_stage<M, R, MIRROR>(o, P, Z, qp, L, reg, t);
     if (l == 0) linearize_r0(x0, Z, qp, L);
   });
 }

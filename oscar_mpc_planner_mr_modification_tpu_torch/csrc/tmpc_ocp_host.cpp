@@ -92,7 +92,8 @@ int tmpc_qp_layout(int model, int T, int m, int mh, int* out) {
 void tmpc_table_layout(int* out) { tmpc::table_layout(out); }
 
 // Linearize every problem at Z, stage after stage: the QP fields into qp
-// (L.total, Bt) and (merit, cost, eq_res) into merit_out (3, Bt).
+// (L.total, Bt) and (merit, cost, eq_res) into merit_out (3, Bt); under
+// REG_MIRROR with the Hessians mirrored.
 int tmpc_host_linearize_f64(const double* P, const double* x0,
                             const double* Z, double* qp, double* merit_out,
                             const int* itab, const double* rtab, int Bt,
@@ -104,8 +105,11 @@ int tmpc_host_linearize_f64(const double* P, const double* x0,
     for (int b = 0; b < Bt; ++b) {
       const tmpc::Col<const double> Pc{P, (size_t)Bt, b},
           xc{x0, (size_t)Bt, b}, Zc{Z, (size_t)Bt, b};
-      tmpc::linearize<M, double>(o, Pc, xc, Zc,
-                                 tmpc::Col<double>{qp, (size_t)Bt, b}, L, reg);
+      const tmpc::Col<double> qc{qp, (size_t)Bt, b};
+      if (reg == tmpc::REG_MIRROR)
+        tmpc::linearize<M, double, true>(o, Pc, xc, Zc, qc, L, reg);
+      else
+        tmpc::linearize<M, double>(o, Pc, xc, Zc, qc, L, reg);
       const tmpc::Col<double> mo{merit_out, (size_t)Bt, b};
       tmpc::merit<M, double>(o, Pc, xc, Zc, T, &mo[0], &mo[1], &mo[2]);
     }
@@ -113,7 +117,8 @@ int tmpc_host_linearize_f64(const double* P, const double* x0,
   });
 }
 
-// The linearize entry of sqp_fused.cu (same arguments, qp may be null).
+// The linearize entry of sqp_fused.cu (same arguments, qp may be null),
+// and under REG_MIRROR that of sqp_linearize_mirror.cu.
 int sqp_fused_linearize_host_f64(const double* P, const double* x0,
                                  const double* Z, double* qp,
                                  double* merit_out, const int* itab,
@@ -124,9 +129,15 @@ int sqp_fused_linearize_host_f64(const double* P, const double* x0,
     using M = decltype(mdl);
     const tmpc::QpLayout<M> L(T, m, mh);
     std::vector<double> red(linearize_red(T));
-    for (int b = 0; b < Bt; ++b)
-      linearize_column<M, double>(Lanes{}, tmpc::Ocp{itab, rtab}, P, x0, Z,
-                                  qp, merit_out, Bt, b, L, reg, red.data());
+    for (int b = 0; b < Bt; ++b) {
+      const tmpc::Ocp o{itab, rtab};
+      if (reg == tmpc::REG_MIRROR)  // sqp_linearize_mirror.cu's entry
+        linearize_column<M, double, true>(Lanes{}, o, P, x0, Z, qp, merit_out,
+                                          Bt, b, L, reg, red.data());
+      else
+        linearize_column<M, double>(Lanes{}, o, P, x0, Z, qp, merit_out, Bt,
+                                    b, L, reg, red.data());
+    }
     return 0;
   });
 }

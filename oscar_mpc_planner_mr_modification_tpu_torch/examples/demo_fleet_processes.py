@@ -10,7 +10,13 @@ middle, a dashboard watching): three spawned ``RobotAgent`` processes
 exchange serialized trajectories through a ``transport.TransportBroker``
 while the parent serves ``dashboard_web`` on the loopback interface, fed by
 the metrics the children send back over a queue. Each robot ticks for
-``FLEET_SECONDS`` (20) seconds of wall time.
+``FLEET_SECONDS`` (20) seconds of wall time, counted from one start that
+the parent gives: each child reports ready once its planner is built and
+warmed, then waits on a start event, which the parent sets when all three
+have reported. A slow spawn spends the start-up budget (``SLACK_S``), never
+the ticking window, so no robot ticks alone while a peer is still
+building (the robots start synchronized and wait for every peer's first
+pose). The JAX demo counts each robot's time from its own start.
 
 Each robot is the JAX demo's (:func:`build_robot`): MPCBase on a and w,
 the goal and ellipsoidal obstacles on ``SecondOrderUnicycleModel``
@@ -38,7 +44,8 @@ from ..tools.common import require_card
 STARTS = [(11.0, 0.0, 0.0), (19.0, 0.8, np.pi), (15.0, 4.0, -np.pi / 2)]
 #: Goals of comparable norm: the goal weight is normalized by 1 / ||goal||^2.
 GOALS = [(19.0, 0.0), (11.0, 0.8), (15.0, -3.0)]
-#: Seconds a child may take beyond its ticking time (start, build, join).
+#: Seconds the children may take to report ready (spawn, import, build,
+#: warm-up), and again to finish after their ticking window (join).
 SLACK_S = 90.0
 
 
@@ -64,11 +71,13 @@ def build_robot(device):
 
 
 def robot_main(ns, index, address, start, goal, duration_s, metrics_q,
-               device, stats_q):
-    """One robot process: its planner, its ``SocketBus`` on the broker, and
-    ticks until ``duration_s`` have passed, each tick's metrics put on
-    ``metrics_q``; at the end ``(ns, solves, S1 launches, median solve
-    ms)`` of its ticks on ``stats_q``."""
+               device, stats_q, ready_q, go):
+    """One robot process: its planner, its ``SocketBus`` on the broker,
+    ``ns`` on ``ready_q`` once warmed, then, from when the event ``go`` is
+    set (waited on for at most ``SLACK_S``), ticks until ``duration_s``
+    have passed, each tick's metrics put on ``metrics_q``; at the end
+    ``(ns, solves, S1 launches, median solve ms)`` of its ticks on
+    ``stats_q``."""
     from ..factory import prewarm_planner
     from ..multirobot.driver import RobotAgent
     from ..multirobot.transport import SocketBus
@@ -83,6 +92,9 @@ def robot_main(ns, index, address, start, goal, duration_s, metrics_q,
     # Built before joining the fleet: a robot that stalls mid-episode
     # leaves its peers planning on stale trajectories.
     prewarm_planner(planner, model, settings, start_pose=start, goal=goal)
+    ready_q.put(ns)
+    if not go.wait(timeout=SLACK_S):
+        raise RuntimeError(f"{ns}: no start within {SLACK_S} s of ready")
     BENCHMARKERS.reset()
     launches0 = sqp_single.launches
     bus = SocketBus(ns, address)
@@ -127,19 +139,34 @@ def main(device="cuda", seconds=None) -> dict:
                      else os.environ.get("FLEET_SECONDS", "20"))
     ctx = mp.get_context("spawn")
     broker = TransportBroker()
-    q, stats_q = ctx.Queue(), ctx.Queue()
+    q, stats_q, ready_q = ctx.Queue(), ctx.Queue(), ctx.Queue()
+    go = ctx.Event()
     procs = [ctx.Process(target=robot_main, name=f"robot{i}",
                          args=(f"robot{i}", i, tuple(broker.address),
                                STARTS[i], GOALS[i], duration, q, str(device),
-                               stats_q))
+                               stats_q, ready_q, go))
              for i in range(len(STARTS))]
     log = MetricsLog()
     server = DashboardServer(log).start()
     print(f"live dashboard: {server.url}", flush=True)
-    deadline = time.monotonic() + duration + SLACK_S
     try:
         for p in procs:
             p.start()
+        ready = set()
+        deadline = time.monotonic() + SLACK_S
+        while (len(ready) < len(procs) and time.monotonic() < deadline
+               and not any(p.exitcode is not None for p in procs)):
+            try:
+                ready.add(ready_q.get(timeout=0.5))
+            except queue.Empty:
+                continue
+        if len(ready) < len(procs):
+            raise RuntimeError(
+                f"robot processes not ready within {SLACK_S} s: ready "
+                f"{sorted(ready)}, exit codes "
+                f"{ {p.name: p.exitcode for p in procs} }")
+        go.set()
+        deadline = time.monotonic() + duration + SLACK_S
         while (any(p.is_alive() for p in procs)
                and time.monotonic() < deadline
                and not any(p.exitcode for p in procs)):

@@ -5,8 +5,12 @@ Counterpart of the JAX package's ``ops/linearize.py``, with its layouts at
 the public functions. On a CUDA device the work is one launch of the fused
 kernel's linearization entry (:func:`.sqp_fused.linearize_fields`, the
 kernel's forward-mode derivatives of ``csrc/tmpc_ocp.cuh``), which writes
-every QP field in the QP kernel's field-major layout; on the CPU the plain
-version runs (:func:`.sqp_fused.linearize_reference`: ``torch.func`` with the
+every QP field in the QP kernel's field-major layout; under ``"mirror"``
+that launch is the mirror entry's (``csrc/sqp_linearize_mirror.cu``: each
+stage's Hessian replaced by V max(|w|, reg_eps) V^T, by cyclic Jacobi in
+the kernel, as the JAX package's ``build_qp`` does with ``eigh``). On the
+CPU the plain version runs (:func:`.sqp_fused.linearize_reference`:
+``torch.func`` and, under ``"mirror"``, ``torch.linalg.eigh``, with the
 kernel's stage-N placeholders, generic D rows 0 and e 1 at stage N, where
 the stage mask leaves every row inactive). So the lane path covers the OCPs
 the fused kernel covers and raises for others, where the JAX package
@@ -98,12 +102,12 @@ def lane_qp(fields: QPFields, T: int) -> LaneQP:
 def make_lane_linearizer(ocp, config, *, dtype, device="cuda"):
     """Build ``lin(P_cols, Z_fields, xinit_cols) -> LaneQP`` (layouts in
     the module docstring; P's stage-N column repeats stage N-1). Raises
-    ``ValueError`` for a regularization other than gershgorin, levenberg or
-    none, and ``NotImplementedError`` for an OCP the fused kernel's header
-    does not cover."""
+    ``ValueError`` for a regularization other than mirror, gershgorin,
+    levenberg or none, and ``NotImplementedError`` for an OCP the fused
+    kernel's header does not cover."""
     device = torch.device(device)
     config = _f32_safe(config, dtype)
-    tables = sqp_fused.ocp_tables(ocp, config)
+    tables = sqp_fused.ocp_tables(ocp, config, mirror=True)
     mach = _make_machinery(ocp, config, dtype, device)
     T = tables.T
 

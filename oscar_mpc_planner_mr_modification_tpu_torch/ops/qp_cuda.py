@@ -49,6 +49,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -67,7 +68,8 @@ lanes_launches = 0
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Kernel libraries: name -> CUDA source in ``csrc/``.
 KERNELS = {"qp_ip": "qp_ip.cu", "sqp_fused": "sqp_fused.cu",
-           "fma_roof": "fma_roof.cu", "sqp_single": "sqp_single.cu"}
+           "fma_roof": "fma_roof.cu", "sqp_single": "sqp_single.cu",
+           "sqp_linearize_mirror": "sqp_linearize_mirror.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -459,14 +461,25 @@ def build_all(names=tuple(KERNELS)) -> dict:
             [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out, time.perf_counter())
+    ended = {}
+
+    def wait(name, proc, t0):  # each build's own time, not its turn's
+        ended[name] = (*proc.communicate(), time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(name, proc, t0))
+               for name, (proc, _, _, t0) in running.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = []
-    for name, (proc, tmp, out, t0) in running.items():
-        log, _ = proc.communicate()
+    for name, (proc, tmp, out, _) in running.items():
+        log, _, seconds = ended[name]
         if proc.returncode != 0:
             failed.append(f"nvcc {KERNELS[name]} failed ({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
-        _BUILT[name] = BuildInfo(str(out), time.perf_counter() - t0, log)
+        _BUILT[name] = BuildInfo(str(out), seconds, log)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: _BUILT[name] for name in names}

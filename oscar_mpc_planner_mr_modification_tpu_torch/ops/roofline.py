@@ -18,7 +18,8 @@ fleet bench's OCP; the ``TICK_``, ``ROLLOUT_``, ``GATE_`` and ``GOAL_``
 constants are the same three counts at the planner tick's OCP, the
 contouring evaluator's, BASELINE config 2's f32 gate's and BASELINE config
 1's goal OCP, and the ``CCMPC_``, ``CCMPC6_`` and ``SHMPC_`` constants at the
-OCPs of BASELINE configs 3 and 5. ``S1_GOLDEN``, ``S1_BASIC`` and
+OCPs of BASELINE configs 3 and 5; the ``LIN_MIRROR`` constants count the
+mirror linearize entry. ``S1_GOLDEN``, ``S1_BASIC`` and
 ``S1_DEMO`` are the single-instance kernel's counts (:class:`SingleCounts`,
 :func:`single_flops`). :func:`bound_ms` is the least time the card could
 take for a given work: the larger of bytes over the memory rate and
@@ -188,6 +189,20 @@ CA_MERIT_FLOPS = 59060
 DECOMP_IP_ITER_FLOPS = 110078
 DECOMP_LIN_FLOPS = 153735
 DECOMP_MERIT_FLOPS = 27675
+
+#: Operations of one launch of the mirror linearize entry per problem
+#: (``csrc/sqp_linearize_mirror.cu``: the linearization with each stage's
+#: Hessian mirrored by cyclic Jacobi; the merit terms beside it are
+#: ``MERIT_FLOPS`` and its kin), counted by ``csrc/qp_ip_count.cpp``'s
+#: ``linearize_mirror_count_ops``. The Jacobi's sweeps depend on the
+#: Hessians, so the count depends on the data: at the bench OCP (the first
+#: plan of the bench fleet) and the SH-MPC OCP (the first 4 problems of
+#: ``tools/bench_matrix.py``'s fleet, seed 0) it is the same on every
+#: problem; at the bicycle OCP (its first 3 problems, seed 0, N=30) it is
+#: their mean, from 443644 to 460320.
+LIN_MIRROR_FLOPS = 180948
+SHMPC_LIN_MIRROR_FLOPS = 247162
+BICYCLE_LIN_MIRROR_FLOPS = 452201
 
 
 class SingleCounts(NamedTuple):

@@ -23,10 +23,13 @@ Success iff the final equality residual (dynamics defects and the initial
 condition) is <= ``res_eq_tol`` and everything is finite.
 
 ``backend="fused"`` hands the whole solve to :mod:`.sqp_fused` (one kernel
-launch per fleet solve, linearization included). ``backend="lanes"`` keeps
-the batch on the trailing axis: per SQP iteration one launch of the fused
-kernel's linearization (:mod:`.linearize`) and one of the QP kernel on its
-output buffer. ``backend="xla"`` (the JAX package's name for its reference
+launch per fleet solve, linearization included; it refuses ``"mirror"``).
+``backend="lanes"`` keeps the batch on the trailing axis: per SQP iteration
+one launch of the fused kernel's linearization (:mod:`.linearize`; under
+``"mirror"`` its mirror entry, which mirrors the Hessians in the kernel)
+and one of the QP kernel on its output buffer, so that it runs the
+per-iteration path under every regularization without ``torch.func`` or
+``eigh`` on a CUDA device. ``backend="xla"`` (the JAX package's name for its reference
 path) solves every problem as :func:`make_sqp_solver` does: in one launch of
 the single-instance kernel (:mod:`.sqp_single`, S1) on a CUDA device, with
 :func:`.qp.solve_qp`, the plain PyTorch interior-point solver, on the CPU.
@@ -209,6 +212,10 @@ class QPData(NamedTuple):
     r0: torch.Tensor
 
 
+#: Matrices per ``torch.linalg.eigh`` call on a CUDA device.
+_EIGH_BATCH = 4096
+
+
 def _mirror_regularize(H, eps):
     """Project the symmetric H to V |diag| V^T with eigenvalue floor eps.
 
@@ -219,7 +226,17 @@ def _mirror_regularize(H, eps):
     device.)"""
     bad = ~torch.isfinite(H).all(dim=-1).all(dim=-1)[..., None, None]
     eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
-    w, V = torch.linalg.eigh(torch.where(bad, eye, H))
+    A = torch.where(bad, eye, H)
+    if A.is_cuda and A[..., 0, 0].numel() > _EIGH_BATCH:
+        # cuSOLVER's batched eigh (torch 2.11, CUDA 12.8 on an H100)
+        # refuses a batch of 32767 matrices or more; 24576 runs. The bench
+        # fleet has 4608 x 20 stages: in pieces.
+        flat = A.reshape(-1, *A.shape[-2:])
+        parts = [torch.linalg.eigh(x) for x in flat.split(_EIGH_BATCH)]
+        w = torch.cat([p[0] for p in parts]).reshape(A.shape[:-1])
+        V = torch.cat([p[1] for p in parts]).reshape(A.shape)
+    else:
+        w, V = torch.linalg.eigh(A)
     w = torch.clamp(torch.abs(w), min=eps)
     return torch.where(bad, float("nan"),
                        (V * w[..., None, :]) @ V.transpose(-1, -2))
@@ -512,10 +529,12 @@ def make_fleet_sqp_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
     :func:`.qp_cuda.solve_qp_batched_duals` call, warm after the first.
     ``backend="fused"``: the whole solve in one launch of the fused kernel
     (:func:`.sqp_fused.make_fused_fleet_solver`). ``backend="lanes"``: per
-    SQP iteration one launch of the fused kernel's linearization and one of
-    the QP kernel on its output (:func:`_make_lane_fleet_solver`). The fused
-    and lane backends raise for an OCP or regularization the fused kernel
-    does not cover, and for ``n_qp_iter_warm > 0``. ``backend="xla"``: the
+    SQP iteration one launch of the fused kernel's linearization (under
+    ``"mirror"`` its mirror entry) and one of the QP kernel on its output
+    (:func:`_make_lane_fleet_solver`). The fused and lane backends raise
+    for an OCP the fused kernel's header does not cover and for
+    ``n_qp_iter_warm > 0``; the fused one also for ``"mirror"``.
+    ``backend="xla"``: the
     reference path, every problem as :func:`make_sqp_solver` solves it (one
     launch of the single-instance kernel S1 per call on a CUDA device, the
     plain PyTorch solve on the CPU) but with ``qp_comp`` 0, as the JAX fleet
@@ -615,7 +634,9 @@ def _make_lane_fleet_solver(ocp, config: SQPConfig, *, dtype, device):
     QP in the QP kernel's field-major layout and the merit terms of the
     iterate, then one launch of the QP kernel that reads that buffer where it
     lies (:func:`.qp_cuda.solve_qp_fields`): no ``torch.func``, no copy, no
-    transpose. Then the full step, kept back where it is NaN. The merit of
+    transpose. Under ``"mirror"`` the linearization is the mirror entry's,
+    which mirrors every stage Hessian in the kernel (JAX's ``build_qp`` with
+    ``eigh``). Then the full step, kept back where it is NaN. The merit of
     each iterate comes with its linearization, so best-iterate tracking
     judges iterate k at iteration k (JAX judges it at the end of k-1: the
     same comparisons in the same order); one merit launch for the last

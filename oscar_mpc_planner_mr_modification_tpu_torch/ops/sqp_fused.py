@@ -21,8 +21,11 @@ with ``track_best`` it keeps the best iterate by merit.
   with ``torch.func`` linearization (:func:`.sqp._make_machinery`) and
   :func:`.qp_cuda.ip_solve_reference`.
 - :func:`linearize_fields` runs the kernel's linearization once (the
-  ``sqp_fused_linearize`` entry) on field-major inputs and returns the raw
-  QP buffer, which ``backend="lanes"`` hands to the QP kernel as it lies;
+  ``sqp_fused_linearize`` entry; for tables of ``ocp_tables(...,
+  mirror=True)`` under ``"mirror"`` the ``sqp_linearize_mirror`` entry of
+  ``csrc/sqp_linearize_mirror.cu``, which mirrors each stage's Hessian by
+  cyclic Jacobi before it stores it) on field-major inputs and returns the
+  raw QP buffer, which ``backend="lanes"`` hands to the QP kernel as it lies;
   :func:`merit_fields` runs the same entry for the merit terms alone, and
   :func:`linearize` unpacks the buffer so that its derivatives can be checked
   field by field. :func:`linearize_reference` is their plain version and
@@ -30,7 +33,8 @@ with ``track_best`` it keeps the best iterate by merit.
   C++ compiler (stage after stage, or as the linearize entry's lane group);
   ``solve.host`` runs the kernel's per-problem code on the host.
 - ``launches`` counts solve launches, ``linearize_launches`` linearize
-  launches and ``merit_launches`` merit-only launches.
+  launches, ``mirror_launches`` those of the mirror entry and
+  ``merit_launches`` merit-only launches.
 
 What the header covers (:func:`ocp_tables` checks it): the models
 ``ContouringSecondOrderUnicycleModel``, ``SecondOrderUnicycleModel``,
@@ -71,6 +75,8 @@ launches = 0
 linearize_launches = 0
 #: Number of merit-only launches of the linearize entry in this process.
 merit_launches = 0
+#: Number of launches of the mirror linearize entry in this process.
+mirror_launches = 0
 
 # IP constants of the fused solve (JAX ops/sqp_fused.py::make_fused_fleet_solver).
 _IP = dict(mu0=1e2, tau=0.995, s_floor=1e-10, tol_freeze=1e-5)
@@ -103,8 +109,9 @@ MODELS = {"ContouringSecondOrderUnicycleModel": 0,
 RT_BOUNDS = 5
 ROW_KINDS = {"hl": 0, "hu": 1, "zl": 2, "zu": 3}
 REG_KINDS = {"none": 0, "gershgorin": 1, "levenberg": 2}
-#: The tables' code for ``"mirror"``, which only the single-instance kernel
-#: runs (``csrc/sqp_single.cuh::REG_MIRROR``).
+#: The tables' code for ``"mirror"`` (``csrc/tmpc_ocp.cuh::REG_MIRROR``),
+#: which the single-instance kernel and the mirror linearize entry run and
+#: the fused solve does not.
 REG_MIRROR = 3
 
 
@@ -242,8 +249,9 @@ def ocp_tables(ocp, config: SQPConfig, mirror: bool = False) -> OcpTables:
     """The kernel's tables for one OCP and (f32-safe) config. Raises
     ``ValueError`` for a regularization the kernel does not run and
     ``NotImplementedError`` for an OCP its header does not cover. With
-    ``mirror`` (the single-instance kernel, :mod:`.sqp_single`)
-    ``"mirror"`` is accepted too, as ``REG_MIRROR``."""
+    ``mirror`` (the single-instance kernel, :mod:`.sqp_single`, and the
+    linearize entry, :func:`linearize_fields`) ``"mirror"`` is accepted too,
+    as ``REG_MIRROR``."""
     from ..modules import (ConsistencyModule, ContouringConstraintModule,
                            ContouringModule, CurvatureAwareContouringModule,
                            GoalModule, MPCBaseModule,
@@ -510,6 +518,19 @@ def _library():
 
 
 @functools.lru_cache(maxsize=None)
+def _mirror_library():
+    lib = ctypes.CDLL(qp_cuda.build("sqp_linearize_mirror").path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for suffix in ("_f32", "_f64"):
+        fn = getattr(lib, "sqp_linearize_mirror" + suffix)
+        fn.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        fn.restype = i32
+    lib.sqp_linearize_mirror_launch_info.argtypes = [i32] * 3 + [ptr]
+    lib.sqp_linearize_mirror_launch_info.restype = None
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _host_library():
     return _bind(ctypes.CDLL(qp_cuda.build_host()), ("_host_f64",))
 
@@ -525,6 +546,15 @@ def launch_info(dtype, tables: OcpTables) -> tuple:
                                      tables.mh, solve, lin)
     return (dict(zip(qp_cuda.PLAN_FIELDS, solve)),
             dict(zip(qp_cuda.PLAN_FIELDS, lin)))
+
+
+def mirror_launch_info(dtype, tables: OcpTables) -> dict:
+    """How the mirror linearize entry launches at the tables' T, on the
+    current device (``qp_cuda.PLAN_FIELDS``)."""
+    out = (ctypes.c_int * 6)()
+    _mirror_library().sqp_linearize_mirror_launch_info(
+        int(dtype == torch.float64), tables.model, tables.T, out)
+    return dict(zip(qp_cuda.PLAN_FIELDS, out))
 
 
 def _check_layout(lib):
@@ -612,13 +642,15 @@ def _linearize_launch(tables: OcpTables, P_f, x_f, Z_f, with_qp: bool,
         err = _host_library().sqp_fused_linearize_host_f64(*args, None)
     else:
         _check_cuda(*bufs)
-        lib = _library()
-        fn = (lib.sqp_fused_linearize_f64 if dtype == torch.float64
-              else lib.sqp_fused_linearize_f32)
+        suffix = "_f64" if dtype == torch.float64 else "_f32"
+        if with_qp and tables.reg == REG_MIRROR:
+            fn = getattr(_mirror_library(), "sqp_linearize_mirror" + suffix)
+        else:
+            fn = getattr(_library(), "sqp_fused_linearize" + suffix)
         with torch.cuda.device(dev):
             err = fn(*args, _stream(dev))
     if err != 0:
-        raise RuntimeError(f"sqp_fused_linearize launch failed with error {err}")
+        raise RuntimeError(f"linearize entry launch failed with error {err}")
     return qp, mo
 
 
@@ -627,10 +659,13 @@ def linearize_fields(tables: OcpTables, P_f, x_f, Z_f):
     (npar*T, B) with field p*T + t (stage N repeating N-1), x_f (nx, B),
     Z_f (T*nz, B). Returns the raw QP buffer (``qp_layout(...)["total"]``,
     B), whose fields the QP kernel reads where they lie, and (merit, cost,
-    eq_res) as (3, B)."""
-    global linearize_launches
+    eq_res) as (3, B). Under ``REG_MIRROR`` the mirror entry runs."""
+    global linearize_launches, mirror_launches
     out = _linearize_launch(tables, P_f, x_f, Z_f, with_qp=True)
-    linearize_launches += 1
+    if tables.reg == REG_MIRROR:
+        mirror_launches += 1
+    else:
+        linearize_launches += 1
     return out
 
 

@@ -28,7 +28,10 @@ class TMPCStepResult(NamedTuple):
 
 def resolve_backend(backend: str, device) -> str:
     """``"auto"`` -> ``"pallas"`` on a CUDA device, ``"xla"`` elsewhere;
-    any other name is returned as it is."""
+    any other name is returned as it is. This is the JAX package's choice
+    for a fleet step; under ``"mirror"`` ``"pallas"`` linearizes with
+    ``torch.func`` and ``eigh``. Planners do not come here: they take
+    :func:`.tmpc.fleet_backend_for`'s ``"lanes"`` for ``"mirror"``."""
     if backend != "auto":
         return backend
     return "pallas" if torch.device(device).type == "cuda" else "xla"

@@ -91,7 +91,9 @@ def select_backend(backend: str = "auto", device="cuda") -> str:
     """The fleet backend of the sharded step: ``"auto"`` is the fused
     whole-SQP kernel on a CUDA device (the multi-card path is the fast
     path) and the plain single-instance solve (``"xla"``) on the CPU; any
-    other name is returned as it is."""
+    other name is returned as it is. The fused kernel refuses ``"mirror"``
+    when the step is built: a ``"mirror"`` step on cards names
+    ``backend="lanes"``."""
     if backend != "auto":
         return backend
     return "fused" if torch.device(device).type == "cuda" else "xla"

@@ -24,11 +24,12 @@ The solve is one fleet solve of the ``P`` problems through
 :func:`..ops.sqp.make_buffered_packed_solve` (one upload, one solve, one
 readback), at the solver's iteration ladder as the T-MPC optimizer runs it.
 Its fleet backend follows the port's rule (:func:`.tmpc.fleet_backend_for`):
-``"pallas"`` (kernel B1 once per SQP iteration) for the ``"mirror"``
-regularization, else ``"fused"`` (kernel B2, the whole SQP in one launch),
-decided from the config when the optimizer is built and recorded as
-``fleet_backend``; an OCP the backend does not cover raises then. Nothing
-falls back to another backend.
+for the ``"mirror"`` regularization ``"lanes"`` (per SQP iteration the
+mirror linearize entry and kernel B1 on its buffer), or ``"pallas"`` (B1
+with ``torch.func`` linearization) with warm duals, else ``"fused"``
+(kernel B2, the whole SQP in one launch), decided from the config when the
+optimizer is built and recorded as ``fleet_backend``; an OCP the backend
+does not cover raises then. Nothing falls back to another backend.
 """
 
 from __future__ import annotations

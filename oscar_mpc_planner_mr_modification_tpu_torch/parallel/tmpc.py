@@ -21,12 +21,16 @@ winner. Semantics kept from the JAX optimizer:
   a homotopy class; consistency tracking reset when every planner fails;
   the winner copied into the main solver.
 
-The fleet backend is decided from the config alone, before any launch:
-``"pallas"`` (kernel B1 once per SQP iteration, ``torch.func``
-linearization) when the regularization is ``"mirror"``, which the fused
-kernel does not run, else ``"fused"`` (kernel B2, the whole SQP in one
-launch). It is never chosen on an exception: an OCP the fused kernel does
-not cover raises ``NotImplementedError`` when the optimizer is built.
+The fleet backend is decided from the config alone, before any launch
+(:func:`fleet_backend_for`): under ``"mirror"`` (the default
+regularization), which the fused kernel does not run, ``"lanes"`` (per SQP
+iteration one launch of the linearize entry that mirrors the Hessians in
+the kernel and one of kernel B1 on its buffer), or ``"pallas"`` (B1 with
+``torch.func`` linearization) where ``n_qp_iter_warm > 0`` asks for warm
+duals, which only that backend has; else ``"fused"`` (kernel B2, the whole
+SQP in one launch). It is never chosen on an exception: an OCP the fused
+kernel's header does not cover raises ``NotImplementedError`` when the
+optimizer is built.
 """
 
 from __future__ import annotations
@@ -45,9 +49,12 @@ from ..utils.profiling import BENCHMARKERS
 
 
 def fleet_backend_for(config) -> str:
-    """The fleet backend of a planner's SQP config: ``"pallas"`` for the
-    ``"mirror"`` regularization, else ``"fused"``."""
-    return "pallas" if config.regularization == "mirror" else "fused"
+    """The fleet backend of a planner's SQP config: ``"lanes"`` for the
+    ``"mirror"`` regularization with cold QPs, ``"pallas"`` for ``"mirror"``
+    with warm duals (``n_qp_iter_warm > 0``), else ``"fused"``."""
+    if config.regularization != "mirror":
+        return "fused"
+    return "pallas" if config.n_qp_iter_warm > 0 else "lanes"
 
 
 def packed_fleet_solve(solver, n_problems, backend, n_sqp):

@@ -94,13 +94,14 @@ def bench_config():
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by name (B1's four entries, B2's
-    three, B3, S1)."""
+    three and its mirror linearize entry, B3, S1)."""
     from ..ops import qp_cuda, roofline, sqp_fused, sqp_single
 
     return dict(qp_ip=qp_cuda.launches, duals=qp_cuda.duals_launches,
                 warm=qp_cuda.warm_launches, lanes=qp_cuda.lanes_launches,
                 sqp_fused=sqp_fused.launches,
                 linearize=sqp_fused.linearize_launches,
+                linearize_mirror=sqp_fused.mirror_launches,
                 merit=sqp_fused.merit_launches, fma_roof=roofline.launches,
                 sqp_single=sqp_single.launches)
 
@@ -210,12 +211,14 @@ class TickScene:
 
 
 def tick_scene(device="cuda", dtype=torch.float32, N=BENCH_N, config=None,
-               prewarm=True) -> TickScene:
+               prewarm=True, from_settings=False) -> TickScene:
     """The tick of ``bench.py::_e2e_tick``: the planner on
     ``configuration_tmpc_consistency_cost`` (N, 3 obstacles, 4 guided and 1
     unguided planners) at ``config`` (the bench's operating point by
-    default) on ``device``, in its :class:`TickScene`; with ``prewarm`` the
-    kernels and the PRM library are built before it returns."""
+    default; with ``from_settings`` the settings' own, as a planner built
+    with ``sqp_config=None`` has it: 10 SQP x 18 IP iterations under
+    ``"mirror"``) on ``device``, in its :class:`TickScene`; with ``prewarm``
+    the kernels and the PRM library are built before it returns."""
     from ..factory import (build_planner, configuration_tmpc_consistency_cost,
                            prewarm_planner)
     from ..utils import default_settings
@@ -223,9 +226,10 @@ def tick_scene(device="cuda", dtype=torch.float32, N=BENCH_N, config=None,
     settings = default_settings(N=N, max_obstacles=3)
     model, modules = configuration_tmpc_consistency_cost(settings)
     clock = SimClock()
-    planner = build_planner(model, modules, settings, dtype=dtype,
-                            sqp_config=config or bench_config(), clock=clock,
-                            device=device)
+    planner = build_planner(
+        model, modules, settings, dtype=dtype,
+        sqp_config=None if from_settings else config or bench_config(),
+        clock=clock, device=device)
     if prewarm:
         prewarm_planner(planner, model, settings)
     return TickScene(planner, model, settings, clock)

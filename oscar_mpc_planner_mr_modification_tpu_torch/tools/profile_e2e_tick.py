@@ -8,7 +8,10 @@ the port's counterpart of the JAX package's ``tools/profile_e2e_tick.py``.
 Both run the bench's serial tick (``tools/bench.py::e2e_tick``, the
 garbage collector off in each tick) of ``tools/common.py::tick_scene``
 (``BENCH_N``, 20 by default; 5 planners, 12 crossing pedestrians) at the
-bench's operating point, f32, one B2 launch per tick:
+JAX tool's SQP config (``PROFILE_CONFIG``: 10 SQP x 8 IP iterations under
+"mirror", the last iterate), f32: the ``"lanes"`` backend, per tick 10
+launches each of the mirror linearize entry and B1's field entry and one
+merit launch:
 
 - :func:`main`: ``WARM`` ticks, then cProfile over ``TICKS`` ticks from the
   scene's start; prints each warm tick, the ticks' median, p90 and max, and
@@ -30,10 +33,15 @@ import pstats
 import numpy as np
 import torch
 
+from ..ops.sqp import SQPConfig
 from .bench import e2e_tick
 from .common import BENCH_N, require_card, tick_scene
 
 WARM, TICKS, HOST_TICKS = 4, 20, 36
+#: The JAX tool's SQP config (its ``tools/profile_e2e_tick.py``).
+PROFILE_CONFIG = SQPConfig(n_sqp=10, n_qp_iter=8, mu_min=1e-6, w_max=1e6,
+                           reg_eps=1e-4, regularization="mirror",
+                           track_best=False)
 #: Lines of the cumulative stats each mode prints.
 TOP, HOST_TOP = 45, 60
 
@@ -48,7 +56,8 @@ def _scene(device, N):
     if torch.device(device).type == "cuda":
         require_card("profile_e2e_tick")
     return tick_scene(device, torch.float32,
-                      N or int(os.environ.get("BENCH_N", BENCH_N)))
+                      N or int(os.environ.get("BENCH_N", BENCH_N)),
+                      config=PROFILE_CONFIG)
 
 
 def main(device="cuda", N=None, warm=WARM, ticks=TICKS) -> dict:

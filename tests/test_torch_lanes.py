@@ -175,11 +175,13 @@ def test_lanes_backend_matches_pallas_backend(track_best, bench6):
 
 def test_lanes_backend_raises_for_uncovered_ocp():
     """Where the JAX package warns and falls back to the per-iteration path,
-    the port raises when the solver is built."""
+    the port raises when the solver is built. "mirror" is covered: its
+    linearization mirrors the Hessians (the mirror linearize entry)."""
     to, _ = tbench.tmpc_bench_ocp(N=3, n_paths=2)
-    with pytest.raises(ValueError, match="gershgorin"):
-        tsqp.make_fleet_sqp_solver(to, tsqp.SQPConfig(regularization="mirror"),
-                                   dtype=F64, device="cpu", backend="lanes")
+    solve = tsqp.make_fleet_sqp_solver(
+        to, tsqp.SQPConfig(regularization="mirror"), dtype=F64, device="cpu",
+        backend="lanes")
+    assert solve.tables.reg == sqp_fused.REG_MIRROR
     # the dynamic velocity reference without the PathReferenceVelocity
     # module's spline parameters
     for module in to.modules:

@@ -134,6 +134,8 @@ def count_lib(tmp_path_factory):
     lib.sqp_single_count_ops.argtypes = ([ptr] * 7 + [i32] * 7 + [f64] * 7
                                          + [ptr] * 3)
     lib.sqp_single_count_ops.restype = i32
+    lib.linearize_mirror_count_ops.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.linearize_mirror_count_ops.restype = i32
     return lib
 
 
@@ -781,3 +783,60 @@ def test_single_instance_counts_match_the_kernel_count(count_lib, which):
         cfg.n_sqp * cfg.n_qp_iter * want.ip_iter
         + (cfg.n_sqp + 2) * want.merit)
 
+
+
+@pytest.mark.parametrize("which", ["bench", "shmpc", "bicycle"])
+def test_mirror_linearization_flops_match_the_kernel_count(count_lib, which):
+    """LIN_MIRROR_FLOPS, SHMPC_LIN_MIRROR_FLOPS and BICYCLE_LIN_MIRROR_FLOPS
+    are the mirror linearize entry's own counts (the header's MIRROR
+    variant with the counting scalar type): on the bench fleet's first plan
+    (9 problems) and the SH-MPC fleet's first 4 problems the same on every
+    problem, on the bicycle fleet's first 3 problems their mean (the Jacobi
+    sweeps follow the data). The mirror adds to the linearization without
+    a shift (``tmpc_count_ops`` at the same tables) at most what every
+    stage's Jacobi can take, MAX_SWEEPS sweeps of nz (nz - 1) / 2
+    rotations of 12 nz + 13 operations each, and the product V |w| V^T."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
+        bench_matrix, common)
+
+    f64 = torch.float64
+    if which == "bench":
+        ocp, (params, xinit, z_init, _) = common.bench_fleet(1, f64, "cpu")
+        P = torch.cat([params[0], params[0][:, -1:]], dim=1)
+        x0, Z = xinit.expand(P.shape[0], -1), z_init[0]
+    else:
+        rng = np.random.default_rng(0)
+        ocp, *arrays = (bench_matrix.build_shmpc(20, 4, rng)
+                        if which == "shmpc" else
+                        bench_matrix.build_bicycle(30, 3, rng))
+        P, x0, Z = (torch.as_tensor(a, dtype=f64) for a in arrays)
+        P = torch.cat([P, P[:, -1:]], dim=1)
+    cfg = common.bench_config()._replace(regularization="mirror")
+    tables = sqp_fused.ocp_tables(ocp, cfg, mirror=True)
+    itab = np.ascontiguousarray(tables.ints)
+    rtab = np.ascontiguousarray(tables.reals)
+    ins = sqp_fused._lanes_in(P.contiguous(), x0.contiguous(), Z)
+    T, nz = tables.T, tables.nx + tables.nu
+    jacobi = T * (24 * nz * (nz - 1) // 2 * (12 * nz + 13) + 3 * nz ** 3)
+    got = []
+    for b in range(P.shape[0]):
+        heads = [np.ascontiguousarray(x[:, b].numpy()) for x in ins]
+        lin, raw, merit = (np.zeros(5, np.int64) for _ in range(3))
+        assert count_lib.linearize_mirror_count_ops(
+            *[c.ctypes.data for c in heads], itab.ctypes.data,
+            rtab.ctypes.data, T, tables.npar, tables.m, tables.mh,
+            tables.model, lin.ctypes.data) == 0
+        assert count_lib.tmpc_count_ops(
+            *[c.ctypes.data for c in heads], itab.ctypes.data,
+            rtab.ctypes.data, T, tables.npar, tables.m, tables.mh,
+            tables.model, tables.reg, raw.ctypes.data,
+            merit.ctypes.data) == 0
+        assert 0 < int(lin.sum()) - int(raw.sum()) <= jacobi
+        got.append(int(lin.sum()))
+    want = getattr(roofline, {"bench": "LIN_MIRROR_FLOPS",
+                              "shmpc": "SHMPC_LIN_MIRROR_FLOPS",
+                              "bicycle": "BICYCLE_LIN_MIRROR_FLOPS"}[which])
+    if which == "bicycle":
+        assert round(np.mean(got)) == want, got
+    else:
+        assert got == [want] * len(got)

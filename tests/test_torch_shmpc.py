@@ -282,7 +282,7 @@ def _outputs(side, out):
 
 def test_scenario_optimizer_matches_jax(sh_pair):
     js, ts = sh_pair
-    assert ts.opt.fleet_backend == "pallas"  # "mirror", the config default
+    assert ts.opt.fleet_backend == "lanes"  # "mirror", the config default
     assert ts.opt.n_samples == js.opt.n_samples == 32
     out_j, samples_j = js.tick()
     out_t, samples_t = ts.tick()
@@ -340,17 +340,20 @@ def test_scenario_selection_lockstep(sh_pair, monkeypatch):
 def test_backend_rule_and_prewarm():
     """The fleet backend follows the config when the planner is built:
     "gershgorin" -> "fused" (B2, its plain version on the CPU), "mirror" ->
-    "pallas" (B1 per SQP iteration); an OCP the fused kernel does not cover
+    "lanes" (the mirror linearize entry and B1 per SQP iteration), "mirror"
+    with warm duals -> "pallas"; an OCP the fused kernel does not cover
     raises then; prewarm_planner runs a tick and resets."""
     settings = t_settings(N=6, max_obstacles=2,
                           probabilistic={"enable": True, "risk": 0.1},
                           scenario_constraints={"parallel_solvers": 2,
                                                 "n_samples": 8})
-    for reg, want in (("gershgorin", "fused"), ("mirror", "pallas")):
+    for reg, warm, want in (("gershgorin", 0, "fused"),
+                            ("mirror", 0, "lanes"), ("mirror", 3, "pallas")):
         model, modules = tfactory.configuration_safe_horizon(settings)
         planner = tfactory.build_planner(
             model, modules, settings, dtype=F64, device="cpu",
             sqp_config=tsqp.SQPConfig(n_sqp=2, n_qp_iter=6,
+                                      n_qp_iter_warm=warm,
                                       regularization=reg))
         opt = next(m for m in planner.modules
                    if isinstance(m, ScenarioConstraintModule))._optimizer

@@ -50,7 +50,8 @@ def test_port_has_sources():
             "ops/decomp_native.py", "native/decomp.cpp", "parallel/mesh.py",
             "dashboard.py", "dashboard_web.py", "utils/logging.py",
             "utils/visualization.py", "csrc/sqp_single.cu",
-            "csrc/sqp_single.cuh", "ops/sqp_single.py"} <= names
+            "csrc/sqp_single.cuh", "ops/sqp_single.py", "csrc/mirror.cuh",
+            "csrc/sqp_linearize_mirror.cu"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

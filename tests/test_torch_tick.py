@@ -402,15 +402,19 @@ class GaussianStandIn(EllipsoidConstraintModule):
 
 def test_backend_rule():
     """The backend follows the config before any launch: "mirror" ->
-    "pallas", otherwise "fused"; an OCP the fused kernel does not cover
-    raises when the planner is built."""
+    "lanes" (the mirror linearize entry and B1 per SQP iteration), or
+    "pallas" with warm duals (n_qp_iter_warm > 0), otherwise "fused"; an
+    OCP the fused kernel does not cover raises when the planner is
+    built."""
     settings = t_settings(N=6, max_obstacles=1)
-    for reg, want in (("mirror", "pallas"), ("gershgorin", "fused"),
-                      ("levenberg", "fused")):
+    for reg, warm, want in (("mirror", 0, "lanes"), ("mirror", 2, "pallas"),
+                            ("gershgorin", 0, "fused"),
+                            ("levenberg", 0, "fused")):
         model, modules = t_factory.configuration_tmpc_consistency_cost(settings)
         planner = t_factory.build_planner(
             model, modules, settings, dtype=F64, device="cpu",
             sqp_config=t_sqp.SQPConfig(n_sqp=2, n_qp_iter=4,
+                                       n_qp_iter_warm=warm,
                                        regularization=reg))
         opt = next(m for m in planner.modules if hasattr(m, "_optimizer"))
         assert opt._optimizer.fleet_backend == want
