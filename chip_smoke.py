@@ -350,7 +350,12 @@ def log_launch_plans(dev):
 def log_single_plans(dev):
     """S1's launch plan, f32 and f64, at the contouring_2obs golden (N=15),
     at BASELINE config 2's planner OCP (N=30, 4 obstacles), at the
-    fleet-process demo's robot (N=10) and at the bicycle OCP (N=30, nz=9)."""
+    fleet-process demo's robot (N=10) and at the bicycle OCP (N=30, nz=9),
+    one problem each; and at the bench OCP (N=20) for the `"xla"` step's 72
+    problems and the bench fleet's 4608, where the block's width follows
+    the batch."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.benchmarks import (
+        tmpc_bench_ocp)
     from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
         configuration_bicycle)
     from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
@@ -364,24 +369,32 @@ def log_single_plans(dev):
         default_settings)
 
     settings = default_settings()
-    for name, ocp in (("golden", basic_ocp(15, 2)),
-                      ("basic", basic_problem()[0]),
-                      ("demo", goal_demo_problem(10)[0]),
-                      ("bicycle", build_ocp(*configuration_bicycle(settings),
-                                            settings))):
+    bench_ocp = tmpc_bench_ocp(N=20, n_paths=8)[0]
+    for name, ocp, problems in (
+            ("golden", basic_ocp(15, 2), 1),
+            ("basic", basic_problem()[0], 1),
+            ("demo", goal_demo_problem(10)[0], 1),
+            ("bicycle", build_ocp(*configuration_bicycle(settings),
+                                  settings), 1),
+            ("xla", bench_ocp, 72), ("bench fleet", bench_ocp, 4608)):
         tables = sqp_fused.ocp_tables(ocp, SQPConfig(), mirror=True)
         with torch.cuda.device(dev):
             for dtype in (torch.float32, torch.float64):
-                p = sqp_single.launch_info(dtype, tables)
+                p = sqp_single.launch_info(dtype, tables, problems)
+                threads = 32 * p["warps_per_block"]
                 log(f"launch plan sqp_single {str(dtype)[6:]} at {name} "
                     f"(T={tables.T}, m={tables.m}, (nx, nu) = ({ocp.nx}, "
-                    f"{ocp.nu})): {p['warps_per_block']} warps (problems) "
-                    f"per block, {p['smem_bytes_per_block']} B dynamic "
-                    f"shared memory per block, {p['problems_per_sm']} "
-                    f"problems resident per SM, {p['registers']} registers "
+                    f"{ocp.nu}), {problems} problems): one problem per "
+                    f"block of {threads} threads ({p['warps_per_block']} "
+                    f"warps), {p['smem_bytes_per_block']} B dynamic shared "
+                    f"memory per block, {p['problems_per_sm']} problems "
+                    f"(blocks) resident per SM, {p['registers']} registers "
                     f"and {p['local_bytes']} B local memory per thread")
                 check(p["err"] == 0 and p["problems_per_sm"] > 0,
                       f"sqp_single {str(dtype)[6:]} at {name} fits the card")
+                check(threads > 32, f"sqp_single {str(dtype)[6:]} at {name} "
+                      f"spreads one problem over a block of {threads} > 32 "
+                      f"threads")
 
 
 def log_plans(dev, ocp, tables):

@@ -3,7 +3,8 @@
 // single-instance kernel's mirror pass and QP solve (sqp_single.cuh),
 // compiled for the host with a scalar type that counts every floating-point
 // operation it executes, by kind. The lane-group code runs with 32 emulated
-// lanes (warp.cuh), so each operation of the algorithm counts once. It is the
+// lanes (warp.cuh), S1's QP solve with MAX_WARPS emulated warps (warp.cuh
+// Block), so each operation of the algorithm counts once. It is the
 // witness for the counts that bound the kernels (ops/roofline.py):
 // ip_iter_flops and IP_ITER_FLOPS, LIN_FLOPS and MERIT_FLOPS, the
 // LIN_MIRROR counts of the mirror linearize entry and the S1_* counts.
@@ -278,7 +279,8 @@ int sqp_single_count_ops(const double* P, const double* x0, const double* Z,
                       qp + L.c, qp + L.D, qp + L.e, qp + L.r0};
     R comp, eq;
     reset();
-    solve_qp_problem<R, M::NX, M::NU>(Lanes{}, q, Rows<R>{mask_r, rinfo},
+    solve_qp_problem<R, M::NX, M::NU>(Block{MAX_WARPS, 0}, q,
+                                      Rows<R>{mask_r, rinfo},
                                       F.sz, st, n_iters, prm, &comp, &eq);
     report(qp_out);
     delete[] Pr;

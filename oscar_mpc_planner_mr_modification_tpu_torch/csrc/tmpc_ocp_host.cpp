@@ -7,7 +7,8 @@
 //   sqp_fused.cuh), each problem run by 32 emulated lanes (warp.cuh): the
 //   card's partition of the work in the card's reduction order;
 // - the single-instance kernel's solve (sqp_single.cuh, S1) and its two
-//   parts alone: the "mirror" of symmetric blocks and the QP solve.
+//   parts alone: the "mirror" of symmetric blocks and the QP solve, each
+//   problem run by W x 32 emulated threads (warp.cuh Block).
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libtmpc_ocp_host.so tmpc_ocp_host.cpp
 //
@@ -201,7 +202,21 @@ int qp_ip_solve_duals_host_f64(const double* H, const double* g,
                        n_act);
 }
 
-// The S1 entry of sqp_single.cu (same arguments), problem after problem.
+// The card S1's blocks per SM at 8, 4 and 2 warps where registers bound
+// them (255 per thread: 8 warps per SM), and an H100's 132 SMs: the host
+// emulates the width block_warps picks there for a batch.
+static const int HOST_PER_SM[3] = {1, 2, 4};
+static const int HOST_SMS = 132;
+
+// block_warps(Bt, sms, {p8, p4, p2}), the rule that picks S1's width.
+int sqp_single_block_warps_host(int Bt, int sms, int p8, int p4, int p2) {
+  const int per_sm[3] = {p8, p4, p2};
+  return block_warps(Bt, sms, per_sm);
+}
+
+// The S1 entry of sqp_single.cu (same arguments), problem after problem,
+// each on the warps block_warps picks for Bt problems on HOST_SMS SMs of
+// HOST_PER_SM blocks.
 int sqp_single_solve_host_f64(const double* in, double* out,
                               const double* mask, const int* rinfo,
                               const int* itab, const double* rtab,
@@ -212,14 +227,15 @@ int sqp_single_solve_host_f64(const double* in, double* out,
                               double s_floor, double tol_freeze, double n_act,
                               double res_eq_tol, void*) {
   const Rows<double> rw{mask, rinfo};
+  const int W = block_warps(Bt, HOST_SMS, HOST_PER_SM);
   return single_solve_entry<double>(
       model, Bt, T, m, mh, npar, n_phases, mu0, mu_min, tau, w_max, s_floor,
       tol_freeze, n_act, [&](const auto& F, const SingleParams<double>& prm) {
         using M = typename std::decay_t<decltype(F)>::Model;
         std::vector<double> mem(F.total);
         for (int b = 0; b < Bt; ++b)
-          sqp_single_column<M, double>(Lanes{}, tmpc::Ocp{itab, rtab}, in, out,
-                                       b, npar, mem.data(), rw, phases,
+          sqp_single_column<M, double>(Block{W, 0}, tmpc::Ocp{itab, rtab}, in,
+                                       out, b, npar, mem.data(), rw, phases,
                                        n_phases, F, track_best, reg, prm,
                                        res_eq_tol);
         return 0;
@@ -245,12 +261,13 @@ int sqp_single_mirror_host_f64(const double* H, int count, int n, double eps,
   }
 }
 
-// S1's solve_qp_problem on one QP in its layout (tmpc::QpLayout's fields:
-// H the upper triangles, D the generic rows dense over z, contiguous), with
+// S1's solve_qp_problem on one QP, on MAX_WARPS emulated warps, in its
+// layout (tmpc::QpLayout's fields: H the upper triangles, D the generic
+// rows dense over z, contiguous), with
 // the stage mask and row table of ops/qp_cuda.py::_row_tables: the best
 // iterate into z_out (T*nz), s_out and lam_out (T*m), its complementarity
-// and equality residual into comp_eq (2). Returns -1 for sizes out of range,
-// -3 for an (nx, nu) with no host instantiation.
+// and equality residual into comp_eq (2). Returns -1 for sizes out of
+// range, -3 for an (nx, nu) with no host instantiation.
 int sqp_single_qp_host_f64(const double* H, const double* g, const double* A,
                            const double* Bm, const double* c, const double* D,
                            const double* e, const double* r0,
@@ -273,7 +290,7 @@ int sqp_single_qp_host_f64(const double* H, const double* g, const double* A,
     std::vector<double> mem(sc.total);
     const SingleState<double> st = sc.state(mem.data());
     const QpView<double> q{H, g, A, Bm, c, D, e, r0};
-    solve_qp_problem<double, Dim::NX, Dim::NU>(Lanes{}, q,
+    solve_qp_problem<double, Dim::NX, Dim::NU>(Block{MAX_WARPS, 0}, q,
                                                Rows<double>{mask, rinfo}, sz,
                                                st, n_iters, prm, &comp_eq[0],
                                                &comp_eq[1]);

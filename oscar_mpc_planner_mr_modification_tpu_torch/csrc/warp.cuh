@@ -58,15 +58,84 @@ struct Lanes {
   __device__ __forceinline__ void one(F&& f) const {
     if (lane == 0) f();
   }
+  // A phase whose lanes exchange values in registers by shuffles, which
+  // synchronize them: f(lane) with no barrier around it.
+  template <class F>
+  __device__ __forceinline__ void regs(F&& f) const {
+    f(lane);
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
 #else
   template <class F>
   void run(F&& f) const {
     for (int l = 0; l < WIDTH; ++l) f(l);
   }
   template <class F>
+  void regs(F&& f) const {
+    for (int l = 0; l < WIDTH; ++l) f(l);
+  }
+  void sync() const {}
+  template <class F>
   void one(F&& f) const {
     f();
   }
+#endif
+};
+
+// The threads that solve one problem of the single-instance kernel
+// (sqp_single.cuh): the W warps of a block on the card, W x 32 emulated
+// threads on the host. Warp 0 is the chain warp: it runs the sequential
+// sweeps as a lane group (`lanes()`, the Lanes above) while warps 1..W-1,
+// the rest, work on what does not depend on them; warp 1, the follower,
+// may then trail the chain warp through a sweep.
+//
+// `run(f)` calls f(thread) on every thread, then synchronizes the block;
+// `run_rest(f)` calls f(thread) on the rest's threads only, then
+// synchronizes the rest (named barrier 1, so that the chain warp is not
+// held). Code between phases is uniform across the block: every thread
+// computes the same value from shared memory and writes nothing there, so
+// shared memory read between phases is written again only after the next
+// phase's barrier. `chain()`, `rest()` and `follower()` guard the parts of
+// an overlap; `sync()` joins them. On the host, run and run_rest are serial
+// loops in thread order, chain(), rest() and follower() are all true (in
+// that order the parts run) and sync() does nothing,
+// so the host executes the card's partition in the card's reduction order.
+struct Block {
+  int W;    // warps
+  int tid;  // this thread (card only)
+  WARP_FN int threads() const { return W * WIDTH; }
+#if defined(__CUDACC__)
+  template <class F>
+  __device__ __forceinline__ void run(F&& f) const {
+    f(tid);
+    __syncthreads();
+  }
+  template <class F>
+  __device__ __forceinline__ void run_rest(F&& f) const {
+    f(tid);
+    asm volatile("bar.sync 1, %0;" ::"r"((W - 1) * WIDTH) : "memory");
+  }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  __device__ __forceinline__ bool chain() const { return tid < WIDTH; }
+  __device__ __forceinline__ bool rest() const { return tid >= WIDTH; }
+  __device__ __forceinline__ bool follower() const {
+    return tid / WIDTH == 1;
+  }
+  __device__ __forceinline__ Lanes lanes() const { return Lanes{tid % WIDTH}; }
+#else
+  template <class F>
+  void run(F&& f) const {
+    for (int t = 0; t < W * WIDTH; ++t) f(t);
+  }
+  template <class F>
+  void run_rest(F&& f) const {
+    for (int t = WIDTH; t < W * WIDTH; ++t) f(t);
+  }
+  void sync() const {}
+  bool chain() const { return true; }
+  bool rest() const { return true; }
+  bool follower() const { return true; }
+  Lanes lanes() const { return Lanes{}; }
 #endif
 };
 
@@ -117,17 +186,19 @@ LaunchPlan plan_launch(Kernel kern, Bytes bytes) {
   return best;
 }
 
-// plan_launch(kern, bytes), made once per kernel, device and sizes (k0, k1,
-// k2: what bytes() depends on) and remembered: a plan depends on nothing
-// else, and making one costs attribute calls and occupancy queries. On a
-// remembered plan only the kernel's dynamic shared memory limit is set
-// again, and only when another plan of the kernel set it last. A failed
-// plan is not remembered.
-template <class Kernel, class Bytes>
-LaunchPlan cached_plan(Kernel kern, int k0, int k1, int k2, Bytes bytes) {
+// make() (a LaunchPlan, which sets the kernel's dynamic shared memory
+// limit to its bytes), made once per kernel, device and key (k0..k3: what
+// the plan depends on) and remembered: a plan depends on nothing else, and
+// making one costs attribute calls and occupancy queries. On a remembered
+// plan only the kernel's dynamic shared memory limit is set again, and
+// only when another plan of the kernel set it last. A failed plan is not
+// remembered.
+template <class Kernel, class Make>
+LaunchPlan remembered_plan(Kernel kern, int k0, int k1, int k2, int k3,
+                           Make&& make) {
   using Fn = std::pair<const void*, int>;
   static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, int, int>, LaunchPlan>
+  static std::map<std::tuple<const void*, int, int, int, int, int>, LaunchPlan>
       plans;
   static std::map<Fn, int> limit;  // last dynamic shared memory limit set
   int dev = 0;
@@ -138,11 +209,11 @@ LaunchPlan cached_plan(Kernel kern, int k0, int k1, int k2, Bytes bytes) {
   }
   const void* k = (const void*)kern;
   const std::lock_guard<std::mutex> lock(mu);
-  const auto it = plans.find(std::make_tuple(k, dev, k0, k1, k2));
+  const auto it = plans.find(std::make_tuple(k, dev, k0, k1, k2, k3));
   if (it == plans.end()) {
-    const LaunchPlan p = plan_launch(kern, bytes);
+    const LaunchPlan p = make();
     if (p.err == 0) {
-      plans.emplace(std::make_tuple(k, dev, k0, k1, k2), p);
+      plans.emplace(std::make_tuple(k, dev, k0, k1, k2, k3), p);
       limit[Fn{k, dev}] = p.bytes;
     } else {
       limit.erase(Fn{k, dev});  // the limit is unknown now
@@ -163,6 +234,14 @@ LaunchPlan cached_plan(Kernel kern, int k0, int k1, int k2, Bytes bytes) {
     set = p.bytes;
   }
   return p;
+}
+
+// plan_launch(kern, bytes), remembered as remembered_plan says; bytes(W) is
+// a block's dynamic shared memory, which depends on k0, k1, k2.
+template <class Kernel, class Bytes>
+LaunchPlan cached_plan(Kernel kern, int k0, int k1, int k2, Bytes bytes) {
+  return remembered_plan(kern, k0, k1, k2, 0,
+                         [&] { return plan_launch(kern, bytes); });
 }
 
 // A LaunchPlan as 6 ints: warps, bytes, per_sm, regs, local_bytes, err.

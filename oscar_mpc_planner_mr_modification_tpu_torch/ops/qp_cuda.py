@@ -441,26 +441,32 @@ def _digest(src: Path, flags=_NVCC_FLAGS) -> str:
 _BUILT: dict = {}
 
 
-def build_all(names=tuple(KERNELS)) -> dict:
+def build_all(names=tuple(KERNELS), defines=()) -> dict:
     """Compile the named kernels (``KERNELS``) for sm_90a into
     ``build/torch_kernels/``, one nvcc process per source, all started
-    together; reuse a library whose hash is unchanged. Returns
-    ``{name: BuildInfo}``; raises if any build fails."""
+    together; reuse a library whose hash is unchanged. ``defines`` (macro
+    names, ``-D`` each) build a variant under its own key, as
+    ``tools/s1_sections.py`` builds S1's section counters; the kernels'
+    libraries are built without. Returns ``{name: BuildInfo}``; raises if
+    any build fails."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = (*_NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    tag = "".join(f"_{d.lower()}" for d in defines)
     running = {}
     for name in names:
-        if name in _BUILT:
+        key = (name, *defines) if defines else name
+        if key in _BUILT:
             continue
         src = _CSRC / KERNELS[name]
-        out = _BUILD_DIR / f"lib{name}_{_digest(src)}.so"
+        out = _BUILD_DIR / f"lib{name}{tag}_{_digest(src, flags)}.so"
         if out.is_file():
-            _BUILT[name] = BuildInfo(str(out), 0.0, "")
+            _BUILT[key] = BuildInfo(str(out), 0.0, "")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *flags, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, out, time.perf_counter())
+        running[key] = (proc, tmp, out, time.perf_counter())
     ended = {}
 
     def wait(name, proc, t0):  # each build's own time, not its turn's
@@ -473,16 +479,17 @@ def build_all(names=tuple(KERNELS)) -> dict:
     for w in waiters:
         w.join()
     failed = []
-    for name, (proc, tmp, out, _) in running.items():
-        log, _, seconds = ended[name]
+    for key, (proc, tmp, out, _) in running.items():
+        log, _, seconds = ended[key]
         if proc.returncode != 0:
-            failed.append(f"nvcc {KERNELS[name]} failed ({proc.returncode}):\n{log}")
+            failed.append(f"nvcc {out.name} failed ({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
-        _BUILT[name] = BuildInfo(str(out), seconds, log)
+        _BUILT[key] = BuildInfo(str(out), seconds, log)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: _BUILT[name] for name in names}
+    return {name: _BUILT[(name, *defines) if defines else name]
+            for name in names}
 
 
 def build(name: str = "qp_ip") -> BuildInfo:

@@ -5,8 +5,8 @@ jits the whole solve into one XLA program (linearization by autodiff,
 ``build_qp`` with the ``"mirror"`` eigendecomposition, ``ops/qp.py::
 solve_qp`` under ``lax.scan``). Here the whole solve of every problem runs
 in ONE launch of ``csrc/sqp_single.cu`` (built with nvcc for ``sm_90a`` at
-first use, loaded with ctypes; one warp per problem, its state in shared
-memory): per SQP iteration of each schedule phase the in-kernel
+first use, loaded with ctypes; one thread block per problem, its state in
+shared memory): per SQP iteration of each schedule phase the in-kernel
 linearization of ``csrc/tmpc_ocp.cuh``, the mirror by cyclic Jacobi where
 the regularization is ``"mirror"``, JAX's interior-point QP (the freeze
 with its stationarity term, the best-merit iterate) and the full step, kept
@@ -87,7 +87,7 @@ def _bind(lib, suffixes):
 def _library():
     lib = _bind(ctypes.CDLL(qp_cuda.build("sqp_single").path),
                 ("_f32", "_f64"))
-    lib.sqp_single_launch_info.argtypes = [ctypes.c_int] * 5 + [
+    lib.sqp_single_launch_info.argtypes = [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.sqp_single_launch_info.restype = None
     return lib
@@ -102,18 +102,31 @@ def _host_library():
     lib.sqp_single_qp_host_f64.argtypes = ([ptr] * 10 + [i32] * 6 + [f64] * 7
                                            + [ptr] * 4)
     lib.sqp_single_qp_host_f64.restype = i32
+    lib.sqp_single_block_warps_host.argtypes = [i32] * 5
+    lib.sqp_single_block_warps_host.restype = i32
     return lib
 
 
-def launch_info(dtype, tables: sqp_fused.OcpTables) -> dict:
-    """How S1 launches at the tables' sizes on the current device
-    (``qp_cuda.PLAN_FIELDS``: warps per block, shared memory per block,
-    problems resident per SM, registers and local memory per thread)."""
+def launch_info(dtype, tables: sqp_fused.OcpTables, problems: int = 1) -> dict:
+    """How S1 launches ``problems`` problems at the tables' sizes on the
+    current device (``qp_cuda.PLAN_FIELDS``: warps per block, one problem
+    per block, so 32 times that many threads per problem; shared memory per
+    block; problems (blocks) resident per SM; registers and local memory
+    per thread). The width follows the batch
+    (``csrc/sqp_single.cuh::block_warps``)."""
     out = (ctypes.c_int * 6)()
     _library().sqp_single_launch_info(int(dtype == torch.float64),
                                       tables.model, tables.T, tables.m,
-                                      tables.mh, out)
+                                      tables.mh, problems, out)
     return dict(zip(qp_cuda.PLAN_FIELDS, out))
+
+
+def block_warps(problems: int, sms: int, per_sm) -> int:
+    """``csrc/sqp_single.cuh::block_warps`` from the host build: the warps
+    per block S1 runs ``problems`` problems with on ``sms`` SMs where
+    ``per_sm`` blocks of 8, 4 and 2 warps are resident per SM (0: none
+    fits)."""
+    return _host_library().sqp_single_block_warps_host(problems, sms, *per_sm)
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +219,11 @@ def make_single_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
 
     width = tables.npar * T + tables.nx + T * nz
 
-    def launch(x_in, host=False):
+    def launch(x_in, host=False, lib=None):
         """One launch on the input blocks ``x_in`` (B, width): the kernel's
-        on a CUDA tensor, with ``host`` the host build's on a CPU one."""
+        on a CUDA tensor (from ``lib`` where given: a variant's library,
+        as ``tools/s1_sections.py`` builds one), with ``host`` the host
+        build's on a CPU one."""
         global launches
         want = (torch.float64, "cpu") if host else (dtype, "cuda")
         if ((x_in.dtype, x_in.device.type) != want or x_in.dim() != 2
@@ -227,7 +242,7 @@ def make_single_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
         if host:
             err = _host_library().sqp_single_solve_host_f64(*args, None)
         else:
-            lib = _library()
+            lib = lib or _library()
             fn = (lib.sqp_single_solve_f64 if dtype == torch.float64
                   else lib.sqp_single_solve_f32)
             with torch.cuda.device(dev):
@@ -259,7 +274,9 @@ def make_single_solver(ocp, config: SQPConfig = SQPConfig(), *, dtype,
         return launch(layout(all_params, xinit, z_init))
 
     def host(all_params, xinit, z_init) -> SQPResult:
-        """The kernel's per-problem code compiled for the host (f64)."""
+        """The kernel's per-problem code compiled for the host (f64), each
+        problem on the emulated warps an H100 would run the batch with
+        (``block_warps``, 132 SMs, registers bounding the blocks)."""
         if dtype != torch.float64:
             raise ValueError("the host build runs f64")
         f64 = functools.partial(torch.as_tensor, dtype=torch.float64)
@@ -294,9 +311,9 @@ def host_solve_qp(H, g, A, B, c, D, e, row_mask, r0, *, nu: int,
                   n_iters: int = 15, mu_min: float = 1e-9,
                   w_max: float = 1e14, row_meta=None):
     """``csrc/sqp_single.cuh::solve_qp_problem`` on one QP, compiled for the
-    host: the arguments of JAX's ``solve_qp`` as numpy arrays (H (T, nz, nz)
-    symmetric, D (T, m, nz), ...), ``row_meta`` as ``qp_cuda`` takes it
-    (every row generic when None). Returns ``(z, s, lam, comp, eq_res)``."""
+    host and run on 8 emulated warps: the arguments of JAX's ``solve_qp`` as
+    numpy arrays (H (T, nz, nz) symmetric, D (T, m, nz), ...), ``row_meta``
+    as ``qp_cuda`` takes it (every row generic when None). Returns ``(z, s, lam, comp, eq_res)``."""
     f = functools.partial(np.asarray, dtype=np.float64)
     H, g, A, B, c, D, e, r0 = (f(x) for x in (H, g, A, B, c, D, e, r0))
     T, m, nz = D.shape

@@ -1,7 +1,7 @@
 """The single-instance kernel S1 (``csrc/sqp_single.cuh``, behind
 ``ops/sqp.py::make_sqp_solver`` and ``backend="xla"`` on a CUDA device),
-its per-problem code compiled for the host with g++ and run on 32 emulated
-lanes (``ops/sqp_single.py``: ``solve.host``, ``host_mirror``,
+its per-problem code compiled for the host with g++ and run on emulated
+warps of 32 lanes (``ops/sqp_single.py``: ``solve.host``, ``host_mirror``,
 ``host_solve_qp``), on the CPU at f64 with inputs made from numpy seeds.
 
 - (i) The whole solve against JAX's ``make_sqp_solver`` (x64, CPU) on
@@ -34,6 +34,15 @@ lanes (``ops/sqp_single.py``: ``solve.host``, ``host_mirror``,
   device is touched: an OCP the header does not cover
   (``NotImplementedError``), an (nx, nu) S1 is not compiled for
   (``ValueError``); ``INSTANTIATED`` is the models' dims.
+- (vi) The block's width follows the batch (``sqp_single.block_warps``,
+  the rule the card's launch plan and the host build share): 8 warps up to
+  one wave of 8-warp blocks, then 4 and 2; and a batch the host runs at 4
+  and at 2 warps per problem gives each problem the same bits as one
+  problem alone at 8 (the sums keep one order whatever the width), so (i)
+  holds at every width.
+
+The host build runs each problem on the warps an H100 would run its batch
+with (132 SMs, registers bounding the blocks): 8 for one problem.
 """
 
 import numpy as np
@@ -296,3 +305,25 @@ def test_what_s1_does_not_cover_raises(monkeypatch):
     monkeypatch.setattr(sqp_single, "INSTANTIATED", ((5, 2),))
     with pytest.raises(ValueError, match=r"not \(4, 2\)"):
         tsqp.make_sqp_solver(ocp, CFG, dtype=F64, device="cuda")
+
+
+@pytest.mark.parametrize("problems,per_sm,warps", [
+    (1, (1, 2, 4), 8), (132, (1, 2, 4), 8), (133, (1, 2, 4), 4),
+    (264, (1, 2, 4), 4), (265, (1, 2, 4), 2), (4608, (1, 2, 4), 2),
+    (4608, (1, 2, 2), 4), (4608, (1, 1, 1), 8), (4608, (0, 0, 1), 2),
+    (4608, (0, 0, 0), 0)])
+def test_block_width_follows_the_batch(problems, per_sm, warps):
+    assert sqp_single.block_warps(problems, 132, per_sm) == warps
+
+
+@pytest.mark.parametrize("problems", [133, 265], ids=["4-warps", "2-warps"])
+def test_batch_width_gives_each_problem_its_bits(basic, problems):
+    _, ocp, P, x0, z_init = basic
+    cfg = CFG._replace(regularization="mirror")
+    solve = sqp_single.make_single_solver(ocp, cfg, dtype=F64, device="cpu")
+    one = solve.host(P[None], x0[None], z_init[None])
+    many = solve.host(*(np.repeat(a[None], problems, axis=0)
+                        for a in (P, x0, z_init)))
+    for a, b in zip(one, many):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        assert torch.equal(b, a.expand_as(b))

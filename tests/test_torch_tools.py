@@ -1,8 +1,9 @@
 """The port's measuring tools on the CPU: the schedule sweep
 (``tools/exp_schedule_hw.py``) against the JAX package's fleet solve, the
 tick profile (``tools/profile_e2e_tick.py``) in both modes, what
-``tools/kernel_check.py`` covers, and that each tool refuses to run without
-a card unless asked for the CPU.
+``tools/kernel_check.py`` covers, that ``tools/s1_sections.py`` names the
+section counters of ``csrc/sqp_single.cuh`` in their order, and that each
+tool refuses to run without a card unless asked for the CPU.
 
 The sweep runs one one-phase schedule at 2 plans x 9 planners, N=8, f64
 through ``"xla"`` on both sides (the same single-instance algorithm): the
@@ -23,7 +24,7 @@ from oscar_mpc_planner_mr_modification_tpu_torch.ops import (  # noqa: E402
 from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (  # noqa: E402
     make_fleet_sqp_solver)
 from oscar_mpc_planner_mr_modification_tpu_torch.tools import (  # noqa: E402
-    exp_schedule_hw, kernel_check, profile_e2e_tick, validate)
+    exp_schedule_hw, kernel_check, profile_e2e_tick, s1_sections, validate)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -102,10 +103,31 @@ def test_kernel_check_covers_every_instance_model_and_row_kind():
 
 @pytest.mark.parametrize("run", [
     validate.main, exp_schedule_hw.main, kernel_check.main,
-    lambda: profile_e2e_tick.main(), lambda: profile_e2e_tick.host_only()],
+    lambda: profile_e2e_tick.main(), lambda: profile_e2e_tick.host_only(),
+    lambda: s1_sections.main([])],
     ids=["validate", "exp_schedule_hw", "kernel_check", "profile_e2e_tick",
-         "profile_e2e_tick_host_only"])
+         "profile_e2e_tick_host_only", "s1_sections"])
 def test_tool_without_card_exits_2(run):
     with pytest.raises(SystemExit) as exc:
         run()
     assert exc.value.code == 2
+
+
+def test_s1_sections_name_the_header_counters():
+    """The tool's SECTIONS are the header's SEC_* ids in order (up to
+    SEC_COUNT), and split() divides the IP sections by the IP iterations
+    and the SQP sections by the SQP iterations."""
+    import re
+
+    header = (qp_cuda._CSRC / "sqp_single.cuh").read_text()
+    body = header[header.index("SEC_QP = 0"):header.index("SEC_COUNT")]
+    ids = re.findall(r"\bSEC_(\w+)", body)
+    assert len(ids) == len(s1_sections.SECTIONS)
+    assert ids[0] == "QP" and ids[-1] == "TOTAL"
+    assert s1_sections.SECTIONS[-3:] == ("n_ip", "n_sqp", "total")
+    sec = dict.fromkeys(s1_sections.SECTIONS, 60)
+    sec.update(n_ip=20, n_sqp=3, total=999)
+    got = s1_sections.split(sec)
+    assert set(got["per_ip"].values()) == {3.0}
+    assert set(got["per_sqp"].values()) == {20.0}
+    assert (got["n_ip"], got["n_sqp"], got["total"]) == (20, 3, 999)
