@@ -188,7 +188,7 @@ from oscar_mpc_planner_mr_modification_tpu_torch.tools.common import (  # noqa: 
     BENCH_SCHEDULE, FUSED_F64_GATE, GATE_B, GATE_CFG, GATE_FLAVOURS, GATE_TOL,
     LIN_F64_ATOL, LIN_F64_RTOL, QP_F64_GATE, SimClock, TickScene, basic_ocp,
     bench_config, bench_fleet, card_line, cuda_time_ms, gate_inputs, goal_ocp,
-    launch_counts, tick_scene)
+    launch_counts, ptxas_entries, tick_scene)
 
 B_MAIN, N_MAIN, N_PATHS = 512, 20, 8
 #: B2's fused solve at the bench shape, f32, over the runs of its PERF.md
@@ -422,23 +422,27 @@ def log_plans(dev, ocp, tables):
                       f"{name} {str(dtype)[6:]} fits the card")
 
 
-def ptxas_entries(build_log):
-    """``{kernel entry: (registers, cumulative stack bytes)}`` from an nvcc
-    build log with ptxas' report (``-Xptxas -v``), by mangled name."""
-    import re
+#: Wall seconds of each phase of this run, in order (``lap``).
+PHASE_S = {}
+_LAP_T = [0.0]
 
-    out, entry = {}, None
-    for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            entry = m.group(1)
-            continue
-        m = re.search(r"Used (\d+) registers.* (\d+) bytes cumulative stack",
-                      line)
-        if m and entry is not None:
-            out[entry] = (int(m.group(1)), int(m.group(2)))
-            entry = None
-    return out
+
+def lap(name):
+    """The wall seconds since the last lap, recorded under ``name``."""
+    now = time.perf_counter()
+    PHASE_S[name] = round(now - _LAP_T[0], 3)
+    _LAP_T[0] = now
+
+
+def timed_once(fn):
+    """``(fn(), ms)``: one call timed by CUDA events (for the plain
+    versions, whose one run both checks and times)."""
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    out = fn()
+    e1.record()
+    sync()
+    return out, e0.elapsed_time(e1)
 
 
 def spread(times):
@@ -1000,7 +1004,7 @@ def baseline_gate_phase(dev, card, reset_counts, counts, none, flavour,
     k_ms, k_all = cuda_time_ms(lambda: qp_cuda.solve_qp_batched(*qa, **kw),
                                reps=20)
     p_ms, _ = cuda_time_ms(lambda: qp_cuda.ip_solve_reference(*qa, **kw),
-                           reps=5)
+                           reps=1, warmup=0)
     log(f"[{card}] B1 at the {flavour} gate's QPs: {k_ms:.4f} ms per launch "
         f"(median of 20; {spread(k_all)}), plain {p_ms:.3f} ms")
     T, m = qa[0].shape[1], qa[5].shape[2]
@@ -1391,8 +1395,8 @@ def evaluator_phase(dev, card, reset_counts, counts, none, ev,
     del fs64, a64, r64k, r64p
     # f32: per problem, by warp slot (problem b runs on warp b % W of its
     # block, W = 1, 2 or 4) and over all problems
-    rk, rp = fs(P, x, Z), fs.reference(P, x, Z)
-    sync()
+    rk = fs(P, x, Z)
+    rp, p_ms = timed_once(lambda: fs.reference(P, x, Z))
     err = (rk.z - rp.z).abs().max().item()
     rel = ((rk.z - rp.z).abs().amax(dim=(1, 2))
            / (1.0 + rp.z.abs().amax(dim=(1, 2))))
@@ -1414,7 +1418,6 @@ def evaluator_phase(dev, card, reset_counts, counts, none, ev,
               f"evaluator's shape: share of problems with rel <= 1e-4 "
               f"{share:.6f} >= {f32_share}")
     k_ms, k_all = cuda_time_ms(lambda: fs(P, x, Z), reps=10)
-    p_ms, _ = cuda_time_ms(lambda: fs.reference(P, x, Z), reps=2, warmup=0)
     log(f"[{card}] B2 per {ev.name} evaluator tick ({n} problems, "
         f"T={ROLLOUT_N + 1}, f32): {k_ms:.3f} ms (median of 10; "
         f"{spread(k_all)}), plain fused_fleet_reference {p_ms:.1f} ms; B2's "
@@ -1628,7 +1631,7 @@ def fleet_flavour_phase(dev, card, reset_counts, counts, none, name, ocp,
     k_ms, k_all = cuda_time_ms(lambda: qp_cuda.solve_qp_batched(*qa, **kw),
                                reps=20)
     p_ms, _ = cuda_time_ms(lambda: qp_cuda.ip_solve_reference(*qa, **kw),
-                           reps=3)
+                           reps=1, warmup=0)
     T, m = qp.g.shape[1], qp.D.shape[2]
     mh = sum(meta[0] == "h" for meta in mach.row_meta)
     check(roofline.ip_iter_flops(mach.row_meta, mach.stage_mask, ocp.nx,
@@ -1935,7 +1938,11 @@ def shmpc_tick_phase(dev, card, reset_counts, counts, none):
                                      "the SH-MPC 'mirror' tick"),
               launches=got["lanes"])
     b1["tick_ms"], b1["mirror_launches"] = ms_m, got["linearize_mirror"]
-    return dict(b2=b2, b1=b1)
+    lin = mirror_tick_lin(dev, card, ocp, cfg, captured,
+                          "the SH-MPC 'mirror' tick",
+                          roofline.SHMPC_LIN_MIRROR_FLOPS
+                          + roofline.SHMPC_MERIT_FLOPS)
+    return dict(b2=b2, b1=b1, lin=lin)
 
 
 # ---------------------------------------------------------------------------
@@ -1968,21 +1975,114 @@ def mirror_fleet(name, dtype, dev):
     return ocp, fleet_P(P), x0, Z
 
 
-def mirror_lin_phase(dev, card):
-    """(m1) The mirror linearize entry against its plain version
+def mirror_against_plain(dev, name, ocp, cfg, lin, P, x0, Z, design,
+                         nan_at):
+    """The mirror entry in ``design`` ("warp", "block", or "batch": what
+    the batch picks) at f64 against its plain version
     (``sqp_fused.linearize_reference``: ``torch.func`` and ``eigh``, on the
-    card) at f64 on MIRROR_FLEETS: every field within LIN_F64_RTOL /
-    LIN_F64_ATOL; one stage of one problem fed a NaN cost weight comes out
-    with that stage's H block all NaN and every other output equal to the
-    run without it; every body block's smallest eigenvalue at least
-    reg_eps. Times per launch, f64 and f32, beside the Gershgorin linearize
-    entry's on the same inputs, and the plain version's. Returns, per
-    fleet, the numbers of its kernel entry (f32 times)."""
+    card): every field within LIN_F64_RTOL / LIN_F64_ATOL; every body
+    block's smallest eigenvalue at least reg_eps; one stage of one problem
+    (``nan_at``: problem, stage) fed a NaN cost weight comes out with that
+    stage's H block all NaN and every other output equal to the run
+    without it. Returns the largest difference over the fields."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import sqp_fused
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import QPData
+
+    tables = lin.tables
+    ins = sqp_fused._lanes_in(P, x0, Z)
+    B = Z.shape[0]
+    qp, mo = sqp_fused.linearize_fields(tables, *ins, mapping=design)
+    got = sqp_fused.unpack_qp(qp, tables)
+    want = sqp_fused.linearize_reference(lin.machinery, tables, P, x0, Z)
+    sync()
+    worst, err = [], 0.0
+    for field, a, b in zip(QPData._fields + ("merit", "cost", "eq_res"),
+                           (*got, mo[0], mo[1], mo[2]),
+                           (*want[0], *want[1:])):
+        d = (a - b).abs().max().item()
+        err = max(err, d)
+        if not torch.allclose(a, b, rtol=LIN_F64_RTOL, atol=LIN_F64_ATOL):
+            worst.append(field)
+        if field == "H":
+            log(f"f64 {name} mirror linearize ({B} problems, {design}): H "
+                f"max|d| {d:.3e}, max|ref| {b.abs().max().item():.3e}")
+    log(f"f64 {name} mirror linearize ({B} problems, T={tables.T}, "
+        f"nz={tables.nx + tables.nu}, {design}): max|d| {err:.3e} over "
+        f"every field")
+    check(not worst, f"f64 {name} ({design}): mirror linearize entry = "
+          f"build_qp under 'mirror' on every field within rtol "
+          f"{LIN_F64_RTOL:g}, atol {LIN_F64_ATOL:g} (failed: {worst})")
+    H = got.H
+    # on the host: cuSOLVER refuses the bench's 92160 blocks
+    w_min = torch.linalg.eigvalsh(H[:, :-1].cpu()).min().item()
+    check(w_min >= cfg.reg_eps * (1 - 1e-9), f"f64 {name} ({design}): every "
+          f"body block's smallest eigenvalue {w_min:.6e} >= reg_eps "
+          f"{cfg.reg_eps:g}")
+    b, t = nan_at
+    Pn = P.clone()
+    Pn[b, t, ocp.registry.index("acceleration")] = float("nan")
+    qn, mn = sqp_fused.linearize_fields(
+        tables, *sqp_fused._lanes_in(Pn, x0, Z), mapping=design)
+    Hn = sqp_fused.unpack_qp(qn, tables).H
+    sync()
+    rest = Hn.clone()
+    rest[b, t] = H[b, t]
+    others = torch.ones(B, dtype=torch.bool, device=dev)
+    others[b] = False
+    check(bool(torch.isnan(Hn[b, t]).all()) and torch.equal(rest, H)
+          and torch.equal(qn[:, others], qp[:, others])
+          and torch.equal(mn[:, others], mo[:, others]),
+          f"f64 {name} ({design}): a NaN cost weight at stage {t} of "
+          f"problem {b} makes that stage's H block all NaN, and no other H "
+          f"block and no other problem changes")
+    return err
+
+
+def mirror_times(card, name, ocp, cfg, lin, P, x0, Z, dtype, reps):
+    """Times per launch of the mirror entry in both designs and in the one
+    the batch picks, of the Gershgorin linearize entry on the same inputs
+    and of the plain version; the designs' plans logged. Returns the
+    numbers of the picked design."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import sqp_fused
+
+    tables = lin.tables
+    g_tables = sqp_fused.ocp_tables(ocp, cfg._replace(
+        regularization="gershgorin"))
+    ins = sqp_fused._lanes_in(P, x0, Z)
+    B = Z.shape[0]
+    ms = {}
+    for design in ("batch", "warp", "block"):
+        ms[design], all_ms = cuda_time_ms(lambda: sqp_fused.linearize_fields(
+            tables, *ins, mapping=design), reps=reps)
+        plan = sqp_fused.mirror_plan(dtype, tables, B, design)
+        log(f"[{card}] {name} mirror entry ({B} problems, T={tables.T}, "
+            f"nz={tables.nx + tables.nu}, {str(dtype)[6:]}), {design}: "
+            f"{ms[design]:.3f} ms per launch ({spread(all_ms)}); plan {plan}")
+    g_ms, g_all = cuda_time_ms(
+        lambda: sqp_fused.linearize_fields(g_tables, *ins), reps=reps)
+    p_ms, _ = cuda_time_ms(
+        lambda: sqp_fused.linearize_reference(lin.machinery, tables, P, x0,
+                                              Z), reps=1, warmup=1)
+    picked = sqp_fused.mirror_plan(dtype, tables, B)["design"]
+    log(f"[{card}] {name} linearize entries ({B} problems, "
+        f"{str(dtype)[6:]}): mirror {ms['batch']:.3f} ms ({picked}; warp "
+        f"{ms['warp']:.3f}, block {ms['block']:.3f}), Gershgorin "
+        f"{g_ms:.3f} ms ({spread(g_all)}), ratio {ms['batch'] / g_ms:.3f}; "
+        f"plain (torch.func + eigh) {p_ms:.1f} ms")
+    return dict(ms=ms["batch"], plain_ms=p_ms, gershgorin_ms=g_ms,
+                design=picked, warp_ms=ms["warp"], block_ms=ms["block"])
+
+
+def mirror_lin_phase(dev, card):
+    """(m1) The mirror linearize entry against its plain version at f64 on
+    MIRROR_FLEETS in both designs (``mirror_against_plain``), and its times
+    per launch, f64 and f32, in both designs beside the Gershgorin
+    linearize entry's on the same inputs, and the plain version's. Returns,
+    per fleet, the numbers of the design its batch picks (f32 times)."""
     from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
         roofline, sqp_fused)
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.linearize import (
         make_lane_linearizer)
-    from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import QPData
 
     cfg = bench_config()._replace(regularization="mirror")
     out = {}
@@ -1994,81 +2094,14 @@ def mirror_lin_phase(dev, card):
             tables = lin.tables
             check(tables.reg == sqp_fused.REG_MIRROR,
                   f"{name}: the lane linearizer's tables say REG_MIRROR")
-            g_tables = sqp_fused.ocp_tables(
-                ocp, cfg._replace(regularization="gershgorin"))
-            ins = sqp_fused._lanes_in(P, x0, Z)
             B = Z.shape[0]
             if dtype == torch.float64:
-                qp, mo = sqp_fused.linearize_fields(tables, *ins)
-                got = sqp_fused.unpack_qp(qp, tables)
-                want = sqp_fused.linearize_reference(lin.machinery, tables,
-                                                     P, x0, Z)
-                sync()
-                worst, err = [], 0.0
-                for field, a, b in zip(QPData._fields + ("merit", "cost",
-                                                         "eq_res"),
-                                       (*got, mo[0], mo[1], mo[2]),
-                                       (*want[0], *want[1:])):
-                    d = (a - b).abs().max().item()
-                    err = max(err, d)
-                    if not torch.allclose(a, b, rtol=LIN_F64_RTOL,
-                                          atol=LIN_F64_ATOL):
-                        worst.append(field)
-                    if field == "H":
-                        log(f"f64 {name} mirror linearize ({B} problems): H "
-                            f"max|d| {d:.3e}, max|ref| "
-                            f"{b.abs().max().item():.3e}")
-                log(f"f64 {name} mirror linearize ({B} problems, T="
-                    f"{tables.T}, nz={tables.nx + tables.nu}): max|d| "
-                    f"{err:.3e} over every field")
-                check(not worst, f"f64 {name}: mirror linearize entry = "
-                      f"build_qp under 'mirror' on every field within rtol "
-                      f"{LIN_F64_RTOL:g}, atol {LIN_F64_ATOL:g} (failed: "
-                      f"{worst})")
-                H = got.H
-                # on the host: cuSOLVER refuses the bench's 92160 blocks
-                w_min = torch.linalg.eigvalsh(H[:, :-1].cpu()).min().item()
-                check(w_min >= cfg.reg_eps * (1 - 1e-9), f"f64 {name}: every "
-                      f"body block's smallest eigenvalue {w_min:.6e} >= "
-                      f"reg_eps {cfg.reg_eps:g}")
-                # one stage of one problem fed a NaN cost weight
-                Pn = P.clone()
-                Pn[MIRROR_NAN_PROBLEM, MIRROR_NAN_STAGE,
-                   ocp.registry.index("acceleration")] = float("nan")
-                qn, mn = sqp_fused.linearize_fields(
-                    tables, *sqp_fused._lanes_in(Pn, x0, Z))
-                Hn = sqp_fused.unpack_qp(qn, tables).H
-                sync()
-                b, t = MIRROR_NAN_PROBLEM, MIRROR_NAN_STAGE
-                rest = Hn.clone()
-                rest[b, t] = H[b, t]
-                others = torch.ones(B, dtype=torch.bool, device=dev)
-                others[b] = False
-                check(bool(torch.isnan(Hn[b, t]).all())
-                      and torch.equal(rest, H)
-                      and torch.equal(qn[:, others], qp[:, others])
-                      and torch.equal(mn[:, others], mo[:, others]),
-                      f"f64 {name}: a NaN cost weight at stage {t} of "
-                      f"problem {b} makes that stage's H block all NaN, and "
-                      f"no other H block and no other problem changes")
-                res["err"] = err
-            reps = 10 if name == "bench" else 20
-            m_ms, m_all = cuda_time_ms(
-                lambda: sqp_fused.linearize_fields(tables, *ins), reps=reps)
-            g_ms, g_all = cuda_time_ms(
-                lambda: sqp_fused.linearize_fields(g_tables, *ins), reps=reps)
-            p_ms, _ = cuda_time_ms(
-                lambda: sqp_fused.linearize_reference(lin.machinery, tables,
-                                                      P, x0, Z),
-                reps=2, warmup=1)
-            plan = sqp_fused.mirror_launch_info(dtype, tables)
-            log(f"[{card}] {name} linearize entries ({B} problems, T="
-                f"{tables.T}, nz={tables.nx + tables.nu}, "
-                f"{str(dtype)[6:]}): mirror {m_ms:.3f} ms per launch "
-                f"({spread(m_all)}), Gershgorin {g_ms:.3f} ms ("
-                f"{spread(g_all)}), ratio {m_ms / g_ms:.3f}; plain "
-                f"(torch.func + eigh) {p_ms:.1f} ms; mirror entry's plan "
-                f"{plan}")
+                res["err"] = max(mirror_against_plain(
+                    dev, name, ocp, cfg, lin, P, x0, Z, design,
+                    (MIRROR_NAN_PROBLEM, MIRROR_NAN_STAGE))
+                    for design in ("warp", "block"))
+            t = mirror_times(card, name, ocp, cfg, lin, P, x0, Z, dtype,
+                             10 if name == "bench" else 20)
             if dtype == torch.float32:
                 per = {"bench": roofline.LIN_MIRROR_FLOPS,
                        "SH-MPC": roofline.SHMPC_LIN_MIRROR_FLOPS,
@@ -2076,19 +2109,59 @@ def mirror_lin_phase(dev, card):
                 merit = {"bench": roofline.MERIT_FLOPS,
                          "SH-MPC": roofline.SHMPC_MERIT_FLOPS,
                          "bicycle": roofline.BICYCLE_MERIT_FLOPS}[name]
-                n_out = sqp_fused.qp_layout(tables.T, tables.m, tables.mh,
-                                            tables.nx, tables.nu)["total"] + 3
-                res.update(ms=m_ms, plain_ms=p_ms, gershgorin_ms=g_ms,
-                           flops=(per + merit) * B,
-                           n_bytes=roofline.tensor_bytes(*ins)
-                           + 4 * B * n_out)
+                res.update(t, flops=(per + merit) * B,
+                           n_bytes=mirror_bytes(tables, P, x0, Z))
         out[name] = res
     return out
 
 
+def mirror_bytes(tables, P, x0, Z):
+    """Bytes the mirror entry must move: its inputs once, its QP buffer and
+    merit terms once."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import (
+        roofline, sqp_fused)
+
+    n_out = sqp_fused.qp_layout(tables.T, tables.m, tables.mh, tables.nx,
+                                tables.nu)["total"] + 3
+    return (roofline.tensor_bytes(*sqp_fused._lanes_in(P, x0, Z))
+            + Z.element_size() * Z.shape[0] * n_out)
+
+
+def mirror_tick_lin(dev, card, ocp, cfg, captured, name, flops):
+    """(m1) at a tick's problems: the dispatch ``captured`` in (m2) or
+    (m3) linearized by the mirror entry at f64 in the design its batch
+    picks (and the other) against the plain version (``mirror_against_
+    plain``, the NaN stage at problem 0, stage 3), then timed at f32 and
+    f64 beside the Gershgorin entry. Returns the entry's numbers at f32
+    (``flops``: operations per problem)."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops.linearize import (
+        make_lane_linearizer)
+
+    params, xinit, warm = captured
+    res = {}
+    for dtype in (torch.float64, torch.float32):
+        lin = make_lane_linearizer(ocp, cfg, dtype=dtype, device=dev)
+        Pt = torch.as_tensor(params, dtype=dtype, device=dev)
+        Pt = torch.cat([Pt, Pt[:, -1:]], dim=1)
+        x0 = torch.as_tensor(xinit, dtype=dtype, device=dev)[None].expand(
+            Pt.shape[0], -1).contiguous()
+        Z = torch.as_tensor(warm, dtype=dtype, device=dev)
+        if dtype == torch.float64:
+            res["err"] = max(mirror_against_plain(
+                dev, name, ocp, cfg, lin, Pt, x0, Z, design,
+                (0, MIRROR_NAN_STAGE)) for design in ("batch", "warp"))
+        t = mirror_times(card, name, ocp, cfg, lin, Pt, x0, Z, dtype, 20)
+        if dtype == torch.float32:
+            res.update(t, flops=flops * Z.shape[0],
+                       n_bytes=mirror_bytes(lin.tables, Pt, x0, Z))
+    check(res["design"] == "block", f"{name}: the mirror entry runs the "
+          f"block design at the tick's {Z.shape[0]} problems")
+    return res
+
+
 #: (m2)'s ticks through the "pallas" backend (the picture before this
 #: path): that tick runs torch.func and eigh per SQP iteration.
-PALLAS_TICKS = 8
+PALLAS_TICKS = 6
 
 
 def lanes_b1_against_plain(dev, card, ocp, cfg, captured, name):
@@ -2130,7 +2203,7 @@ def lanes_b1_against_plain(dev, card, ocp, cfg, captured, name):
     k_ms, k_all = cuda_time_ms(lambda: qp_cuda.solve_qp_fields(
         fields, mask, **kw), reps=20)
     p_ms, _ = cuda_time_ms(lambda: qp_cuda.fields_reference(
-        fields, mask, **kw), reps=3)
+        fields, mask, **kw), reps=1, warmup=0)
     m_ms, _ = cuda_time_ms(lambda: lin.fields(
         Pt.permute(2, 1, 0).contiguous(), Z.permute(1, 2, 0).contiguous(),
         x0.t().contiguous()), reps=20)
@@ -2259,7 +2332,13 @@ def mirror_tick_phase(dev, card, reset_counts, counts, none):
           f"max|Z|) <= {FUSED_F64_GATE:g}")
     b1 = lanes_b1_against_plain(dev, card, ocp, cfg, captured,
                                 "the settings-built tick")
-    return dict(b1=dict(b1, launches=got["lanes"]),
+    from oscar_mpc_planner_mr_modification_tpu_torch.ops import roofline
+
+    lin = mirror_tick_lin(dev, card, ocp, cfg, captured,
+                          "the settings-built tick",
+                          roofline.TICK_LIN_MIRROR_FLOPS
+                          + roofline.TICK_MERIT_FLOPS)
+    return dict(b1=dict(b1, launches=got["lanes"]), lin=lin,
                 mirror_launches=got["linearize_mirror"],
                 launches_per_tick=(got["linearize_mirror"] + got["lanes"]
                                    + got["merit"]) / n,
@@ -2308,7 +2387,7 @@ def b2_against_plain(dev, card, ocp, config, args, name):
     xinit (nx,) or (P, nx), warm (P, N + 1, nz)) against its plain version: f64
     on every problem within FUSED_F64_GATE with the same success, f32 by the
     median; then the f32 kernel (median of 20) and its plain version
-    (median of 3) timed by CUDA events.
+    (one run) timed by CUDA events.
     Returns (max|dZ| at f64, kernel ms, plain ms, f32 inputs, the f32
     solver's machinery)."""
     from oscar_mpc_planner_mr_modification_tpu_torch.ops import sqp_fused
@@ -2349,10 +2428,10 @@ def b2_against_plain(dev, card, ocp, config, args, name):
           f"f32 B2 = plain at {name}: median rel <= 1e-4")
     k_ms, k_all = cuda_time_ms(lambda: solves[torch.float32](*a32), reps=20)
     p_ms, _ = cuda_time_ms(lambda: solves[torch.float32].reference(*a32),
-                           reps=3, warmup=0)
+                           reps=1, warmup=0)
     log(f"[{card}] B2 at {name} (P={P}, T={params.shape[1] + 1}, f32, CUDA "
         f"events): {k_ms:.3f} ms (median of 20; {spread(k_all)}), plain "
-        f"fused_fleet_reference {p_ms:.3f} ms (median of 3)")
+        f"fused_fleet_reference {p_ms:.3f} ms (one run)")
     return err, k_ms, p_ms, a32, solves[torch.float32].machinery
 
 
@@ -3109,11 +3188,11 @@ def mesh_phase(dev, card, reset_counts, counts, none):
                 sync()
                 check(counts() == none, "(o1) plain mesh step launched no "
                       "kernel")
-                plain_ms, _ = cuda_time_ms(lambda: step(*args), reps=2,
+                plain_ms, _ = cuda_time_ms(lambda: step(*args), reps=1,
                                            warmup=0)
             agree = (out[3] == out_p[3]).float().mean().item()
             log(f"[{card}] (o1) mesh step through B2's plain twin: "
-                f"{plain_ms:.3f} ms (median of 2), any_ok agreement "
+                f"{plain_ms:.3f} ms (one run), any_ok agreement "
                 f"{agree:.6f}")
             check(agree >= 0.99, "(o1) f32 mesh step any_ok agrees with its "
                   "plain step on >= 99% of plans")
@@ -3244,7 +3323,7 @@ def host_layers_phase(tick_scene, metrics_log):
 # ---------------------------------------------------------------------------
 #: Seconds each robot process of the fleet-process demo ticks here (the
 #: demo's own default is 20).
-ENTRY_FLEET_SECONDS = 10.0
+ENTRY_FLEET_SECONDS = 5.0
 
 
 def bench_skeleton_keys():
@@ -3502,6 +3581,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    _LAP_T[0] = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3522,6 +3602,7 @@ def main():
         f"CUDA {torch.version.cuda}, nvcc: {nvcc}")
     log(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
+    lap("1 environment")
     # ---- 2. build (one nvcc per kernel source, all started together) ------
     t = time.perf_counter()
     infos = qp_cuda.build_all()
@@ -3529,7 +3610,8 @@ def main():
     sqp_fused._library()
     roofline._library()
     sqp_single._library()
-    log(f"built {len(infos)} kernel libraries in {time.perf_counter() - t:.2f} s")
+    build_s = time.perf_counter() - t
+    log(f"built {len(infos)} kernel libraries in {build_s:.2f} s")
     for name, info in infos.items():
         log(f"{name}: {os.path.relpath(info.path, ROOT)} (nvcc {info.seconds:.2f} s)")
         for line in info.log.splitlines():
@@ -3552,6 +3634,7 @@ def main():
             "report is not in this run")
     log_launch_plans(dev)
 
+    lap("2 build")
     # ---- 3. kernel against the plain version (B=64 -> 576 problems) -------
     cfg = bench_config()
     qp64, mach64 = initial_qp(64, torch.float64, dev)
@@ -3582,6 +3665,7 @@ def main():
             f"{err.max().item():.6e}, p99 {err.quantile(0.99).item():.6e}, "
             f"median {err.median().item():.6e}")
 
+    lap("3 B1 vs plain")
     # ---- 4. f64 golden: contouring_2obs ----------------------------------
     from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
         configuration_basic)
@@ -3611,6 +3695,7 @@ def main():
     check(abs(cost_g - float(gold["cost"])) <= 1e-5 * abs(float(gold["cost"])),
           "golden cost within rtol 1e-5")
 
+    lap("4 golden (pallas)")
     # ---- 5. fused kernel: in-kernel linearization vs torch.func (576) -----
     lin_err = 0.0
     for dtype in (torch.float64, torch.float32):
@@ -3648,6 +3733,7 @@ def main():
             check(not worst, "f32 in-kernel linearization = build_qp: median "
                   f"|d|/(1+|ref|) <= 1e-4 on every field (failed: {worst})")
 
+    lap("5 B2 linearization")
     # ---- 6. fused kernel vs its plain version at f64 (576 problems) ------
     ocp64, args64 = bench_fleet(64, torch.float64, dev)
     fused_err = 0.0
@@ -3672,6 +3758,7 @@ def main():
               "f64 fused kernel = plain: per problem max|dZ| / (1 + max|Z|) "
               f"<= {FUSED_F64_GATE:g}")
 
+    lap("6 B2 vs plain")
     # ---- 7. main path at full width: backend="fused" ----------------------
     ocp, args = bench_fleet(B_MAIN, torch.float32, dev)
     step = make_batched_tmpc_step(ocp, cfg, dtype=torch.float32, device=dev,
@@ -3714,6 +3801,7 @@ def main():
               "plain fused step launched no kernel")
     agreement(out_pf, "plain fused step")
 
+    lap("7 fused step")
     # ---- 8. the per-iteration path at full width: backend="pallas" -------
     step_b1 = make_batched_tmpc_step(ocp, cfg, dtype=torch.float32, device=dev,
                                      backend="pallas")
@@ -3740,16 +3828,18 @@ def main():
     check(agree >= 0.99, "per-iteration step any_success agrees with its plain "
           "step on >= 99% of plans")
 
+    lap("8 pallas step")
     # ---- 9. times ----------------------------------------------------------
     step_ms, step_all = cuda_time_ms(lambda: step(*args), reps=10)
     b1_step_ms, _ = cuda_time_ms(lambda: step_b1(*args), reps=5, warmup=1)
     with plain_fused_solver(step.fleet_solve):
-        plain_fused_ms, _ = cuda_time_ms(lambda: step(*args), reps=3, warmup=0)
+        plain_fused_ms, _ = cuda_time_ms(lambda: step(*args), reps=1, warmup=0)
     with plain_qp_solver():
-        plain_step_ms, _ = cuda_time_ms(lambda: step_b1(*args), reps=3,
+        plain_step_ms, _ = cuda_time_ms(lambda: step_b1(*args), reps=1,
                                         warmup=0)
     log(f"[{card}] fleet step (B={B_MAIN} x {P} planners, N={N_MAIN}, f32), "
-        f"median of 10 / 5 / 3 / 3: fused kernel path {step_ms:.3f} ms = "
+        f"median of 10 / 5, plain one run each: fused kernel path "
+        f"{step_ms:.3f} ms = "
         f"{B_MAIN / step_ms * 1e3:.1f} plans/s; per-iteration (QP kernel) "
         f"path {b1_step_ms:.3f} ms = {B_MAIN / b1_step_ms * 1e3:.1f} plans/s; "
         f"plain fused path {plain_fused_ms:.3f} ms = "
@@ -3758,12 +3848,12 @@ def main():
         f"plans/s; fused step {spread(step_all)}")
     flat = flat_fleet(args)
     f_ms, f_all = cuda_time_ms(lambda: step.fleet_solve(*flat), reps=10)
-    fp_ms, _ = cuda_time_ms(lambda: step.fleet_solve.reference(*flat), reps=3,
+    fp_ms, _ = cuda_time_ms(lambda: step.fleet_solve.reference(*flat), reps=1,
                             warmup=0)
     log(f"[{card}] fused solve at the bench shape ({B_MAIN * P} problems, "
         f"T={N_MAIN + 1}, schedule {BENCH_SCHEDULE}, f32): kernel {f_ms:.3f} "
         f"ms per launch (median of 10; {spread(f_all)}), plain "
-        f"fused_fleet_reference {fp_ms:.3f} ms (median of 3)")
+        f"fused_fleet_reference {fp_ms:.3f} ms (one run)")
     check(f_ms <= B2_BENCH_MS[1] * 1.1, f"B2 at the bench shape {f_ms:.3f} "
           f"ms within 10% of its row's range {B2_BENCH_MS} ms (PERF.md)")
     lin_in = (fleet_P(flat[0]), flat[1], flat[2])
@@ -3790,7 +3880,8 @@ def main():
     k_ms, k_all = cuda_time_ms(
         lambda: qp_cuda.solve_qp_batched(*qp_args(qpb, machb), **kw), reps=20)
     p_ms, _ = cuda_time_ms(
-        lambda: qp_cuda.ip_solve_reference(*qp_args(qpb, machb), **kw), reps=5)
+        lambda: qp_cuda.ip_solve_reference(*qp_args(qpb, machb), **kw), reps=1,
+        warmup=0)
     log(f"[{card}] IP solve per launch at the bench shape: kernel {k_ms:.3f} ms "
         f"(median of 20; {spread(k_all)}), plain {p_ms:.3f} ms")
     z0 = args[2].reshape(B_MAIN * P, *args[2].shape[2:])
@@ -3815,6 +3906,7 @@ def main():
         f"per launch (median of 10; {spread(lf_all)}); plain "
         f"linearize_reference {lr_ms:.3f} ms")
 
+    lap("9 times")
     # ---- 10. B1's dual variants vs the plain version at the bench QPs -----
     def gap(a, b):
         """|a - b|, 0 where both are NaN (a NaN on one side stays NaN)."""
@@ -3866,11 +3958,12 @@ def main():
     dk_ms, dk_all = cuda_time_ms(lambda: qp_cuda.solve_qp_batched_duals(
         *qp_args(qp_1, mach_d), **kw_w), reps=20)
     dp_ms, _ = cuda_time_ms(lambda: qp_cuda.ip_solve_reference(
-        *qp_args(qp_1, mach_d), duals_out=True, **kw_w), reps=5)
+        *qp_args(qp_1, mach_d), duals_out=True, **kw_w), reps=1, warmup=0)
     log(f"[{card}] duals/warm IP solve per launch at the bench shape (warm, 8 "
         f"iterations, f32): kernel {dk_ms:.3f} ms (median of 20; "
         f"{spread(dk_all)}), plain {dp_ms:.3f} ms")
 
+    lap("10 B1 duals")
     # ---- 11. path (a): the dual-warm per-iteration fleet step -------------
     from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
         bench_roofline, bench_warm)
@@ -3892,8 +3985,7 @@ def main():
         wstep = make_batched_tmpc_step(ocp, wcfg, dtype=torch.float32,
                                        device=dev, backend="pallas")
         reset_counts()
-        wout = wstep(*args)
-        torch.cuda.synchronize()
+        wout, warm_ms[name] = timed_once(lambda: wstep(*args))
         got = counts()
         want = ({**none, "duals": n_sqp_w, "warm": n_sqp_w - 1}
                 if wcfg.n_qp_iter_warm else {**none, "qp_ip": n_sqp_w})
@@ -3903,9 +3995,7 @@ def main():
         if name == "warm8":
             warm_launches = got["duals"]
         summ = bench_warm.summary(wout)
-        warm_ms[name], _ = cuda_time_ms(lambda: wstep(*args), reps=2,
-                                        warmup=0)
-        log(f"[{card}] {name} step: {warm_ms[name]:.3f} ms (median of 2) = "
+        log(f"[{card}] {name} step: {warm_ms[name]:.3f} ms (one run) = "
             f"{B_MAIN / warm_ms[name] * 1e3:.1f} plans/s; success (best-of-"
             f"{P}) {summ['success']:.6f}, per problem "
             f"{summ['success_per_problem']:.6f}")
@@ -3921,6 +4011,7 @@ def main():
         check(vs["agreement"] >= 0.99,
               f"{name} step any_success agrees with the cold step on >= 99%")
 
+    lap("11 dual-warm step")
     # ---- 12. path (b): the lane fleet step, backend="lanes" ---------------
     from oscar_mpc_planner_mr_modification_tpu_torch.ops.linearize import (
         make_lane_linearizer)
@@ -3994,14 +4085,17 @@ def main():
     lk_ms, lk_all = cuda_time_ms(
         lambda: qp_cuda.solve_qp_fields(fields, mask_l, **kw_l), reps=20)
     lp_ms, _ = cuda_time_ms(
-        lambda: qp_cuda.fields_reference(fields, mask_l, **kw_l), reps=5)
+        lambda: qp_cuda.fields_reference(fields, mask_l, **kw_l), reps=1,
+        warmup=0)
     log(f"[{card}] lane QP entry per launch at the bench shape (8 iterations, "
         f"f32): kernel {lk_ms:.3f} ms (median of 20; {spread(lk_all)}), "
         f"plain {lp_ms:.3f} ms")
 
+    lap("12 lanes step")
     # ---- 12b. (m1) the mirror linearize entry against its plain version ---
-    mir = mirror_lin_phase(dev, card)
+    mirror_lin_phase(dev, card)
 
+    lap("12b (m1) mirror entry")
     # ---- 13. path (c): kernel B3, the FP32 roof, achieved FLOP/s ----------
     gen = torch.Generator(device=dev).manual_seed(0)
     x_r = torch.randn(bench_roofline.ROOF_SHAPES[0][0], device=dev,
@@ -4027,7 +4121,8 @@ def main():
           f"2^-24 per step over 256 steps), atol 1e-6")
     fk_ms, _ = cuda_time_ms(lambda: roofline.fma_roof(x_r), reps=10,
                             inner=100)
-    fpl_ms, _ = cuda_time_ms(lambda: roofline.fma_roof_reference(x_r), reps=5)
+    fpl_ms, _ = cuda_time_ms(lambda: roofline.fma_roof_reference(x_r), reps=1,
+                             warmup=0)
     reset_counts()
     roof = bench_roofline.roof()
     roof_launches = roofline.launches
@@ -4063,11 +4158,14 @@ def main():
             f"{tf / roof['tflops']:.5f} of the measured roof, "
             f"{tf / peak:.5f} of {peak:.0f} TFLOP/s")
 
+    lap("13 B3 roof")
     # ---- 14. the planner tick: Planner -> TMPCOptimizer -> one B2 --------
     tk = tick_phase(dev, card, reset_counts, counts, none)
+    lap("14 tick")
     # ---- 14b. (m2) the settings-built tick: "mirror" on the lane path ----
     mt = mirror_tick_phase(dev, card, reset_counts, counts, none)
 
+    lap("14b (m2) settings-built tick")
     # ---- 15-18. the single-instance solve and BASELINE config 2 ----------
     from oscar_mpc_planner_mr_modification_tpu_torch.tools.bench_rollout import (  # noqa: E501
         evaluators)
@@ -4075,63 +4173,89 @@ def main():
     evs = evaluators(N=ROLLOUT_N, n_ticks=ROLLOUT_TICKS)
     golden_z, s1_golden = golden_single_phase(dev, card, reset_counts, counts,
                                               none)
+    lap("(a) S1 golden")
     gate = baseline_gate_phase(dev, card, reset_counts, counts, none,
                                "contouring", golden_z)
+    lap("15 contouring gate")
     s1_basic = basic_tick_phase(dev, card, reset_counts, counts, none)
+    lap("(c) basic tick")
     s1_xla = xla_fleet_phase(dev, card, reset_counts, counts, none)
+    lap("(c2) xla step")
     ro = evaluator_phase(dev, card, reset_counts, counts, none,
                          evs["contouring"], short_ticks=5,
                          f32_share=F32_ROLLOUT_SHARE)
+    lap("18 contouring evaluator")
 
     # ---- 19-22. BASELINE config 1 and the other evaluators ---------------
     goal_gate = baseline_gate_phase(dev, card, reset_counts, counts, none,
                                     "goal")
+    lap("19 goal gate")
     goal_ro = evaluator_phase(dev, card, reset_counts, counts, none,
                               evs["goal"])
+    lap("20 goal evaluator")
     mr_ro = evaluator_phase(dev, card, reset_counts, counts, none,
                             evs["multirobot"],
                             f64_gate=COUPLED_F64_ROLLOUT_GATE)
+    lap("21 multi-robot evaluator")
     triggered_phase(dev, card, reset_counts, counts, none, evs["multirobot"])
+    lap("21b triggered")
     tmpc_ro = evaluator_phase(dev, card, reset_counts, counts, none,
                               evs["tmpc"], f64_gate=COUPLED_F64_ROLLOUT_GATE)
+    lap("22 T-MPC evaluator")
 
     # ---- 23-27. BASELINE configs 3 (CC-MPC) and 5 (SH-MPC) -------------
     from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
         bench_matrix)
 
     cases = matrix_phase(dev, card, reset_counts, counts, none)
+    lap("23 matrix")
     cc = fleet_flavour_phase(dev, card, reset_counts, counts, none, "CC-MPC",
                              cases["ccmpc"][0], cases["ccmpc"][1:], "CCMPC")
+    lap("24 CC-MPC fleet")
     ocp6, *arrays6 = bench_matrix.build_ccmpc(
         N_MAIN, CONFIG3_B, np.random.default_rng(0), CONFIG3_OBS)
     cc3 = fleet_flavour_phase(dev, card, reset_counts, counts, none,
                               "CC-MPC at config 3's size", ocp6, arrays6,
                               "CCMPC6", b1=False)
+    lap("25 CC-MPC config 3")
     cc_ro = evaluator_phase(dev, card, reset_counts, counts, none,
                             evs["ccmpc"])
+    lap("26 CC-MPC evaluator")
     ccmpc_margin_phase(dev, card, evs)
+    lap("26b CC-MPC margin")
     sh = fleet_flavour_phase(dev, card, reset_counts, counts, none, "SH-MPC",
                              cases["shmpc"][0], cases["shmpc"][1:], "SHMPC")
+    lap("27 SH-MPC fleet")
     sh_tick = shmpc_tick_phase(dev, card, reset_counts, counts, none)
+    lap("27b SH-MPC ticks, (m3)")
 
     # ---- 28-30. the multi-robot driver, the dynamic velocity reference,
     # the configuration sweep ---------------------------------------------
     mr_tick = multirobot_phase(dev, card, reset_counts, counts, none)
+    lap("28 multi-robot")
     vref = dynvref_phase(dev, card, reset_counts, counts, none)
+    lap("29 dyn-vref")
     lmpcc = sweep_phase(dev, card, reset_counts, counts, none)
+    lap("30 sweep")
 
     # ---- 31-33. the bicycles, the curvature-aware unicycle, decomp and
     # road width -----------------------------------------------------------
     bicycles = bicycle_phase(dev, card, reset_counts, counts, none)
+    lap("31 bicycles")
     ca = ca_phase(dev, card, reset_counts, counts, none)
+    lap("32 CA")
     dec = decomp_phase(dev, card, reset_counts, counts, none)
+    lap("33 decomp")
 
     # ---- 34-35. the sharded fleet step and the host layers ---------------
     mesh_b2 = mesh_phase(dev, card, reset_counts, counts, none)
+    lap("34 (o) mesh")
     host_layers_phase(tk["scene"], mr_tick["metrics_log"])
+    lap("35 host layers")
 
     # ---- 36. the runnable entry points -----------------------------------
     ep = entrypoints_phase(dev, card, reset_counts, counts, none, f_ms)
+    lap("36 (p) entry points")
 
     # ---- the kernels, each with its bound ---------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, flops,
@@ -4156,6 +4280,11 @@ def main():
     lin_b = roofline.tensor_bytes(*lin_in) + 4 * n_problems * (
         sqp_fused.qp_layout(T_b, m_b, tables.mh, tables.nx,
                             tables.nu)["total"] + 3)
+    lap("the kernels' bounds")
+    print(json.dumps({"phase_seconds": PHASE_S, "build_seconds": round(
+        build_s, 3), "nvcc_seconds": {name: round(info.seconds, 3)
+                                      for name, info in infos.items()},
+        "total_seconds": round(sum(PHASE_S.values()), 3)}), flush=True)
     print(json.dumps({"kernels": [
         entry("qp_ip", "qp_ip.cu", f"{jax_ops}/qp_pallas.py:136",
               main_launches, max_abs_err, k_ms, p_ms, ip8, qp_b),
@@ -4213,10 +4342,10 @@ def main():
               f"{jax_ops}/qp_pallas.py:794", **sh_tick["b1"]),
         entry("sqp_linearize_mirror", "sqp_linearize_mirror.cu",
               f"{jax_ops}/sqp_fused.py:45", mt["mirror_launches"],
-              **mir["bench"]),
+              **mt["lin"]),
         entry("sqp_linearize_mirror_shmpc", "sqp_linearize_mirror.cu",
               f"{jax_ops}/sqp_fused.py:45",
-              sh_tick["b1"]["mirror_launches"], **mir["SH-MPC"]),
+              sh_tick["b1"]["mirror_launches"], **sh_tick["lin"]),
         {**entry("qp_ip_lanes_tick", "qp_ip.cu",
                  f"{jax_ops}/qp_pallas.py:794", **mt["b1"]),
          "launches_per_tick": mt["launches_per_tick"]},

@@ -49,6 +49,9 @@
 // id with no instantiation, or -4 for a QP asked of the linearize entry
 // under REG_MIRROR.
 
+#include "parts.cuh"
+
+#if !defined(TMPC_DISPATCH)
 #include "sqp_fused.cuh"
 
 namespace {
@@ -127,7 +130,7 @@ extern "C" {
 
 // QpLayout<M>(T, m, mh) of model id `model` as 9 ints: H g A B c D e r0
 // total. Returns 0, or -3 for a model with no instantiation.
-int tmpc_qp_layout(int model, int T, int m, int mh, int* out) {
+int TMPC_ENTRY(tmpc_qp_layout)(int model, int T, int m, int mh, int* out) {
   return tmpc::with_model(model, [&](auto mdl) {
     tmpc::QpLayout<decltype(mdl)>(T, m, mh).offsets(out);
     return 0;
@@ -135,13 +138,16 @@ int tmpc_qp_layout(int model, int T, int m, int mh, int* out) {
 }
 
 // tmpc::table_layout: the tables' contract (6 ints).
+#if TMPC_PART0
 void tmpc_table_layout(int* out) { tmpc::table_layout(out); }
+#endif
 
 // The launch plans (warp.cuh plan_out, 6 ints each) of the solve and the
 // linearize entry (f64: 0/1) of model id `model` at these sizes; err -3 for
 // a model with no instantiation.
-void sqp_fused_launch_info(int f64, int model, int T, int m, int mh,
-                           int* solve_out, int* linearize_out) {
+void TMPC_ENTRY(sqp_fused_launch_info)(int f64, int model, int T, int m,
+                                       int mh, int* solve_out,
+                                       int* linearize_out) {
   warp::LaunchPlan s{0, 0, 0, 0, 0, -3}, l{0, 0, 0, 0, 0, -3};
   tmpc::with_model(model, [&](auto mdl) {
     using M = decltype(mdl);
@@ -156,7 +162,8 @@ void sqp_fused_launch_info(int f64, int model, int T, int m, int mh,
 }
 
 #define SOLVE_ENTRY(NAME, REAL)                                               \
-  int NAME(const void* P, const void* x0, const void* Z, void* out,           \
+  int TMPC_ENTRY(NAME)(                                                      \
+           const void* P, const void* x0, const void* Z, void* out,           \
            const void* mask, const void* rinfo, const void* itab,             \
            const void* rtab, const void* phases, int n_phases, int Bt, int T, \
            int m, int mh, int model,                                          \
@@ -172,7 +179,8 @@ void sqp_fused_launch_info(int f64, int model, int T, int m, int mh,
 // The mirrored QP is sqp_linearize_mirror.cu's; the merit terms alone do
 // not depend on the regularization.
 #define LINEARIZE_ENTRY(NAME, REAL)                                           \
-  int NAME(const void* P, const void* x0, const void* Z, void* qp,            \
+  int TMPC_ENTRY(NAME)(                                                      \
+           const void* P, const void* x0, const void* Z, void* qp,            \
            void* merit_out, const void* itab, const void* rtab, int Bt,       \
            int T, int m, int mh, int model, int reg, void* stream) {          \
     if (reg == tmpc::REG_MIRROR && qp != nullptr) return -4;                  \
@@ -186,3 +194,43 @@ LINEARIZE_ENTRY(sqp_fused_linearize_f32, float)
 LINEARIZE_ENTRY(sqp_fused_linearize_f64, double)
 
 }  // extern "C"
+
+#else  // TMPC_DISPATCH: the entries, each calling its model's part
+
+extern "C" {
+
+#define SOLVE_PARAMS                                                         \
+  (const void* P, const void* x0, const void* Z, void* out, const void* mask, \
+   const void* rinfo, const void* itab, const void* rtab, const void* phases, \
+   int n_phases, int Bt, int T, int m, int mh, int model, int any_active,    \
+   int track_best, int reg, double mu0, double mu_min, double tau,           \
+   double w_max, double s_floor, double tol_freeze, double n_act,            \
+   void* stream)
+#define SOLVE_ARGS                                                           \
+  (P, x0, Z, out, mask, rinfo, itab, rtab, phases, n_phases, Bt, T, m, mh,    \
+   model, any_active, track_best, reg, mu0, mu_min, tau, w_max, s_floor,     \
+   tol_freeze, n_act, stream)
+#define LINEARIZE_PARAMS                                                     \
+  (const void* P, const void* x0, const void* Z, void* qp, void* merit_out,   \
+   const void* itab, const void* rtab, int Bt, int T, int m, int mh,         \
+   int model, int reg, void* stream)
+#define LINEARIZE_ARGS \
+  (P, x0, Z, qp, merit_out, itab, rtab, Bt, T, m, mh, model, reg, stream)
+
+TMPC_DISPATCH_FN(int, tmpc_qp_layout, (int model, int T, int m, int mh,
+                                       int* out),
+                 (model, T, m, mh, out), model)
+TMPC_DISPATCH_FN(void, sqp_fused_launch_info,
+                 (int f64, int model, int T, int m, int mh, int* solve_out,
+                  int* linearize_out),
+                 (f64, model, T, m, mh, solve_out, linearize_out), model)
+TMPC_DISPATCH_FN(int, sqp_fused_solve_f32, SOLVE_PARAMS, SOLVE_ARGS, model)
+TMPC_DISPATCH_FN(int, sqp_fused_solve_f64, SOLVE_PARAMS, SOLVE_ARGS, model)
+TMPC_DISPATCH_FN(int, sqp_fused_linearize_f32, LINEARIZE_PARAMS,
+                 LINEARIZE_ARGS, model)
+TMPC_DISPATCH_FN(int, sqp_fused_linearize_f64, LINEARIZE_PARAMS,
+                 LINEARIZE_ARGS, model)
+
+}  // extern "C"
+
+#endif  // TMPC_DISPATCH

@@ -155,10 +155,12 @@ __device__ void linearize_column(const Lanes& lanes, const tmpc::Ocp& o,
   if (qp != nullptr)
     tmpc::linearize_warp<M, real, MIRROR>(lanes, o, Pc, xc, Zc,
                                           Col<real>{qp, B, b}, L, reg);
+  LIN_CLOCK;
   real mv, cost, eq;
   const int n = (linearize_red(L.T) - 1) / 3;
   tmpc::merit_warp<M, real>(lanes, o, Pc, xc, Zc, L.T, red, n, &mv, &cost,
                             &eq);
+  if constexpr (MIRROR) LIN_LAP(tmpc::LIN_SEC_MERIT);
   lanes.run([&](int l) {
     if (l == 0) {
       merit_out[b] = mv;
@@ -188,10 +190,14 @@ sqp_fused_linearize_kernel(const real* __restrict__ P,
   real* sm = reinterpret_cast<real*>(smem_raw);
   const int wid = threadIdx.x / WIDTH, b = blockIdx.x * (blockDim.x / WIDTH) + wid;
   if (b >= Bt) return;
+  LIN_INIT();
+  LIN_CLOCK;
   linearize_column<M, real, MIRROR>(Lanes{(int)(threadIdx.x % WIDTH)},
                                     tmpc::Ocp{itab, rtab}, P, x0, Z, qp,
                                     merit_out, Bt, b, L, reg,
                                     sm + (size_t)wid * linearize_red(L.T));
+  LIN_LAP(tmpc::LIN_SEC_TOTAL);
+  LIN_FLUSH();
 }
 
 template <typename real, class M, bool MIRROR>

@@ -46,6 +46,9 @@
 // of range, -2 when no block fits the card's shared memory, or -3 for a
 // model id with no instantiation.
 
+#include "parts.cuh"
+
+#if !defined(TMPC_DISPATCH)
 #include "sqp_single.cuh"
 
 namespace {
@@ -177,8 +180,8 @@ extern "C" {
 // blocks (problems) per SM, registers, local bytes, err) of S1 (f64: 0/1)
 // for model id `model` at these sizes and Bt problems; err -3 for a model
 // with no instantiation.
-void sqp_single_launch_info(int f64, int model, int T, int m, int mh, int Bt,
-                            int* out) {
+void TMPC_ENTRY(sqp_single_launch_info)(int f64, int model, int T, int m,
+                                        int mh, int Bt, int* out) {
   warp::LaunchPlan s{0, 0, 0, 0, 0, -3};
   tmpc::with_model(model, [&](auto mdl) {
     using M = decltype(mdl);
@@ -191,7 +194,8 @@ void sqp_single_launch_info(int f64, int model, int T, int m, int mh, int Bt,
 
 // One launch: Bt blocks, one per problem, of the plan's warps.
 #define SINGLE_ENTRY(NAME, REAL)                                              \
-  int NAME(const void* in, void* out, const void* mask, const void* rinfo,    \
+  int TMPC_ENTRY(NAME)(                                                      \
+           const void* in, void* out, const void* mask, const void* rinfo,    \
            const void* itab, const void* rtab, const void* phases,            \
            int n_phases, int Bt, int T, int m, int mh, int npar, int model,   \
            int track_best, int reg, double mu0, double mu_min, double tau,    \
@@ -220,3 +224,29 @@ int sqp_single_sections(void* out, void* stream) {
 #endif
 
 }  // extern "C"
+
+#else  // TMPC_DISPATCH: the entries, each calling its model's part
+
+extern "C" {
+
+#define SINGLE_PARAMS                                                        \
+  (const void* in, void* out, const void* mask, const void* rinfo,           \
+   const void* itab, const void* rtab, const void* phases, int n_phases,     \
+   int Bt, int T, int m, int mh, int npar, int model, int track_best,        \
+   int reg, double mu0, double mu_min, double tau, double w_max,             \
+   double s_floor, double tol_freeze, double n_act, double res_eq_tol,       \
+   void* stream)
+#define SINGLE_ARGS                                                          \
+  (in, out, mask, rinfo, itab, rtab, phases, n_phases, Bt, T, m, mh, npar,   \
+   model, track_best, reg, mu0, mu_min, tau, w_max, s_floor, tol_freeze,     \
+   n_act, res_eq_tol, stream)
+
+TMPC_DISPATCH_FN(void, sqp_single_launch_info,
+                 (int f64, int model, int T, int m, int mh, int Bt, int* out),
+                 (f64, model, T, m, mh, Bt, out), model)
+TMPC_DISPATCH_FN(int, sqp_single_solve_f32, SINGLE_PARAMS, SINGLE_ARGS, model)
+TMPC_DISPATCH_FN(int, sqp_single_solve_f64, SINGLE_PARAMS, SINGLE_ARGS, model)
+
+}  // extern "C"
+
+#endif  // TMPC_DISPATCH

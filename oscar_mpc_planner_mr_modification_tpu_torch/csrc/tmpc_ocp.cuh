@@ -97,6 +97,78 @@
 
 namespace tmpc {
 
+// ---- section counters of the mirror linearize entry (tools/lin_sections.py)
+// Built with -DLIN_SECTIONS, sqp_linearize_mirror.cu adds the clock64()
+// cycles that thread 0 of block 0 (problem 0's stage 0, lane 0 of its
+// group) spends in each section into a shared array, which the kernel adds
+// to lin_sections at its end (sqp_linearize_mirror_sections reads it).
+// Without the switch the macros are empty: the default build is the same
+// kernel, and the other kernels and the host builds never see them.
+enum {
+  LIN_SEC_COST = 0,  // the cost's gradient and Hessian jets
+  LIN_SEC_DYN,       // the dynamics jets (A, B, c)
+  LIN_SEC_ROWS,      // the inequality rows (D, e)
+  LIN_SEC_JACOBI,    // the Jacobi of the stage's Hessian block
+  LIN_SEC_STORE,     // V max(|w|, eps) V^T and the packed store
+  LIN_SEC_MERIT,     // the merit terms
+  LIN_SEC_TOTAL,     // the whole problem
+  LIN_SEC_N,         // launches counted
+  LIN_SEC_COUNT
+};
+
+#if defined(LIN_SECTIONS) && defined(__CUDACC__)
+__device__ unsigned long long lin_sections[LIN_SEC_COUNT];
+__shared__ unsigned long long lin_sec_sm[LIN_SEC_COUNT];
+// The clock and the counters of thread 0 of block 0; the laps sit in
+// __host__ __device__ functions, whose host side counts nothing.
+__host__ __device__ __forceinline__ long long lin_clock() {
+#if defined(__CUDA_ARCH__)
+  return clock64();
+#else
+  return 0;
+#endif
+}
+__host__ __device__ __forceinline__ void lin_add(int k, long long cycles) {
+#if defined(__CUDA_ARCH__)
+  if (blockIdx.x == 0 && threadIdx.x == 0) lin_sec_sm[k] += cycles;
+#endif
+}
+__device__ __forceinline__ void lin_init() {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    for (int k = 0; k < LIN_SEC_COUNT; ++k) lin_sec_sm[k] = 0;
+}
+__device__ __forceinline__ void lin_flush() {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    lin_sec_sm[LIN_SEC_N] += 1;
+    for (int k = 0; k < LIN_SEC_COUNT; ++k) lin_sections[k] += lin_sec_sm[k];
+  }
+}
+#define LIN_CLOCK long long lin_t = ::tmpc::lin_clock()
+#define LIN_LAP(k)                                  \
+  do {                                              \
+    const long long lin_n = ::tmpc::lin_clock();    \
+    ::tmpc::lin_add(k, lin_n - lin_t);              \
+    lin_t = ::tmpc::lin_clock();                    \
+  } while (0)
+#define LIN_SKIP() (lin_t = ::tmpc::lin_clock())
+#define LIN_INIT() ::tmpc::lin_init()
+#define LIN_FLUSH() ::tmpc::lin_flush()
+#else
+#define LIN_CLOCK
+#define LIN_LAP(k) \
+  do {             \
+  } while (0)
+#define LIN_SKIP() \
+  do {             \
+  } while (0)
+#define LIN_INIT() \
+  do {             \
+  } while (0)
+#define LIN_FLUSH() \
+  do {              \
+  } while (0)
+#endif
+
 constexpr double PI = 3.14159265358979323846;
 
 // ---- int table ------------------------------------------------------------
@@ -114,7 +186,8 @@ enum {
   TB_OFF_SPLINE,  // -> n_seg x SP_W: x_a..x_d y_a..y_d start v_a..v_d
                   //    wl_a..wl_d wr_a..wr_d
   TB_OFF_H,       // -> nh x 9: one constraint h_i each (HK_* below)
-  TB_OFF_ROWS,    // -> m x 2: QP row kind (ROW_*), h or z index
+  TB_OFF_ROWS,    // -> m x 2: QP row kind (ROW_*), h or z index; then
+                  //    npar, the parameters per stage (the table's last)
   TB_HEADER
 };
 enum {
@@ -428,6 +501,187 @@ TMPC_JET TMPC_HD TMPC_J lift_s(const Jet<R, 1, 1>& f, const TMPC_J& s) {
   return lift(s, f.v, f.g[0], f.h[0]);
 }
 
+// ---- row jets -------------------------------------------------------------
+// One row of the Hessian by second-order forward mode: value v, gradient g
+// over N seeds, d the derivative along seed j (g[j], kept apart so that no
+// code indexes g by a lane's j), and h[k] = d^2 f / dz_j dz_k. A group of
+// lanes that each seed another j computes the whole Hessian, each lane
+// 2 N + 2 reals where the triangle jet carries N (N + 3) / 2 + 1
+// (mirror_block.cuh, the block design of the mirror linearize entry).
+template <typename R, int N>
+struct JetRow {
+  using real = R;
+  R v, d;
+  R g[N];
+  R h[N];
+};
+template <typename R, int N>
+struct Real<JetRow<R, N>> {
+  using type = R;
+};
+
+#define TMPC_RJ template <typename R, int N>
+#define TMPC_W JetRow<R, N>
+#define TMPC_WS typename TMPC_W::real  // a plain real (not deduced)
+
+TMPC_RJ TMPC_HD TMPC_W row_const(TMPC_WS c) {
+  TMPC_W r;
+  r.v = c;
+  r.d = R(0);
+  TMPC_UNROLL for (int i = 0; i < N; ++i) r.g[i] = R(0);
+  TMPC_UNROLL for (int k = 0; k < N; ++k) r.h[k] = R(0);
+  return r;
+}
+// Variable i at value x, the row's seed being j.
+TMPC_RJ TMPC_HD TMPC_W row_seed(TMPC_WS x, int i, int j) {
+  TMPC_W r = row_const<R, N>(x);
+  r.g[i] = R(1);
+  r.d = i == j ? R(1) : R(0);
+  return r;
+}
+template <typename R, int N>
+struct Make<JetRow<R, N>> {
+  static TMPC_HD JetRow<R, N> constant(R c) { return row_const<R, N>(c); }
+};
+TMPC_RJ TMPC_HD R value(const TMPC_W& x) { return x.v; }
+
+TMPC_RJ TMPC_HD TMPC_W lift(const TMPC_W& a, R f, R f1, R f2) {
+  TMPC_W r;
+  r.v = f;
+  r.d = f1 * a.d;
+  TMPC_UNROLL for (int i = 0; i < N; ++i) r.g[i] = f1 * a.g[i];
+  TMPC_UNROLL for (int k = 0; k < N; ++k)
+    r.h[k] = f1 * a.h[k] + f2 * (a.d * a.g[k]);
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W operator+(const TMPC_W& a, const TMPC_W& b) {
+  TMPC_W r;
+  r.v = a.v + b.v;
+  r.d = a.d + b.d;
+  TMPC_UNROLL for (int i = 0; i < N; ++i) r.g[i] = a.g[i] + b.g[i];
+  TMPC_UNROLL for (int k = 0; k < N; ++k) r.h[k] = a.h[k] + b.h[k];
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W operator-(const TMPC_W& a, const TMPC_W& b) {
+  TMPC_W r;
+  r.v = a.v - b.v;
+  r.d = a.d - b.d;
+  TMPC_UNROLL for (int i = 0; i < N; ++i) r.g[i] = a.g[i] - b.g[i];
+  TMPC_UNROLL for (int k = 0; k < N; ++k) r.h[k] = a.h[k] - b.h[k];
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W operator-(const TMPC_W& a) {
+  TMPC_W r;
+  r.v = -a.v;
+  r.d = -a.d;
+  TMPC_UNROLL for (int i = 0; i < N; ++i) r.g[i] = -a.g[i];
+  TMPC_UNROLL for (int k = 0; k < N; ++k) r.h[k] = -a.h[k];
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W operator+(const TMPC_W& a, TMPC_WS c) {
+  TMPC_W r = a;
+  r.v = a.v + c;
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W operator-(const TMPC_W& a, TMPC_WS c) {
+  TMPC_W r = a;
+  r.v = a.v - c;
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W operator-(TMPC_WS c, const TMPC_W& a) {
+  TMPC_W r = -a;
+  r.v = c - a.v;
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W operator*(const TMPC_W& a, TMPC_WS c) {
+  TMPC_W r;
+  r.v = a.v * c;
+  r.d = a.d * c;
+  TMPC_UNROLL for (int i = 0; i < N; ++i) r.g[i] = a.g[i] * c;
+  TMPC_UNROLL for (int k = 0; k < N; ++k) r.h[k] = a.h[k] * c;
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W operator*(TMPC_WS c, const TMPC_W& a) { return a * c; }
+TMPC_RJ TMPC_HD TMPC_W operator/(const TMPC_W& a, TMPC_WS c) {
+  TMPC_W r;
+  r.v = a.v / c;
+  r.d = a.d / c;
+  TMPC_UNROLL for (int i = 0; i < N; ++i) r.g[i] = a.g[i] / c;
+  TMPC_UNROLL for (int k = 0; k < N; ++k) r.h[k] = a.h[k] / c;
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W operator*(const TMPC_W& a, const TMPC_W& b) {
+  TMPC_W r;
+  r.v = a.v * b.v;
+  r.d = a.v * b.d + b.v * a.d;
+  TMPC_UNROLL for (int i = 0; i < N; ++i) r.g[i] = a.v * b.g[i] + b.v * a.g[i];
+  TMPC_UNROLL for (int k = 0; k < N; ++k)
+    r.h[k] = (a.v * b.h[k] + b.v * a.h[k]) + (a.d * b.g[k] + a.g[k] * b.d);
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W recip(const TMPC_W& a) {
+  const R f = R(1) / a.v;
+  return lift(a, f, -f * f, R(2) * f * f * f);
+}
+TMPC_RJ TMPC_HD TMPC_W trecip(const TMPC_W& a) { return recip(a); }
+TMPC_RJ TMPC_HD TMPC_W operator/(const TMPC_W& a, const TMPC_W& b) {
+  return a * recip(b);
+}
+TMPC_RJ TMPC_HD TMPC_W tsin(const TMPC_W& a) {
+  const R s = m_sin(a.v);
+  return lift(a, s, m_cos(a.v), -s);
+}
+TMPC_RJ TMPC_HD TMPC_W tcos(const TMPC_W& a) {
+  const R c = m_cos(a.v);
+  return lift(a, c, -m_sin(a.v), -c);
+}
+TMPC_RJ TMPC_HD TMPC_W tsqrt(const TMPC_W& a) {
+  const R f = m_sqrt(a.v);
+  return lift(a, f, R(0.5) / f, R(-0.25) / (a.v * f));
+}
+TMPC_RJ TMPC_HD TMPC_W ttan(const TMPC_W& a) {
+  const R t = m_tan(a.v);
+  const R d = R(1) + t * t;
+  return lift(a, t, d, R(2) * t * d);
+}
+TMPC_RJ TMPC_HD TMPC_W tatan(const TMPC_W& a) {
+  const R d = R(1) / (R(1) + a.v * a.v);
+  return lift(a, m_atan(a.v), d, R(-2) * a.v * d * d);
+}
+TMPC_RJ TMPC_HD TMPC_W tsigmoid(const TMPC_W& a) {
+  const R s = R(1) / (R(1) + m_exp(-a.v));
+  const R d = s * (R(1) - s);
+  return lift(a, s, d, d * (R(1) - R(2) * s));
+}
+TMPC_RJ TMPC_HD TMPC_W tatan2(const TMPC_W& y, const TMPC_W& x) {
+  TMPC_W r;
+  const R r2 = x.v * x.v + y.v * y.v;
+  const R fy = x.v / r2, fx = -y.v / r2;
+  const R r4 = r2 * r2;
+  const R fyy = R(-2) * x.v * y.v / r4, fxx = R(2) * x.v * y.v / r4;
+  const R fxy = (y.v * y.v - x.v * x.v) / r4;
+  r.v = m_atan2(y.v, x.v);
+  r.d = fy * y.d + fx * x.d;
+  TMPC_UNROLL for (int i = 0; i < N; ++i) r.g[i] = fy * y.g[i] + fx * x.g[i];
+  TMPC_UNROLL for (int k = 0; k < N; ++k)
+    r.h[k] = (fy * y.h[k] + fx * x.h[k]) +
+             (fyy * (y.d * y.g[k]) + fxx * (x.d * x.g[k])) +
+             fxy * (y.d * x.g[k] + x.d * y.g[k]);
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W haar(const TMPC_W& d) {
+  TMPC_W r = d;
+  r.v = haar(d.v);
+  return r;
+}
+TMPC_RJ TMPC_HD TMPC_W lift_s(const Jet<R, 1, 1>& f, const TMPC_W& s) {
+  return lift(s, f.v, f.g[0], f.h[0]);
+}
+
+#undef TMPC_RJ
+#undef TMPC_W
+#undef TMPC_WS
+
 // ---- the models: sizes, named z indices, the vector field ------------------
 // NXI: the states RK4 integrates (the first NXI; continuous() writes those
 // and reads no other); CA: the spline state then follows the
@@ -546,15 +800,29 @@ struct ContouringUnicycleCA {
 // f(M{}) for the model id `model` (TB_MODEL), -3 for any other. A model adds
 // its struct above and a line here (ops/sqp_fused.py::MODELS names the same
 // ids).
+// In a library built in parts (parts.cuh) part TMPC_PART instantiates the
+// models whose id % TMPC_PARTS is TMPC_PART, and answers -3 for the rest.
+#if defined(TMPC_PARTS) && !defined(TMPC_DISPATCH)
+#define TMPC_IN_PART(id) ((id) % TMPC_PARTS == TMPC_PART)
+#else
+#define TMPC_IN_PART(id) true
+#endif
 template <class F>
 int with_model(int model, F&& f) {
-  if (model == MODEL_CONTOURING_UNICYCLE) return f(ContouringUnicycle{});
-  if (model == MODEL_UNICYCLE) return f(Unicycle{});
-  if (model == MODEL_CONTOURING_UNICYCLE_SLACK)
-    return f(ContouringUnicycleSlack{});
-  if (model == MODEL_BICYCLE) return f(Bicycle{});
-  if (model == MODEL_BICYCLE_CA) return f(BicycleCA{});
-  if (model == MODEL_CONTOURING_UNICYCLE_CA) return f(ContouringUnicycleCA{});
+  if constexpr (TMPC_IN_PART(MODEL_CONTOURING_UNICYCLE))
+    if (model == MODEL_CONTOURING_UNICYCLE) return f(ContouringUnicycle{});
+  if constexpr (TMPC_IN_PART(MODEL_UNICYCLE))
+    if (model == MODEL_UNICYCLE) return f(Unicycle{});
+  if constexpr (TMPC_IN_PART(MODEL_CONTOURING_UNICYCLE_SLACK))
+    if (model == MODEL_CONTOURING_UNICYCLE_SLACK)
+      return f(ContouringUnicycleSlack{});
+  if constexpr (TMPC_IN_PART(MODEL_BICYCLE))
+    if (model == MODEL_BICYCLE) return f(Bicycle{});
+  if constexpr (TMPC_IN_PART(MODEL_BICYCLE_CA))
+    if (model == MODEL_BICYCLE_CA) return f(BicycleCA{});
+  if constexpr (TMPC_IN_PART(MODEL_CONTOURING_UNICYCLE_CA))
+    if (model == MODEL_CONTOURING_UNICYCLE_CA)
+      return f(ContouringUnicycleCA{});
   return -3;
 }
 
@@ -952,18 +1220,21 @@ TMPC_FN void mirror_hessian(R* Hs, int n, int off, R eps, R* A, R* V) {
       A[i * n + j] = v;
       finite_all = finite_all && mirror::is_finite(v);
     }
+  LIN_CLOCK;
   if (!finite_all) {
     for (int i = 0; i < n; ++i)
       for (int j = 0; j < n; ++j) Hs[(off + i) * NZ + off + j] = R(NAN);
     return;
   }
   mirror::jacobi(A, V, n, eps);
+  LIN_LAP(LIN_SEC_JACOBI);
   for (int i = 0; i < n; ++i)
     for (int k = i; k < n; ++k) {
       const R v = mirror::entry(A, V, n, i, k);
       Hs[(off + i) * NZ + off + k] = v;
       Hs[(off + k) * NZ + off + i] = v;
     }
+  LIN_LAP(LIN_SEC_STORE);
 }
 
 // Linearize stage t of one problem at its iterate Z: the stage's fields of
@@ -984,6 +1255,7 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
   const bool body_terminal = (o.it[TB_FLAGS] & FL_BODY_TERMINAL) != 0;
   const int* rows = o.it + o.it[TB_OFF_ROWS];
   const Par<R> p = stage_params(P, t, T);
+  LIN_CLOCK;
   R z[NZ];
   TMPC_UNROLL for (int i = 0; i < NZ; ++i)
     z[i] = (t == N && i < NU) ? R(0) : Z[t * NZ + i];
@@ -1012,13 +1284,16 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
     TMPC_UNROLL for (int i = 0; i < NZ; ++i)
       qp[L.g + t * NZ + i] = (t == N && i < NU) ? R(0) : cost.g[i];
     if constexpr (MIRROR) {
+      LIN_LAP(LIN_SEC_COST);
       R A[NZ * NZ], V[NZ * NZ];
       if (t < N)
         mirror_hessian<NZ>(Hs, NZ, 0, R(reg_eps), A, V);
       else
         mirror_hessian<NZ>(Hs, NX, NU, R(reg_eps), A, V);
+      LIN_SKIP();
     }
     store_hessian<NZ>(Hs, reg, reg_eps, lev, qp, L.H + t * NTRI);
+    if constexpr (MIRROR) LIN_LAP(LIN_SEC_STORE);
   }
 
   if (t == N) {
@@ -1043,6 +1318,7 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
       qp[L.c + t * NX + i] = F[i].v - Z[(t + 1) * NZ + NU + i];
     }
   }
+  if constexpr (MIRROR) LIN_LAP(LIN_SEC_DYN);
 
   // Inequality rows D z + e >= 0 in the OCP's row order.
   int slot = 0;
@@ -1064,6 +1340,7 @@ TMPC_ONCE void linearize_stage(const Ocp& o, const Col<const R>& P,
   if (slot == 0) {
     for (int j = 0; j < NZ; ++j) qp[L.D + t * L.mhp * NZ + j] = R(0);
   }
+  if constexpr (MIRROR) LIN_LAP(LIN_SEC_ROWS);
 }
 
 // The initial-condition residual r0 = x0 - x_0.

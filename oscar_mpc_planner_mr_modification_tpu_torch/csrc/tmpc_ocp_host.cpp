@@ -6,6 +6,9 @@
 // - the QP kernel's entries and the fused kernel's solve (qp_ip.cuh,
 //   sqp_fused.cuh), each problem run by 32 emulated lanes (warp.cuh): the
 //   card's partition of the work in the card's reduction order;
+// - the mirror linearize entry's block design (mirror_block.cuh), each
+//   problem run by its block's threads in turn, and its parallel-ordered
+//   Jacobi alone;
 // - the single-instance kernel's solve (sqp_single.cuh, S1) and its two
 //   parts alone: the "mirror" of symmetric blocks and the QP solve, each
 //   problem run by W x 32 emulated threads (warp.cuh Block).
@@ -18,6 +21,7 @@
 
 #include <vector>
 
+#include "mirror_block.cuh"
 #include "sqp_fused.cuh"
 #include "sqp_single.cuh"
 
@@ -141,6 +145,64 @@ int sqp_fused_linearize_host_f64(const double* P, const double* x0,
     }
     return 0;
   });
+}
+
+// The block design of sqp_linearize_mirror.cu (the same arguments; tables
+// of REG_MIRROR), each problem on its block's threads in turn.
+int sqp_linearize_mirror_block_host_f64(const double* P, const double* x0,
+                                        const double* Z, double* qp,
+                                        double* merit_out, const int* itab,
+                                        const double* rtab, int Bt, int T,
+                                        int m, int mh, int model, int reg,
+                                        void*) {
+  if (qp == nullptr || !fused_sizes_ok(Bt, T, m, mh)) return -1;
+  if (reg != tmpc::REG_MIRROR) return -4;
+  return tmpc::with_model(model, [&](auto mdl) {
+    using M = decltype(mdl);
+    const tmpc::QpLayout<M> L(T, m, mh);
+    const MirrorBlockLayout<M> Y(T, m);
+    if (Y.lin_threads > MIRROR_BLOCK_MAX) return -5;
+    std::vector<double> sm((Y.template bytes<double>() + 7) / 8);
+    for (int b = 0; b < Bt; ++b)
+      mirror_block_column<M, double>(Block{Y.threads / WIDTH, 0},
+                                     tmpc::Ocp{itab, rtab}, P, x0, Z, qp,
+                                     merit_out, Bt, b, L, sm.data());
+    return 0;
+  });
+}
+
+// The block design's Jacobi (jacobi_stages, 16 lanes per block) on `count`
+// symmetric n x n blocks H (count, n, n) at once: out (count, n, n) = V
+// max(|w|, eps) V^T, all NaN for a block with a non-finite entry. Returns
+// -1 for n outside 1..9.
+int mirror_block_jacobi_host_f64(const double* H, int count, int n,
+                                 double eps, double* out) {
+  constexpr int NM = 9, G = 16, NN = NM * NM;
+  if (n < 1 || n > NM || count < 1) return -1;
+  const int threads = (count * G + WIDTH - 1) / WIDTH * WIDTH;
+  std::vector<double> A(2 * (size_t)count * NN), V((size_t)count * NN);
+  std::vector<double> rot(2 * (size_t)count * G), part(5 * (size_t)count * G);
+  std::vector<unsigned char> st(threads);
+  for (int b = 0; b < count; ++b)
+    for (int i = 0; i < n; ++i)
+      for (int j = 0; j < n; ++j)
+        A[(size_t)b * NN + i * NM + j] = H[((size_t)b * n + i) * n + j];
+  jacobi_stages<double, NM, G>(Block{threads / WIDTH, 0}, count,
+                               [&](int) { return n; }, A.data(), V.data(),
+                               rot.data(), part.data(), st.data(), eps);
+  for (int b = 0; b < count; ++b) {
+    const unsigned char s = st[(size_t)b * G];
+    const double* a = A.data() + ((s & MB_BUF) ? (size_t)count * NN : 0) +
+                      (size_t)b * NN;
+    for (int i = 0; i < n; ++i)
+      for (int k = 0; k < n; ++k)
+        out[((size_t)b * n + i) * n + k] =
+            (s & MB_BAD)
+                ? NAN
+                : mirror_entry<double, NM>(a, V.data() + (size_t)b * NN, n, i,
+                                           k);
+  }
+  return 0;
 }
 
 // The solve entry of sqp_fused.cu (same arguments).

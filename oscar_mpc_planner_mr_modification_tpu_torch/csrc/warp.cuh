@@ -115,6 +115,12 @@ struct Block {
     f(tid);
     asm volatile("bar.sync 1, %0;" ::"r"((W - 1) * WIDTH) : "memory");
   }
+  // f(thread) on every thread, then the block synchronized; true where
+  // f returned true on any thread.
+  template <class F>
+  __device__ __forceinline__ bool any(F&& f) const {
+    return __syncthreads_or(f(tid)) != 0;
+  }
   __device__ __forceinline__ void sync() const { __syncthreads(); }
   __device__ __forceinline__ bool chain() const { return tid < WIDTH; }
   __device__ __forceinline__ bool rest() const { return tid >= WIDTH; }
@@ -130,6 +136,15 @@ struct Block {
   template <class F>
   void run_rest(F&& f) const {
     for (int t = WIDTH; t < W * WIDTH; ++t) f(t);
+  }
+  template <class F>
+  bool any(F&& f) const {
+    bool r = false;
+    for (int t = 0; t < W * WIDTH; ++t) {
+      const bool v = f(t);
+      r = r || v;
+    }
+    return r;
   }
   void sync() const {}
   bool chain() const { return true; }

@@ -71,8 +71,20 @@ KERNELS = {"qp_ip": "qp_ip.cu", "sqp_fused": "sqp_fused.cu",
            "fma_roof": "fma_roof.cu", "sqp_single": "sqp_single.cu",
            "sqp_linearize_mirror": "sqp_linearize_mirror.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+#: ``-fno-gnu-unique``: the host compiler exports the kernel libraries' C++
+#: function statics (``csrc/warp.cuh::remembered_plan``'s plan cache) as
+#: ordinary weak symbols, not STB_GNU_UNIQUE ones, which the loader binds
+#: across libraries even under RTLD_LOCAL: two builds of one source (a
+#: library and its section-counter variant) then share none of their state
+#: when one process loads both. It acts on the host code only.
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+               "-shared", "-Xcompiler", "-fPIC", "-Xcompiler",
+               "-fno-gnu-unique", "-Xptxas", "-v")
+#: Kernel libraries built in parts (``csrc/parts.cuh``): three nvcc
+#: processes, each for the models whose id % 3 is its part, and one for the
+#: dispatching entries, all started with the other sources; then one link.
+#: The part that takes longest sets the build's time, a third of the whole.
+PARTS = {"sqp_fused": 3, "sqp_single": 3, "sqp_linearize_mirror": 3}
 _MAX_NU = 3  # the plain version's closed-form SPD inverse
 #: (nx, nu) pairs the kernels are compiled for (template instantiations of
 #: ``csrc/qp_ip.cuh::with_dims``): the port's
@@ -438,51 +450,93 @@ def _digest(src: Path, flags=_NVCC_FLAGS) -> str:
     return h.hexdigest()[:16]
 
 
+def _plan_build(name, defines=()):
+    """``(library path, [(nvcc's arguments, part or None)], parts)`` of
+    one kernel library (the output a None among the arguments): one nvcc
+    for the whole source, or (``PARTS``, no ``defines``) one per part and
+    one for the dispatching entries, each to an object file, linked
+    afterwards."""
+    flags = (*_NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    parts = 1 if defines else PARTS.get(name, 1)
+    tag = "".join(f"_{d.lower()}" for d in defines)
+    src = _CSRC / KERNELS[name]
+    keyed = flags if parts == 1 else (*flags, f"parts={parts}")
+    out = _BUILD_DIR / f"lib{name}{tag}_{_digest(src, keyed)}.so"
+    if parts == 1:
+        return out, [([*flags, "-o", None, str(src)], None)], 1
+    objects = [f for f in flags if f != "-shared"] + ["-c"]
+    jobs = []
+    for part in [*(f"-DTMPC_PART={k}" for k in range(parts)),
+                 "-DTMPC_DISPATCH"]:
+        jobs.append(([*objects, f"-DTMPC_PARTS={parts}", part, "-o", None,
+                      str(src)], part))
+    return out, jobs, parts
+
+
 _BUILT: dict = {}
 
 
 def build_all(names=tuple(KERNELS), defines=()) -> dict:
     """Compile the named kernels (``KERNELS``) for sm_90a into
-    ``build/torch_kernels/``, one nvcc process per source, all started
-    together; reuse a library whose hash is unchanged. ``defines`` (macro
-    names, ``-D`` each) build a variant under its own key, as
-    ``tools/s1_sections.py`` builds S1's section counters; the kernels'
-    libraries are built without. Returns ``{name: BuildInfo}``; raises if
+    ``build/torch_kernels/``, every nvcc process of every source (a
+    library of ``PARTS`` takes several) started together; reuse a library
+    whose hash is unchanged. ``defines`` (macro names, ``-D`` each) build a
+    variant under its own key, in one piece, as ``tools/s1_sections.py``
+    builds S1's section counters; the kernels' libraries are built
+    without. Returns ``{name: BuildInfo}`` (a library's seconds from its
+    first nvcc's start to its link's end, its log every nvcc's); raises if
     any build fails."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    flags = (*_NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    tag = "".join(f"_{d.lower()}" for d in defines)
     running = {}
     for name in names:
         key = (name, *defines) if defines else name
         if key in _BUILT:
             continue
-        src = _CSRC / KERNELS[name]
-        out = _BUILD_DIR / f"lib{name}{tag}_{_digest(src, flags)}.so"
+        out, jobs, parts = _plan_build(name, defines)
         if out.is_file():
             _BUILT[key] = BuildInfo(str(out), 0.0, "")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *flags, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[key] = (proc, tmp, out, time.perf_counter())
+        procs = []
+        for k, (argv, part) in enumerate(jobs):
+            target = tmp if part is None else tmp.with_suffix(f".{k}.o")
+            argv = [_nvcc(), *(str(target) if a is None else a for a in argv)]
+            procs.append((subprocess.Popen(
+                argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), target))
+        running[key] = (procs, tmp, out, parts, time.perf_counter())
     ended = {}
 
-    def wait(name, proc, t0):  # each build's own time, not its turn's
-        ended[name] = (*proc.communicate(), time.perf_counter() - t0)
+    def wait(key, procs, tmp, parts, t0):  # each build's own time
+        logs, codes = [], []
+        for proc, _ in procs:
+            logs.append(proc.communicate()[0])
+            codes.append(proc.returncode)
+        if parts > 1 and not any(codes):
+            link = subprocess.run(
+                [_nvcc(), "-shared", "-o", str(tmp),
+                 *(str(target) for _, target in procs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            codes.append(link.returncode)
+        for _, target in procs:
+            if parts > 1 and target.exists():
+                target.unlink()
+        ended[key] = ("".join(logs), max(codes, default=0),
+                      time.perf_counter() - t0)
 
-    waiters = [threading.Thread(target=wait, args=(name, proc, t0))
-               for name, (proc, _, _, t0) in running.items()]
+    waiters = [threading.Thread(target=wait,
+                                args=(key, procs, tmp, parts, t0))
+               for key, (procs, tmp, _, parts, t0) in running.items()]
     for w in waiters:
         w.start()
     for w in waiters:
         w.join()
     failed = []
-    for key, (proc, tmp, out, _) in running.items():
-        log, _, seconds = ended[key]
-        if proc.returncode != 0:
-            failed.append(f"nvcc {out.name} failed ({proc.returncode}):\n{log}")
+    for key, (_, tmp, out, _, _) in running.items():
+        log, code, seconds = ended[key]
+        if code != 0:
+            failed.append(f"nvcc {out.name} failed ({code}):\n{log}")
             continue
         os.replace(tmp, out)
         _BUILT[key] = BuildInfo(str(out), seconds, log)
@@ -506,7 +560,7 @@ def require_built(names=tuple(KERNELS)) -> dict:
     for name in names:
         if name in _BUILT:
             continue
-        out = _BUILD_DIR / f"lib{name}_{_digest(_CSRC / KERNELS[name])}.so"
+        out = _plan_build(name)[0]
         if not out.is_file():
             raise RuntimeError(f"{out} is not built: run qp_cuda.build_all "
                                "before starting the processes that load it")

@@ -199,10 +199,13 @@ DECOMP_MERIT_FLOPS = 27675
 #: plan of the bench fleet) and the SH-MPC OCP (the first 4 problems of
 #: ``tools/bench_matrix.py``'s fleet, seed 0) it is the same on every
 #: problem; at the bicycle OCP (its first 3 problems, seed 0, N=30) it is
-#: their mean, from 443644 to 460320.
+#: their mean, from 443644 to 460320; at the planner tick's OCP (the
+#: ``TICK_`` OCP under "mirror", the first fleet of ``build_tmpc_fleet``,
+#: seed 0, 5 planners) the same on every problem.
 LIN_MIRROR_FLOPS = 180948
 SHMPC_LIN_MIRROR_FLOPS = 247162
 BICYCLE_LIN_MIRROR_FLOPS = 452201
+TICK_LIN_MIRROR_FLOPS = 176508
 
 
 class SingleCounts(NamedTuple):

@@ -24,13 +24,16 @@ with ``track_best`` it keeps the best iterate by merit.
   ``sqp_fused_linearize`` entry; for tables of ``ocp_tables(...,
   mirror=True)`` under ``"mirror"`` the ``sqp_linearize_mirror`` entry of
   ``csrc/sqp_linearize_mirror.cu``, which mirrors each stage's Hessian by
-  cyclic Jacobi before it stores it) on field-major inputs and returns the
+  Jacobi before it stores it: one problem per block and each stage on a
+  group of lanes while the batch fits one wave of blocks, one warp per
+  problem above, :func:`mirror_plan`) on field-major inputs and returns the
   raw QP buffer, which ``backend="lanes"`` hands to the QP kernel as it lies;
   :func:`merit_fields` runs the same entry for the merit terms alone, and
   :func:`linearize` unpacks the buffer so that its derivatives can be checked
   field by field. :func:`linearize_reference` is their plain version and
   :func:`host_linearize` runs the same header compiled for the host with a
-  C++ compiler (stage after stage, or as the linearize entry's lane group);
+  C++ compiler (stage after stage, as the linearize entry's lane group, or
+  as the mirror entry's block);
   ``solve.host`` runs the kernel's per-problem code on the host.
 - ``launches`` counts solve launches, ``linearize_launches`` linearize
   launches, ``mirror_launches`` those of the mirror entry and
@@ -58,6 +61,7 @@ SH-MPC), the bicycles and the curvature-aware unicycle.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -372,7 +376,8 @@ def ocp_tables(ocp, config: SQPConfig, mirror: bool = False) -> OcpTables:
     head[TB_OFF_ROWS] = head[TB_OFF_H] + H_W * len(h_rows)
     h_rows = [r + [0] * (H_W - len(r)) for r in h_rows]
     ints = np.asarray(
-        head + [v for r in spline + h_rows + rows for v in r], dtype=np.int32)
+        head + [v for r in spline + h_rows + rows for v in r] + [ocp.npar],
+        dtype=np.int32)
     reals = np.asarray(
         [ocp.dt, config.reg_eps, config.levenberg, config.merit_eq_weight,
          half_width] + [float(bounds[k][i]) for k, i in row_spec],
@@ -432,7 +437,8 @@ def unpack_qp(fields, tables: OcpTables) -> QPData:
     H[:, :, ju, iu] = Htri
     D_h = take("D", T, max(mh, 1), nz)
     D = torch.zeros((B, T, m, nz), dtype=f.dtype, device=f.device)
-    rows = tables.ints[tables.ints[TB_OFF_ROWS]:].reshape(-1, 2)
+    off = tables.ints[TB_OFF_ROWS]
+    rows = tables.ints[off:off + 2 * tables.m].reshape(-1, 2)
     for r, (kind, i) in enumerate(rows):
         if r in tables.generic:
             D[:, :, r] = D_h[:, :, tables.generic.index(r)]
@@ -517,22 +523,35 @@ def _library():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _mirror_library():
-    lib = ctypes.CDLL(qp_cuda.build("sqp_linearize_mirror").path)
+def bind_mirror(lib):
+    """Argument types of the mirror entry's library (``lib``: a build of
+    ``csrc/sqp_linearize_mirror.cu``)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for suffix in ("_f32", "_f64"):
         fn = getattr(lib, "sqp_linearize_mirror" + suffix)
         fn.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
         fn.restype = i32
-    lib.sqp_linearize_mirror_launch_info.argtypes = [i32] * 3 + [ptr]
-    lib.sqp_linearize_mirror_launch_info.restype = None
+        fn = getattr(lib, "sqp_linearize_mirror_as" + suffix)
+        fn.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        fn.restype = i32
+    lib.sqp_linearize_mirror_plan.argtypes = [i32] * 6 + [ptr]
+    lib.sqp_linearize_mirror_plan.restype = None
     return lib
 
 
 @functools.lru_cache(maxsize=None)
+def _mirror_library():
+    return bind_mirror(ctypes.CDLL(qp_cuda.build("sqp_linearize_mirror").path))
+
+
+@functools.lru_cache(maxsize=None)
 def _host_library():
-    return _bind(ctypes.CDLL(qp_cuda.build_host()), ("_host_f64",))
+    lib = _bind(ctypes.CDLL(qp_cuda.build_host()), ("_host_f64",))
+    fn = lib.sqp_linearize_mirror_block_host_f64
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
 
 
 def launch_info(dtype, tables: OcpTables) -> tuple:
@@ -548,13 +567,23 @@ def launch_info(dtype, tables: OcpTables) -> tuple:
             dict(zip(qp_cuda.PLAN_FIELDS, lin)))
 
 
-def mirror_launch_info(dtype, tables: OcpTables) -> dict:
-    """How the mirror linearize entry launches at the tables' T, on the
-    current device (``qp_cuda.PLAN_FIELDS``)."""
-    out = (ctypes.c_int * 6)()
-    _mirror_library().sqp_linearize_mirror_launch_info(
-        int(dtype == torch.float64), tables.model, tables.T, out)
-    return dict(zip(qp_cuda.PLAN_FIELDS, out))
+#: The mirror entry's designs (``csrc/sqp_linearize_mirror.cu`` MAP_*):
+#: picked by the batch, one warp per problem, one block per problem.
+MIRROR_MAPPINGS = {"batch": 0, "warp": 1, "block": 2}
+
+
+def mirror_plan(dtype, tables: OcpTables, problems: int,
+                mapping="batch") -> dict:
+    """The design (``"warp"`` or ``"block"``) and launch plan
+    (``qp_cuda.PLAN_FIELDS``; for the block design warps per block, shared
+    memory per block, blocks per SM) of a launch of the mirror entry at
+    ``problems`` problems, on the current device."""
+    out = (ctypes.c_int * 7)()
+    _mirror_library().sqp_linearize_mirror_plan(
+        int(dtype == torch.float64), tables.model, tables.T, tables.m,
+        problems, MIRROR_MAPPINGS[mapping], out)
+    design = {1: "warp", 2: "block"}.get(out[0], str(out[0]))
+    return dict(design=design, **dict(zip(qp_cuda.PLAN_FIELDS, out[1:])))
 
 
 def _check_layout(lib):
@@ -583,6 +612,28 @@ def _check_layout(lib):
 def _device_tables(tables: OcpTables, device):
     return (torch.as_tensor(tables.ints, device=device),
             torch.as_tensor(tables.reals, device=device))
+
+
+#: The linearize entries' tables on a device, by tables and device, the
+#: latest ``_TABLES_KEPT`` kept (``_launch_tables``).
+_TABLES_ON_DEVICE = collections.OrderedDict()
+_TABLES_KEPT = 64
+
+
+def _launch_tables(tables: OcpTables, device):
+    """``_device_tables``, uploaded once per tables and device: a copy from
+    pageable memory waits for the stream, so one per launch made every
+    linearize launch wait for the work before it (and for the copies)."""
+    key = (id(tables.ints), id(tables.reals), str(device))
+    hit = _TABLES_ON_DEVICE.get(key)
+    if hit is None or hit[0] is not tables.ints or hit[1] is not tables.reals:
+        hit = (tables.ints, tables.reals, *_device_tables(tables, device))
+        _TABLES_ON_DEVICE[key] = hit
+        if len(_TABLES_ON_DEVICE) > _TABLES_KEPT:
+            _TABLES_ON_DEVICE.popitem(last=False)
+    else:
+        _TABLES_ON_DEVICE.move_to_end(key)
+    return hit[2], hit[3]
 
 
 def _stream(dev):
@@ -619,7 +670,7 @@ def _shapes(tables, P, xinit, Z):
 
 
 def _linearize_launch(tables: OcpTables, P_f, x_f, Z_f, with_qp: bool,
-                      host=False):
+                      host=False, mapping="batch", lib=None):
     B = Z_f.shape[1]
     want = {"P": (tables.npar * tables.T, B), "xinit": (tables.nx, B),
             "Z": (tables.T * (tables.nx + tables.nu), B)}
@@ -628,7 +679,7 @@ def _linearize_launch(tables: OcpTables, P_f, x_f, Z_f, with_qp: bool,
             raise ValueError(f"{name} must be {want[name]} {Z_f.dtype}, got "
                              f"{tuple(x.shape)} {x.dtype}")
     dev, dtype = Z_f.device, Z_f.dtype
-    itab, rtab = _device_tables(tables, dev)
+    itab, rtab = _launch_tables(tables, dev)
     qp = (torch.empty((qp_layout(tables.T, tables.m, tables.mh, tables.nx,
                                  tables.nu)["total"], B),
                       dtype=dtype, device=dev) if with_qp else None)
@@ -639,12 +690,17 @@ def _linearize_launch(tables: OcpTables, P_f, x_f, Z_f, with_qp: bool,
                 B, tables.T, tables.m, tables.mh, tables.model, tables.reg]
     if host:
         _check_host(*bufs)
-        err = _host_library().sqp_fused_linearize_host_f64(*args, None)
+        lib = _host_library()
+        fn = (lib.sqp_linearize_mirror_block_host_f64 if mapping == "block"
+              else lib.sqp_fused_linearize_host_f64)
+        err = fn(*args, None)
     else:
         _check_cuda(*bufs)
         suffix = "_f64" if dtype == torch.float64 else "_f32"
         if with_qp and tables.reg == REG_MIRROR:
-            fn = getattr(_mirror_library(), "sqp_linearize_mirror" + suffix)
+            fn = getattr(lib or _mirror_library(),
+                         "sqp_linearize_mirror_as" + suffix)
+            args.append(MIRROR_MAPPINGS[mapping])
         else:
             fn = getattr(_library(), "sqp_fused_linearize" + suffix)
         with torch.cuda.device(dev):
@@ -654,14 +710,19 @@ def _linearize_launch(tables: OcpTables, P_f, x_f, Z_f, with_qp: bool,
     return qp, mo
 
 
-def linearize_fields(tables: OcpTables, P_f, x_f, Z_f):
+def linearize_fields(tables: OcpTables, P_f, x_f, Z_f, mapping="batch",
+                     lib=None):
     """The kernel's linearization at Z on field-major CUDA inputs: P_f
     (npar*T, B) with field p*T + t (stage N repeating N-1), x_f (nx, B),
     Z_f (T*nz, B). Returns the raw QP buffer (``qp_layout(...)["total"]``,
     B), whose fields the QP kernel reads where they lie, and (merit, cost,
-    eq_res) as (3, B). Under ``REG_MIRROR`` the mirror entry runs."""
+    eq_res) as (3, B). Under ``REG_MIRROR`` the mirror entry runs, in the
+    design the batch picks unless ``mapping`` (``MIRROR_MAPPINGS``) names
+    one, from ``lib`` (another build of it, bound by :func:`bind_mirror`)
+    where given."""
     global linearize_launches, mirror_launches
-    out = _linearize_launch(tables, P_f, x_f, Z_f, with_qp=True)
+    out = _linearize_launch(tables, P_f, x_f, Z_f, with_qp=True,
+                            mapping=mapping, lib=lib)
     if tables.reg == REG_MIRROR:
         mirror_launches += 1
     else:
@@ -784,17 +845,21 @@ host_compiler = qp_cuda.host_compiler
 build_host = qp_cuda.build_host
 
 
-def host_linearize(tables: OcpTables, P, xinit, Z, lanes: bool = False):
+def host_linearize(tables: OcpTables, P, xinit, Z, lanes: bool = False,
+                   block: bool = False):
     """:func:`linearize` run by the header compiled for the host (f64, CPU
-    tensors or arrays): stage after stage, or with ``lanes`` through the
-    linearize entry's lane-group code (32 emulated lanes per problem).
-    Returns ``(QPData, merit, cost, eq_res)``."""
+    tensors or arrays): stage after stage, with ``lanes`` through the
+    linearize entry's lane-group code (32 emulated lanes per problem), or
+    with ``block`` (tables of ``REG_MIRROR``) through the mirror entry's
+    block design (its block's threads in turn). Returns ``(QPData, merit,
+    cost, eq_res)``."""
     f64 = functools.partial(torch.as_tensor, dtype=torch.float64)
     P, xinit, Z = f64(P), f64(xinit), f64(Z)
     B = _shapes(tables, P, xinit, Z)
     ins = _lanes_in(P, xinit, Z)
-    if lanes:
-        qp, mo = _linearize_launch(tables, *ins, with_qp=True, host=True)
+    if lanes or block:
+        qp, mo = _linearize_launch(tables, *ins, with_qp=True, host=True,
+                                   mapping="block" if block else "batch")
         return unpack_qp(qp, tables), mo[0], mo[1], mo[2]
     lib = ctypes.CDLL(build_host())
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -812,3 +877,21 @@ def host_linearize(tables: OcpTables, P, xinit, Z, lanes: bool = False):
     if err != 0:
         raise RuntimeError(f"host linearization failed with error {err}")
     return unpack_qp(qp, tables), mo[0], mo[1], mo[2]
+
+
+def host_mirror_jacobi(H, eps: float):
+    """The mirror entry's parallel-ordered Jacobi (its block design's
+    ``jacobi_stages``, compiled for the host) on symmetric blocks H
+    (count, n, n), n <= 9, f64: V max(|w|, eps) V^T per block, all NaN for a
+    block with a non-finite entry."""
+    H = np.ascontiguousarray(H, dtype=np.float64)
+    count, n, _ = H.shape
+    out = np.empty_like(H)
+    lib = _host_library()
+    fn = lib.mirror_block_jacobi_host_f64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(H.ctypes.data, count, n, eps, out.ctypes.data) != 0:
+        raise ValueError(f"blocks of size {n} (the host build takes 1..9)")
+    return out

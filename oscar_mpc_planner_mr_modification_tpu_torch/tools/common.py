@@ -70,6 +70,35 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2, inner: int = 1):
     return float(np.median(times)), times
 
 
+def ptxas_entries(build_log) -> dict:
+    """``{kernel entry: (registers, cumulative stack bytes)}`` from an nvcc
+    build log with ptxas' report (``-Xptxas -v``), by mangled name."""
+    import re
+
+    out, entry = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers.* (\d+) bytes cumulative stack",
+                      line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), int(m.group(2)))
+            entry = None
+    return out
+
+
+def same_bits(a, b) -> bool:
+    """Whether two results (tensors, or tuples of them) hold the same bits,
+    NaN where NaN."""
+    if isinstance(a, torch.Tensor):
+        if a.is_floating_point():
+            a, b = a.nan_to_num(7.0), b.nan_to_num(7.0)
+        return a.shape == b.shape and bool(torch.equal(a, b))
+    return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+
+
 def bench_fleet(batch=BENCH_BATCH, dtype=torch.float32, device="cuda",
                 N=BENCH_N):
     """The bench OCP and its fleet (seed 0) as tensors on ``device``."""

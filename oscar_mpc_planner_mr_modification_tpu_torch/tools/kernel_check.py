@@ -1,5 +1,6 @@
-"""The port's QP and fused kernels against their plain versions on small
-fleets, short enough to run under NVIDIA's race and memory checkers.
+"""The port's QP, fused and mirror linearize kernels against their plain
+versions on small fleets, short enough to run under NVIDIA's race and
+memory checkers.
 
     python -m oscar_mpc_planner_mr_modification_tpu_torch.tools.kernel_check
     compute-sanitizer --tool racecheck python -m \\
@@ -17,9 +18,14 @@ linearize entry and whole solve on every other model of its header (the goal
 unicycle, the SH-MPC slack model, both bicycles, the curvature-aware
 unicycle) and every other h-row kind (Gaussian, scenario, road width,
 decomp), and B1's cold entry at its other instances (4, 2), (6, 2) and
-(6, 3). f64 is held to ``chip_smoke.py``'s gates (``common.py``:
-``QP_F64_GATE``, ``LIN_F64_RTOL`` / ``LIN_F64_ATOL``, ``FUSED_F64_GATE``
-with the same success mask); f32 is reported. Build the kernels first
+(6, 3). On the bench fleet and on every fleet of ``CASES`` the mirror
+linearize entry (``csrc/sqp_linearize_mirror.cu``) runs in each of its
+designs (``MIRROR_DESIGNS``: one warp per problem, one block per problem)
+against its plain version (``torch.func`` and ``eigh``), so nz = 6, 7, 8
+and 9 and the terminal stage's x block are covered. f64 is held to
+``chip_smoke.py``'s gates (``common.py``: ``QP_F64_GATE``,
+``LIN_F64_RTOL`` / ``LIN_F64_ATOL``, ``FUSED_F64_GATE`` with the same
+success mask); f32 is reported. Build the kernels first
 (``qp_cuda.build_all()``, or any earlier run): the checkers then see no
 compiler. Prints one JSON line; exits with code 1 if an f64 gate fails and 2
 without a CUDA device.
@@ -58,6 +64,35 @@ CASES = {
         20, BATCH, rng), False),
     "decomp": (lambda rng: bench_matrix.build_decomp(20, BATCH, rng), False),
 }
+
+
+#: The mirror entry's designs, each launched on every fleet.
+MIRROR_DESIGNS = ("warp", "block")
+
+
+def check_mirror(ocp, cfg, Pt, x0, Z) -> dict:
+    """The mirror linearize entry in each design against its plain version
+    on one fleet (P with stage N): at f64 whether every field is within
+    the f64 gate, at f32 the largest relative error over the fields."""
+    lin = make_lane_linearizer(ocp, cfg._replace(regularization="mirror"),
+                               dtype=Z.dtype, device=Z.device)
+    ins = sqp_fused._lanes_in(Pt, x0, Z)
+    want = sqp_fused.linearize_reference(lin.machinery, lin.tables, Pt, x0,
+                                         Z)
+    want = tuple(want[0]) + tuple(want[1:])
+    out = {}
+    for design in MIRROR_DESIGNS:
+        qp, mo = sqp_fused.linearize_fields(lin.tables, *ins, mapping=design)
+        got = tuple(sqp_fused.unpack_qp(qp, lin.tables)) + (mo[0], mo[1],
+                                                             mo[2])
+        if Z.dtype == torch.float64:
+            out[f"mirror_{design}_ok_f64_gate"] = all(
+                torch.allclose(a, b, rtol=LIN_F64_RTOL, atol=LIN_F64_ATOL)
+                for a, b in zip(got, want))
+        else:
+            out[f"mirror_{design}"] = max(_rel(a, b) for a, b in zip(got,
+                                                                      want))
+    return out
 
 
 def _rel(a, b):
@@ -118,6 +153,7 @@ def check(dtype) -> dict:
     out["linearize_ok_f64_gate"] = all(
         torch.allclose(a, b, rtol=LIN_F64_RTOL, atol=LIN_F64_ATOL)
         for _, a, b in flat)
+    out.update(check_mirror(ocp, cfg, Pt, x0, Z))
     for track_best in (False, True):
         solve = make_fleet_sqp_solver(
             ocp, cfg._replace(track_best=track_best), dtype=dtype, device=dev,
@@ -168,9 +204,12 @@ def check_case(build, b1: bool, device="cuda") -> dict:
                         .max().item())
     out["sqp_fused_same_success"] = bool(
         (res_k.success == res_p.success).all())
+    out.update(check_mirror(ocp, cfg, Pt, x0, Z))
     torch.cuda.synchronize()
     out["ok"] = (out.get("qp_ip", 0.0) <= QP_F64_GATE
                  and out["linearize_ok_f64_gate"]
+                 and all(out[f"mirror_{d}_ok_f64_gate"]
+                         for d in MIRROR_DESIGNS)
                  and out["sqp_fused"] <= FUSED_F64_GATE
                  and out["sqp_fused_same_success"])
     return out
@@ -186,6 +225,7 @@ def main():
     f64 = res["f64"]
     ok = (all(f64[k] <= QP_F64_GATE for k in f64 if k.startswith("qp_ip"))
           and f64["linearize_ok_f64_gate"]
+          and all(f64[f"mirror_{d}_ok_f64_gate"] for d in MIRROR_DESIGNS)
           and all(f64[k] <= FUSED_F64_GATE
                   for k in ("sqp_fused_track_best_0", "sqp_fused_track_best_1"))
           and f64["sqp_fused_track_best_0_same_success"]

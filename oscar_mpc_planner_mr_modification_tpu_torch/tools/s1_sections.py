@@ -16,13 +16,13 @@ schedule) and the bench fleet's 4608 problems through the same step.
 Prints, per case, the cycles per interior-point iteration of each section
 of the QP solve, the cycles per SQP iteration of the linearization, the
 mirror pass, the merits and the step, the launch plan and the median ms
-per launch (CUDA events). ``--times`` times the default build instead, at
-the cases and at the ``"xla"`` step's batches of ``SWEEP_PLANS`` plans
-(where S1's block width follows the batch), and needs only what S1's
-wrapper has had since it was written, so that the file, copied into an
-older checkout, times that checkout's S1. The two builds are never loaded
-into one process (two S1 libraries in one process have crashed it): run
-the tool once with and once without ``--times`` for both. Writes the
+per launch of the default build (CUDA events), and whether the two builds
+give the same bits. The two builds are loaded into one process. Then it
+times the default build at the ``"xla"`` step's batches of
+``SWEEP_PLANS`` plans (where S1's block width follows the batch).
+``--times`` times the default build alone (the cases and the sweep) and
+needs only what S1's wrapper has had since it was written, so that the
+file, copied into an older checkout, times that checkout's S1. Writes the
 result to ``build/s1_sections.json`` (``--out``); exits with code 2
 without a CUDA device.
 """
@@ -105,22 +105,14 @@ def _sections_library():
     sqp_single._bind(lib, ("_f32", "_f64"))
     lib.sqp_single_sections.argtypes = [ctypes.c_void_p] * 2
     lib.sqp_single_sections.restype = ctypes.c_int
-    lib.sqp_single_launch_info.argtypes = [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    lib.sqp_single_launch_info.restype = None
     return lib
 
 
-def _plan(lib, dtype, tables, problems) -> dict:
-    if lib is None:
-        try:
-            return sqp_single.launch_info(dtype, tables, problems)
-        except TypeError:  # an older wrapper: one plan for any batch
-            return sqp_single.launch_info(dtype, tables)
-    out = (ctypes.c_int * 6)()
-    lib.sqp_single_launch_info(int(dtype == torch.float64), tables.model,
-                               tables.T, tables.m, tables.mh, problems, out)
-    return dict(zip(qp_cuda.PLAN_FIELDS, out))
+def _plan(dtype, tables, problems) -> dict:
+    try:
+        return sqp_single.launch_info(dtype, tables, problems)
+    except TypeError:  # an older wrapper: one plan for any batch
+        return sqp_single.launch_info(dtype, tables)
 
 
 def _read_sections(lib) -> dict:
@@ -143,40 +135,36 @@ def split(sec: dict) -> dict:
 
 
 def _case(lib, make, reps) -> dict:
-    """One case's time per launch and plan, with ``lib`` its split."""
+    """One case's time per launch and plan on the default build; with
+    ``lib`` (the section build) its split and whether both builds give the
+    same bits."""
     ocp, cfg, args, dtype = make()
     solve = sqp_single.make_single_solver(ocp, cfg, dtype=dtype,
                                           device=torch.device("cuda", 0))
     x_in = solve.layout(*args)
-
-    def launch():
-        return (solve.launch(x_in) if lib is None
-                else solve.launch(x_in, lib=lib))
-
-    ms, _ = common.cuda_time_ms(launch, reps=reps)
+    ms, _ = common.cuda_time_ms(lambda: solve.launch(x_in), reps=reps)
     problems = int(x_in.shape[0])
-    row = dict(T=ocp.N + 1, problems=problems, dtype=str(dtype)[6:],
-               build="default" if lib is None else "sections", ms=ms,
-               plan=_plan(lib, dtype, solve.tables, problems))
+    row = dict(T=ocp.N + 1, problems=problems, dtype=str(dtype)[6:], ms=ms,
+               plan=_plan(dtype, solve.tables, problems))
     if lib is not None:
-        _read_sections(lib)  # zeroes the timing runs' counts
-        launch()
+        want = solve.launch(x_in)
+        _read_sections(lib)  # zeroes the counts of earlier launches
+        got = solve.launch(x_in, lib=lib)
         row["split"] = split(_read_sections(lib))
+        row["builds_equal"] = common.same_bits(got, want)
     return row
 
 
 def run(times_only=False, reps=20) -> dict:
-    result = dict(card=common.card_line(), cases={})
+    result = dict(card=common.card_line(), cases={}, sweep={})
     lib = None if times_only else _sections_library()
     for name, make in CASES.items():
         result["cases"][name] = row = _case(lib, make, reps)
         print(f"{name}: {json.dumps(row)}", flush=True)
-    if times_only:
-        result["sweep"] = {}
-        for plans in SWEEP_PLANS:
-            row = _case(None, lambda: _xla(plans), reps)
-            result["sweep"][row["problems"]] = row
-            print(f"xla x {row['problems']}: {json.dumps(row)}", flush=True)
+    for plans in SWEEP_PLANS:
+        row = _case(None, lambda: _xla(plans), reps)
+        result["sweep"][row["problems"]] = row
+        print(f"xla x {row['problems']}: {json.dumps(row)}", flush=True)
     return result
 
 

@@ -12,7 +12,16 @@ the JAX package on the CPU at float64.
   stage N are the kernel's masked placeholders and are left out); a problem
   with a NaN cost weight at one stage has that stage's H block all NaN, in
   both packages, and every other block equal to the same problem's without
-  the NaN. The entry's serial host form equals its lane form.
+  the NaN. The entry's serial host form equals its lane form. The entry's
+  block design (``csrc/mirror_block.cuh``: a stage per lane group, row jets,
+  the parallel-ordered Jacobi; ``host_linearize(..., block=True)``, its
+  block's threads run in turn) is held to JAX at the same tolerances, the
+  same NaN stage and floor, and equals the lane form bit for bit on every
+  field but H (the same values, and derivatives along one direction).
+- The block design's Jacobi alone (``sqp_fused.host_mirror_jacobi``)
+  against ``numpy.linalg.eigh`` on seeded symmetric blocks of n = 1..9:
+  random ones, repeated eigenvalues, a zero block, eigenvalues below
+  reg_eps; a block with a NaN or an infinite entry comes out all NaN.
 - ``backend="lanes"`` under "mirror" on the CPU (the plain versions: the
   linearization with ``torch.linalg.eigh``, then the QP kernel's plain
   field entry) against JAX's per-iteration iteration under "mirror" (its
@@ -134,8 +143,14 @@ def _close(a, b, rtol, name):
     assert np.nanmax(err) <= rtol, (name, np.nanmax(err))
 
 
-@pytest.mark.parametrize("name", ["bench", "goal", "shmpc", "bicycle"])
-def test_mirror_linearization_matches_jax_build_qp(host, name):
+_OCPS = ("bench", "goal", "shmpc", "bicycle")
+
+
+@pytest.mark.parametrize(
+    "name,design", [(n, "warp") for n in _OCPS]
+    + [(n, "block") for n in _OCPS],
+    ids=list(_OCPS) + [f"{n}-block" for n in _OCPS])
+def test_mirror_linearization_matches_jax_build_qp(host, name, design):
     jo, to, P, x0, Z = _problems(name)
     T = N + 1
     # problem 3: problem 0 with a NaN acceleration weight at stage NAN_STAGE
@@ -143,10 +158,19 @@ def test_mirror_linearization_matches_jax_build_qp(host, name):
     P[3, NAN_STAGE, to.registry.index("acceleration")] = np.nan
     tables = sqp_fused.ocp_tables(to, tsqp.SQPConfig(**MIRROR), mirror=True)
     assert tables.reg == sqp_fused.REG_MIRROR
-    got = sqp_fused.host_linearize(tables, P, x0, Z, lanes=True)
-    serial = sqp_fused.host_linearize(tables, P, x0, Z)
-    for a, b in zip((*got[0], *got[1:]), (*serial[0], *serial[1:])):
-        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    lanes = sqp_fused.host_linearize(tables, P, x0, Z, lanes=True)
+    if design == "warp":
+        got = lanes
+        serial = sqp_fused.host_linearize(tables, P, x0, Z)
+        for a, b in zip((*got[0], *got[1:]), (*serial[0], *serial[1:])):
+            assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    else:
+        got = sqp_fused.host_linearize(tables, P, x0, Z, block=True)
+        names = tsqp.QPData._fields + ("merit", "cost", "eq_res")
+        for field, a, b in zip(names, (*got[0], *got[1:]),
+                               (*lanes[0], *lanes[1:])):
+            if field != "H":
+                assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)), field
 
     want = _jax_build_qp(name, jo, P, x0, Z)(*map(jnp.asarray, (Z, P, x0)))
 
@@ -208,3 +232,40 @@ def _counts():
                 lin=sqp_fused.linearize_launches,
                 mirror=sqp_fused.mirror_launches,
                 merit=sqp_fused.merit_launches)
+
+
+def _symmetric(rng, w):
+    """Q diag(w) Q^T for a seeded orthogonal Q."""
+    Q, _ = np.linalg.qr(rng.normal(size=(len(w), len(w))))
+    A = (Q * np.asarray(w, dtype=np.float64)) @ Q.T
+    return 0.5 * (A + A.T)
+
+
+@pytest.mark.parametrize("n", range(1, 10))
+def test_block_jacobi_matches_numpy_eigh(host, n):
+    eps = MIRROR["reg_eps"]
+    rng = np.random.default_rng(100 + n)
+    half = (n + 1) // 2
+    blocks = [
+        _symmetric(rng, rng.normal(scale=3.0, size=n)),   # random
+        _symmetric(rng, np.repeat([2.5, -1.0], n)[:n]),   # repeated
+        _symmetric(rng, [4.0] * n),                        # one eigenvalue
+        np.zeros((n, n)),                                   # zero block
+        _symmetric(rng, [1e-6, -3e-5] * half)[:n, :n] if n > 1
+        else np.array([[-3e-5]]),                          # below reg_eps
+        _symmetric(rng, np.concatenate([[1e-7, -2.0], rng.normal(size=n)])[:n]),
+        _symmetric(rng, rng.normal(size=n) * 1e3),
+    ]
+    nan_block, inf_block = blocks[0].copy(), blocks[0].copy()
+    nan_block[n - 1, 0] = nan_block[0, n - 1] = np.nan
+    inf_block[n // 2, n // 2] = np.inf
+    H = np.stack(blocks + [nan_block, inf_block])
+    got = sqp_fused.host_mirror_jacobi(H, eps)
+    for k, A in enumerate(blocks):
+        w, V = np.linalg.eigh(A)
+        want = (V * np.maximum(np.abs(w), eps)) @ V.T
+        scale = 1.0 + np.abs(A).max()
+        np.testing.assert_allclose(got[k], want, rtol=0, atol=1e-12 * scale,
+                                   err_msg=f"block {k}")
+        assert np.linalg.eigvalsh(got[k]).min() >= eps * (1 - 1e-9), k
+    assert np.isnan(got[-2]).all() and np.isnan(got[-1]).all()

@@ -785,15 +785,16 @@ def test_single_instance_counts_match_the_kernel_count(count_lib, which):
 
 
 
-@pytest.mark.parametrize("which", ["bench", "shmpc", "bicycle"])
+@pytest.mark.parametrize("which", ["bench", "shmpc", "bicycle", "tick"])
 def test_mirror_linearization_flops_match_the_kernel_count(count_lib, which):
-    """LIN_MIRROR_FLOPS, SHMPC_LIN_MIRROR_FLOPS and BICYCLE_LIN_MIRROR_FLOPS
-    are the mirror linearize entry's own counts (the header's MIRROR
-    variant with the counting scalar type): on the bench fleet's first plan
-    (9 problems) and the SH-MPC fleet's first 4 problems the same on every
-    problem, on the bicycle fleet's first 3 problems their mean (the Jacobi
-    sweeps follow the data). The mirror adds to the linearization without
-    a shift (``tmpc_count_ops`` at the same tables) at most what every
+    """LIN_MIRROR_FLOPS, SHMPC_LIN_MIRROR_FLOPS, BICYCLE_LIN_MIRROR_FLOPS and
+    TICK_LIN_MIRROR_FLOPS are the mirror linearize entry's own counts (the
+    header's MIRROR variant with the counting scalar type): on the bench
+    fleet's first plan (9 problems), the SH-MPC fleet's first 4 problems and
+    the planner tick's first fleet (``build_tmpc_fleet``, seed 0, 5
+    planners) the same on every problem, on the bicycle fleet's first 3
+    problems their mean (the Jacobi sweeps follow the data). The mirror
+    adds to the linearization without a shift (``tmpc_count_ops`` at the same tables) at most what every
     stage's Jacobi can take, MAX_SWEEPS sweeps of nz (nz - 1) / 2
     rotations of 12 nz + 13 operations each, and the product V |w| V^T."""
     from oscar_mpc_planner_mr_modification_tpu_torch.tools import (
@@ -802,6 +803,26 @@ def test_mirror_linearization_flops_match_the_kernel_count(count_lib, which):
     f64 = torch.float64
     if which == "bench":
         ocp, (params, xinit, z_init, _) = common.bench_fleet(1, f64, "cpu")
+        P = torch.cat([params[0], params[0][:, -1:]], dim=1)
+        x0, Z = xinit.expand(P.shape[0], -1), z_init[0]
+    elif which == "tick":
+        from oscar_mpc_planner_mr_modification_tpu_torch.benchmarks import (
+            build_tmpc_fleet)
+        from oscar_mpc_planner_mr_modification_tpu_torch.factory import (
+            configuration_tmpc_consistency_cost)
+        from oscar_mpc_planner_mr_modification_tpu_torch.parallel.batch import (
+            to_torch_fleet)
+        from oscar_mpc_planner_mr_modification_tpu_torch.solver import (
+            build_ocp)
+        from oscar_mpc_planner_mr_modification_tpu_torch.utils import (
+            default_settings)
+
+        settings = default_settings(N=20, max_obstacles=3)
+        ocp = build_ocp(*configuration_tmpc_consistency_cost(settings),
+                        settings)
+        params, xinit, z_init, _ = to_torch_fleet(
+            *build_tmpc_fleet(ocp, settings, 1, seed=0), device="cpu",
+            dtype=f64)
         P = torch.cat([params[0], params[0][:, -1:]], dim=1)
         x0, Z = xinit.expand(P.shape[0], -1), z_init[0]
     else:
@@ -835,7 +856,8 @@ def test_mirror_linearization_flops_match_the_kernel_count(count_lib, which):
         got.append(int(lin.sum()))
     want = getattr(roofline, {"bench": "LIN_MIRROR_FLOPS",
                               "shmpc": "SHMPC_LIN_MIRROR_FLOPS",
-                              "bicycle": "BICYCLE_LIN_MIRROR_FLOPS"}[which])
+                              "bicycle": "BICYCLE_LIN_MIRROR_FLOPS",
+                              "tick": "TICK_LIN_MIRROR_FLOPS"}[which])
     if which == "bicycle":
         assert round(np.mean(got)) == want, got
     else:

@@ -24,7 +24,8 @@ from oscar_mpc_planner_mr_modification_tpu_torch.ops import (  # noqa: E402
 from oscar_mpc_planner_mr_modification_tpu_torch.ops.sqp import (  # noqa: E402
     make_fleet_sqp_solver)
 from oscar_mpc_planner_mr_modification_tpu_torch.tools import (  # noqa: E402
-    exp_schedule_hw, kernel_check, profile_e2e_tick, s1_sections, validate)
+    build_check, exp_schedule_hw, kernel_check, lin_sections,
+    profile_e2e_tick, s1_sections, validate)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -104,9 +105,11 @@ def test_kernel_check_covers_every_instance_model_and_row_kind():
 @pytest.mark.parametrize("run", [
     validate.main, exp_schedule_hw.main, kernel_check.main,
     lambda: profile_e2e_tick.main(), lambda: profile_e2e_tick.host_only(),
-    lambda: s1_sections.main([])],
+    lambda: s1_sections.main([]), lambda: lin_sections.main([]),
+    lambda: build_check.main([])],
     ids=["validate", "exp_schedule_hw", "kernel_check", "profile_e2e_tick",
-         "profile_e2e_tick_host_only", "s1_sections"])
+         "profile_e2e_tick_host_only", "s1_sections", "lin_sections",
+         "build_check"])
 def test_tool_without_card_exits_2(run):
     with pytest.raises(SystemExit) as exc:
         run()
@@ -131,3 +134,44 @@ def test_s1_sections_name_the_header_counters():
     assert set(got["per_ip"].values()) == {3.0}
     assert set(got["per_sqp"].values()) == {20.0}
     assert (got["n_ip"], got["n_sqp"], got["total"]) == (20, 3, 999)
+
+
+def test_lin_sections_name_the_header_counters():
+    """The tool's SECTIONS are the header's LIN_SEC_* ids in order (up to
+    LIN_SEC_COUNT), and its macro pattern matches every counter line of
+    the kernel sources and no other line."""
+    import re
+
+    header = (qp_cuda._CSRC / "tmpc_ocp.cuh").read_text()
+    body = header[header.index("LIN_SEC_COST = 0"):
+                  header.index("LIN_SEC_COUNT\n")]
+    ids = re.findall(r"\bLIN_SEC_(\w+)", body)
+    assert [i.lower() for i in ids] == list(lin_sections.SECTIONS)
+    hits = 0
+    for path in qp_cuda._CSRC.iterdir():
+        for line in path.read_text().splitlines():
+            if lin_sections._MACRO.match(line):
+                hits += 1
+                assert "#define" not in line
+            elif re.search(r"\bLIN_(CLOCK|LAP|SKIP|INIT|FLUSH)\b", line):
+                assert "#define" in line or line.lstrip().startswith("//"), \
+                    line
+    assert hits >= 14
+
+
+def test_kernel_check_covers_the_mirror_entry():
+    """kernel_check launches the mirror entry in both designs on the bench
+    fleet and every case: nz 6, 7, 8 and 9 under "mirror"."""
+    from oscar_mpc_planner_mr_modification_tpu_torch.tools.common import (
+        bench_fleet)
+
+    assert kernel_check.MIRROR_DESIGNS == ("warp", "block")
+    assert set(kernel_check.MIRROR_DESIGNS) <= set(sqp_fused.MIRROR_MAPPINGS)
+    cfg = kernel_check.matrix_config()._replace(regularization="mirror")
+    nz = {bench_fleet(1, torch.float64, "cpu")[0].nvar}
+    for name, (build, _) in kernel_check.CASES.items():
+        ocp = build(np.random.default_rng(0))[0]
+        tables = sqp_fused.ocp_tables(ocp, cfg, mirror=True)
+        assert tables.reg == sqp_fused.REG_MIRROR, name
+        nz.add(tables.nx + tables.nu)
+    assert {6, 7, 8, 9} <= nz
