@@ -1,0 +1,8 @@
+"""idle_share.fleet (device layer): per cent of the traced window in which
+no operation ran on the device."""
+
+from cardbench.metrics_context import idle_percent
+
+
+def read(ctx):
+    return idle_percent(ctx)
