@@ -16,6 +16,8 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 EXIT_CODE_NOT_OPTIMIZED_YET = -999
 
 
@@ -171,12 +173,14 @@ class ModuleManager:
         )
 
     def update_all(self, state, data, module_data) -> None:
-        for m in self.modules:
-            m.update(state, data, module_data)
+        with span("plan.modules"):
+            for m in self.modules:
+                m.update(state, data, module_data)
 
     def set_all_parameters(self, buf, data, module_data) -> None:
-        for m in self.modules:
-            m.set_parameters(buf, data, module_data)
+        with span("plan.fill"):
+            for m in self.modules:
+                m.set_parameters(buf, data, module_data)
 
     def on_data_received(self, data, data_name: str) -> None:
         for m in self.modules:

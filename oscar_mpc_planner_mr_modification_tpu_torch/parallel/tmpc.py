@@ -31,6 +31,15 @@ duals, which only that backend has; else ``"fused"`` (kernel B2, the whole
 SQP in one launch). It is never chosen on an exception: an OCP the fused
 kernel's header does not cover raises ``NotImplementedError`` when the
 optimizer is built.
+
+A tick's phases here are spans of ``utils/profiling.py``: ``guidance``
+(the PRM), ``tmpc.assemble`` (the planners' inputs), ``launch`` (staging
+and the launches), ``select`` (readback and selection, with the wait on
+the device as ``fetch_wait`` inside it) and ``build`` (a ladder entry's
+solve built mid-run, counted in ``solve_builds``); ``optimize_finish``
+counts ``tmpc.planners_solved``, ``tmpc.planners_enabled`` (a guidance
+trajectory or the unguided planner) and ``tmpc.planners_useful`` (enabled
+and solved).
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ from ..guidance.global_guidance import (GlobalGuidance, Goal,
 from ..ops.sqp import (SQPResult, make_buffered_packed_solve,
                        make_fleet_sqp_solver, scale_iterations, unpack_results)
 from ..types import SolverState
-from ..utils.profiling import BENCHMARKERS
+from ..utils.profiling import BENCHMARKERS, span
 
 
 def fleet_backend_for(config) -> str:
@@ -149,17 +158,20 @@ class TMPCOptimizer:
         :meth:`_fetch_batch`). The iteration count follows the solver's
         budget ladder (``Solver.select_iterations``); a ladder entry's first
         solve is not fed into the per-iteration time."""
-        n = self.solver.select_iterations()
-        fn = self._packed_solve.get(n)
-        if fn is None:
-            fn = self._packed_solve[n] = packed_fleet_solve(
-                self.solver, self.n_planners, self.fleet_backend, n)
-        first = n not in self._timed_variants
-        self._timed_variants.add(n)
-        t0 = time.perf_counter()
-        handle = fn.dispatch(params, xinit, warmstarts)
-        self._pending_solve = {"handle": handle, "fn": fn, "n": n, "t0": t0,
-                               "first": first}
+        with span("launch"):
+            n = self.solver.select_iterations()
+            fn = self._packed_solve.get(n)
+            if fn is None:
+                with span("build"):
+                    BENCHMARKERS.count("solve_builds")
+                    fn = self._packed_solve[n] = packed_fleet_solve(
+                        self.solver, self.n_planners, self.fleet_backend, n)
+            first = n not in self._timed_variants
+            self._timed_variants.add(n)
+            t0 = time.perf_counter()
+            handle = fn.dispatch(params, xinit, warmstarts)
+            self._pending_solve = {"handle": handle, "fn": fn, "n": n,
+                                   "t0": t0, "first": first}
 
     def _fetch_batch(self) -> SQPResult:
         """Blocking readback of the in-flight batched solve, as numpy.
@@ -173,10 +185,10 @@ class TMPCOptimizer:
         T, nz = self.solver.N + 1, self.solver.nvar
         pending = self._pending_solve
         self._pending_solve = None
-        t_fetch = time.perf_counter()
-        out = pending["fn"].fetch(pending["handle"])
+        with span("fetch_wait") as waited:
+            out = pending["fn"].fetch(pending["handle"])
         now = time.perf_counter()
-        self.last_fetch_wait = now - t_fetch
+        self.last_fetch_wait = waited.duration
         self.solver.note_solve_time(
             pending["n"], now - pending["t0"], compile_call=pending["first"])
         return unpack_results(out, T, nz)
@@ -190,7 +202,7 @@ class TMPCOptimizer:
     # ------------------------------------------------------------------
     def update(self, state, data, module_data) -> None:
         """Load obstacles, start and goals into the guidance planner and run
-        the PRM (timed as ``BENCHMARKERS["guidance"]``)."""
+        the PRM (the span ``guidance``)."""
         N = self.solver.N
         n_steps = N + 1
         trajs, radii = [], []
@@ -243,10 +255,8 @@ class TMPCOptimizer:
                 goals.append(Goal(anchor + normal * d, abs(d)))
             self.global_guidance.set_goals(goals)
 
-        bench = BENCHMARKERS.get("guidance")
-        bench.start()
-        self.global_guidance.update()
-        bench.stop()
+        with span("guidance"):
+            self.global_guidance.update()
         module_data.num_of_guidance_found = (
             self.global_guidance.number_of_guidance_trajectories())
 
@@ -266,45 +276,50 @@ class TMPCOptimizer:
         gg = self.global_guidance
         if not self.use_tmpcpp and not gg.succeeded():
             return 0
+        with span("tmpc.assemble"):
+            self._interpolate_prev_trajectory()
 
-        self._interpolate_prev_trajectory()
+            P, N = self.n_planners, self.solver.N
+            n_guidance = gg.number_of_guidance_trajectories()
 
-        P, N = self.n_planners, self.solver.N
-        n_guidance = gg.number_of_guidance_trajectories()
+            params = np.repeat(self.solver.params.data[None], P, axis=0)
+            warmstarts = np.repeat(self.solver._loaded_warmstart[None], P,
+                                   axis=0)
+            disabled = np.zeros(P, dtype=bool)
+            is_original = np.zeros(P, dtype=bool)
+            if self.use_tmpcpp:
+                is_original[P - 1] = True
+            consistency_enabled = np.zeros(P, dtype=bool)
 
-        params = np.repeat(self.solver.params.data[None], P, axis=0)
-        warmstarts = np.repeat(self.solver._loaded_warmstart[None], P, axis=0)
-        disabled = np.zeros(P, dtype=bool)
-        is_original = np.zeros(P, dtype=bool)
-        if self.use_tmpcpp:
-            is_original[P - 1] = True
-        consistency_enabled = np.zeros(P, dtype=bool)
+            model = self.solver.ocp.model
+            ix, iy = model.var_index("x"), model.var_index("y")
+            ipsi, iv = model.var_index("psi"), model.var_index("v")
 
-        model = self.solver.ocp.model
-        ix, iy = model.var_index("x"), model.var_index("y")
-        ipsi, iv = model.var_index("psi"), model.var_index("v")
-
-        topo_planners = []
-        for p in range(P):
-            if not is_original[p]:
-                if p >= n_guidance:
-                    disabled[p] = True
-                    continue
-                traj = gg.get_guidance_trajectory(p)
-                # Warm start from the guidance spline
-                if not (self.settings["t-mpc"]["warmstart_with_mpc_solution"]):
-                    warmstarts[p, 1:N, ix] = traj.positions[1:N, 0]
-                    warmstarts[p, 1:N, iy] = traj.positions[1:N, 1]
-                    vel = np.asarray(traj.velocities[1:N])
-                    warmstarts[p, 1:N, ipsi] = np.arctan2(vel[:, 1], vel[:, 0])
-                    warmstarts[p, 1:N, iv] = np.linalg.norm(vel, axis=1)
-                if self.enable_constraints and self._has_topology_params:
-                    topo_planners.append(p)
-            consistency_enabled[p] = self._should_enable_consistency(
-                p, is_original[p], n_guidance)
-            if self._consistency_available:
-                self._fill_consistency_params(params[p], consistency_enabled[p])
-        self._fill_topology_constraints(params, warmstarts, data, topo_planners)
+            topo_planners = []
+            for p in range(P):
+                if not is_original[p]:
+                    if p >= n_guidance:
+                        disabled[p] = True
+                        continue
+                    traj = gg.get_guidance_trajectory(p)
+                    # Warm start from the guidance spline
+                    if not self.settings["t-mpc"][
+                            "warmstart_with_mpc_solution"]:
+                        warmstarts[p, 1:N, ix] = traj.positions[1:N, 0]
+                        warmstarts[p, 1:N, iy] = traj.positions[1:N, 1]
+                        vel = np.asarray(traj.velocities[1:N])
+                        warmstarts[p, 1:N, ipsi] = np.arctan2(vel[:, 1],
+                                                              vel[:, 0])
+                        warmstarts[p, 1:N, iv] = np.linalg.norm(vel, axis=1)
+                    if self.enable_constraints and self._has_topology_params:
+                        topo_planners.append(p)
+                consistency_enabled[p] = self._should_enable_consistency(
+                    p, is_original[p], n_guidance)
+                if self._consistency_available:
+                    self._fill_consistency_params(params[p],
+                                                  consistency_enabled[p])
+            self._fill_topology_constraints(params, warmstarts, data,
+                                            topo_planners)
 
         # One dispatch; the readback is in optimize_finish. Snapshot what the
         # selection needs of the guidance: a pipelined driver may run the
@@ -321,98 +336,107 @@ class TMPCOptimizer:
 
     def optimize_finish(self, module_data) -> int:
         """Readback and selection half of :meth:`optimize`."""
-        gg = self.global_guidance
-        P, N = self.n_planners, self.solver.N
-        model = self.solver.ocp.model
-        ix, iy = model.var_index("x"), model.var_index("y")
-        (params, disabled, is_original, consistency_enabled,
-         n_guidance, trajs_snapshot, obs_snapshot) = self._pending_ctx
-        self._pending_ctx = None
+        with span("select"):
+            gg = self.global_guidance
+            P, N = self.n_planners, self.solver.N
+            model = self.solver.ocp.model
+            ix, iy = model.var_index("x"), model.var_index("y")
+            (params, disabled, is_original, consistency_enabled,
+             n_guidance, trajs_snapshot, obs_snapshot) = self._pending_ctx
+            self._pending_ctx = None
 
-        results = self._fetch_batch()
-        Z = results.z
-        costs = results.cost.copy()
-        exit_codes = results.exit_code
-        success = results.success & ~disabled
+            results = self._fetch_batch()
+            Z = results.z
+            costs = results.cost.copy()
+            exit_codes = results.exit_code
+            success = results.success & ~disabled
+            BENCHMARKERS.count("tmpc.planners_solved", P)
+            BENCHMARKERS.count("tmpc.planners_enabled",
+                               P - int(disabled.sum()))
+            BENCHMARKERS.count("tmpc.planners_useful", int(success.sum()))
 
-        # Fair-cost comparison: subtract the realized consistency cost
-        for p in range(P):
-            if consistency_enabled[p] and self._has_previous_trajectory:
-                pos = Z[p, 1 : N - 1][:, [ix, iy]]
-                diff = pos - self._interp_prev[1 : N - 1]
-                costs[p] -= self.consistency_weight * float(np.sum(diff**2))
-            if (not is_original[p]) and p < n_guidance:
-                if trajs_snapshot[p].previously_selected:
-                    costs[p] *= gg.config.selection_weight_consistency
+            # Fair-cost comparison: subtract the realized consistency cost
+            for p in range(P):
+                if consistency_enabled[p] and self._has_previous_trajectory:
+                    pos = Z[p, 1 : N - 1][:, [ix, iy]]
+                    diff = pos - self._interp_prev[1 : N - 1]
+                    costs[p] -= self.consistency_weight * float(
+                        np.sum(diff**2))
+                if (not is_original[p]) and p < n_guidance:
+                    if trajs_snapshot[p].previously_selected:
+                        costs[p] *= gg.config.selection_weight_consistency
 
-        self.last_objectives = costs
-        self.last_exit_codes = exit_codes
+            self.last_objectives = costs
+            self.last_exit_codes = exit_codes
 
-        # Selection: the feasible planner of least cost (the first on a tie)
-        feasible = np.where(success)[0]
-        if len(feasible) == 0:
-            self.best_planner_index = -1
-            self._has_previous_trajectory = False
-            self._prev_selected_topology_id = -1
-            self._prev_was_original = False
-            module_data.solver_state = SolverState.SOLVED_FAILED
-            return int(exit_codes[0])
+            # Selection: the feasible planner of least cost (the first on a
+            # tie)
+            feasible = np.where(success)[0]
+            if len(feasible) == 0:
+                self.best_planner_index = -1
+                self._has_previous_trajectory = False
+                self._prev_selected_topology_id = -1
+                self._prev_was_original = False
+                module_data.solver_state = SolverState.SOLVED_FAILED
+                return int(exit_codes[0])
 
-        best = int(feasible[np.argmin(costs[feasible])])
-        self.best_planner_index = best
-        best_path = Z[best, :, [ix, iy]].T  # (N+1, 2)
+            best = int(feasible[np.argmin(costs[feasible])])
+            self.best_planner_index = best
+            best_path = Z[best, :, [ix, iy]].T  # (N+1, 2)
 
-        # Topology bookkeeping
-        if is_original[best]:
-            guidance_id = 2 * gg.config.n_paths  # "no topology" id
-            if (self.settings["JULES"]["assign_meaningful_topology_id_to_non_guided"]
-                    and n_guidance > 0):
-                match = gg.find_topology_class_for_path(
-                    best_path, trajectories=trajs_snapshot,
-                    obstacle_trajs=obs_snapshot)
-                if match != TOPOLOGY_NO_MATCH:
-                    guidance_id = match
-            non_guided_matched = guidance_id != 2 * gg.config.n_paths
-            module_data.non_guided_homology_failed = not non_guided_matched
-            if self.settings["JULES"][
-                    "override_selected_traject_of_topology_non_guided"]:
-                clear = not non_guided_matched
+            # Topology bookkeeping
+            if is_original[best]:
+                guidance_id = 2 * gg.config.n_paths  # "no topology" id
+                if (self.settings["JULES"][
+                        "assign_meaningful_topology_id_to_non_guided"]
+                        and n_guidance > 0):
+                    match = gg.find_topology_class_for_path(
+                        best_path, trajectories=trajs_snapshot,
+                        obstacle_trajs=obs_snapshot)
+                    if match != TOPOLOGY_NO_MATCH:
+                        guidance_id = match
+                non_guided_matched = guidance_id != 2 * gg.config.n_paths
+                module_data.non_guided_homology_failed = not non_guided_matched
+                if self.settings["JULES"][
+                        "override_selected_traject_of_topology_non_guided"]:
+                    clear = not non_guided_matched
+                else:
+                    clear = True
+                gg.override_selected_trajectory(guidance_id, clear,
+                                                selected_path=best_path)
+                module_data.solver_state = (
+                    SolverState.SOLVED_WITH_HOMOLOGY_ID if non_guided_matched
+                    else SolverState.SOLVED_NO_HOMOLOGY_ID)
             else:
-                clear = True
-            gg.override_selected_trajectory(guidance_id, clear,
-                                            selected_path=best_path)
-            module_data.solver_state = (
-                SolverState.SOLVED_WITH_HOMOLOGY_ID if non_guided_matched
-                else SolverState.SOLVED_NO_HOMOLOGY_ID)
-        else:
-            guidance_id = trajs_snapshot[best].topology_class
-            gg.override_selected_trajectory(guidance_id, clear=False,
-                                            selected_path=best_path)
-            module_data.solver_state = SolverState.SOLVED_WITH_HOMOLOGY_ID
+                guidance_id = trajs_snapshot[best].topology_class
+                gg.override_selected_trajectory(guidance_id, clear=False,
+                                                selected_path=best_path)
+                module_data.solver_state = SolverState.SOLVED_WITH_HOMOLOGY_ID
 
-        # The winner becomes the main solver's solution and parameters
-        best_result = SQPResult(
-            z=results.z[best], cost=results.cost[best],
-            eq_res=results.eq_res[best], qp_comp=results.qp_comp[best],
-            success=results.success[best], exit_code=results.exit_code[best])
-        self.solver.load_result(best_result)
-        self.solver.params.data[...] = params[best]
+            # The winner becomes the main solver's solution and parameters
+            best_result = SQPResult(
+                z=results.z[best], cost=results.cost[best],
+                eq_res=results.eq_res[best], qp_comp=results.qp_comp[best],
+                success=results.success[best],
+                exit_code=results.exit_code[best])
+            self.solver.load_result(best_result)
+            self.solver.params.data[...] = params[best]
 
-        module_data.selected_topology_id = int(guidance_id)
-        module_data.selected_planner_index = best
-        module_data.used_guidance = not bool(is_original[best])
-        module_data.selected_was_non_guided = bool(is_original[best])
-        module_data.trajectory_cost = float(costs[best])
-        module_data.num_of_guidance_found = n_guidance
+            module_data.selected_topology_id = int(guidance_id)
+            module_data.selected_planner_index = best
+            module_data.used_guidance = not bool(is_original[best])
+            module_data.selected_was_non_guided = bool(is_original[best])
+            module_data.trajectory_cost = float(costs[best])
+            module_data.num_of_guidance_found = n_guidance
 
-        # The trajectory that next cycle's consistency cost follows
-        self._prev_trajectory = best_path[:N].copy()
-        self._prev_timestamp = self.clock()
-        self._has_previous_trajectory = True
-        self._prev_selected_topology_id = int(guidance_id)
-        self._prev_was_original = bool(is_original[best])
+            # The trajectory that next cycle's consistency cost follows
+            self._prev_trajectory = best_path[:N].copy()
+            self._prev_timestamp = self.clock()
+            self._has_previous_trajectory = True
+            self._prev_selected_topology_id = int(guidance_id)
+            self._prev_was_original = bool(is_original[best])
 
-        return int(exit_codes[best])
+            return int(exit_codes[best])
 
     # ------------------------------------------------------------------
     def _fill_topology_constraints(self, params, warmstarts, data,

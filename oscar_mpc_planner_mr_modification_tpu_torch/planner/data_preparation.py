@@ -4,6 +4,9 @@ Counterpart of the JAX package's ``planner/data_preparation.py``: robot disc
 decomposition, dummy obstacles at +100 m, constant-velocity predictions,
 closest-N obstacle selection with linear time scaling, Gaussian uncertainty
 propagation, and the merge of peer-robot trajectory obstacles. All numpy.
+The closest-N selection (``prep.obstacles``) and each prediction
+(``prep.prediction``) are spans of ``utils/profiling.py``: they run before
+the tick's ``plan`` span.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import numpy as np
 
 from ..types import (Disc, DynamicObstacle, Prediction, PredictionStep,
                      PredictionType)
+from ..utils.profiling import span
 
 
 def define_robot_area(length: float, width: float, n_discs: int) -> List[Disc]:
@@ -49,19 +53,21 @@ def get_constant_velocity_prediction(position, velocity, dt: float, steps: int,
                                      probabilistic: bool = False) -> Prediction:
     """Constant-velocity prediction over ``steps`` steps of ``dt``, with
     Gaussian uncertainty (0.3 per step, propagated) when ``probabilistic``."""
-    noise = 0.3 if probabilistic else 0.0
-    pred = Prediction(
-        PredictionType.GAUSSIAN if probabilistic else PredictionType.DETERMINISTIC,
-        modes=[[]], probabilities=[1.0])
-    position = np.asarray(position, dtype=float)
-    velocity = np.asarray(velocity, dtype=float)
-    positions = position[None, :] + np.outer(
-        dt * np.arange(steps, dtype=float), velocity)
-    pred.modes[0] = [PredictionStep(positions[i], 0.0, noise, noise)
-                     for i in range(steps)]
-    if probabilistic:
-        propagate_prediction_uncertainty(pred, dt, steps)
-    return pred
+    with span("prep.prediction"):
+        noise = 0.3 if probabilistic else 0.0
+        pred = Prediction(
+            PredictionType.GAUSSIAN if probabilistic
+            else PredictionType.DETERMINISTIC,
+            modes=[[]], probabilities=[1.0])
+        position = np.asarray(position, dtype=float)
+        velocity = np.asarray(velocity, dtype=float)
+        positions = position[None, :] + np.outer(
+            dt * np.arange(steps, dtype=float), velocity)
+        pred.modes[0] = [PredictionStep(positions[i], 0.0, noise, noise)
+                         for i in range(steps)]
+        if probabilistic:
+            propagate_prediction_uncertainty(pred, dt, steps)
+        return pred
 
 
 def get_gmm_prediction(position, velocities, probabilities, dt: float,
@@ -94,34 +100,35 @@ def ensure_obstacle_size(obstacles: List[DynamicObstacle], state, max_obstacles:
                          ) -> List[DynamicObstacle]:
     """Keep the closest ``max_obstacles`` (linearly time-scaled distance over the
     horizon) or pad with dummies."""
-    if len(obstacles) > max_obstacles:
-        pos = state.get_position()
-        psi = state.get("psi")
-        v = state.get("v")
-        direction = np.array([np.cos(psi), np.sin(psi)])
-        distances = []
-        for obs in obstacles:
-            K = min(N, len(obs.prediction.modes[0]))
-            if K == 0:
-                distances.append(1e5)
-                continue
-            mp = obs.prediction.mode_positions(0)[:K]  # (K, 2)
-            ks = np.arange(K, dtype=float)
-            ego = pos[None, :] + np.outer(v * ks, direction)
-            d = (ks + 1.0) * 0.6 * np.linalg.norm(mp - ego, axis=1)
-            distances.append(float(np.min(d)))
-        order = np.argsort(distances)[:max_obstacles]
-        obstacles = [obstacles[i] for i in order]
-        for i, obs in enumerate(obstacles):
-            obs.index = i
-    elif len(obstacles) < max_obstacles:
-        obstacles = list(obstacles)
-        while len(obstacles) < max_obstacles:
-            dummy = get_dummy_obstacle(state)
-            dummy.prediction = get_constant_velocity_prediction(
-                dummy.position, np.zeros(2), dt, N, probabilistic)
-            obstacles.append(dummy)
-    return obstacles
+    with span("prep.obstacles"):
+        if len(obstacles) > max_obstacles:
+            pos = state.get_position()
+            psi = state.get("psi")
+            v = state.get("v")
+            direction = np.array([np.cos(psi), np.sin(psi)])
+            distances = []
+            for obs in obstacles:
+                K = min(N, len(obs.prediction.modes[0]))
+                if K == 0:
+                    distances.append(1e5)
+                    continue
+                mp = obs.prediction.mode_positions(0)[:K]  # (K, 2)
+                ks = np.arange(K, dtype=float)
+                ego = pos[None, :] + np.outer(v * ks, direction)
+                d = (ks + 1.0) * 0.6 * np.linalg.norm(mp - ego, axis=1)
+                distances.append(float(np.min(d)))
+            order = np.argsort(distances)[:max_obstacles]
+            obstacles = [obstacles[i] for i in order]
+            for i, obs in enumerate(obstacles):
+                obs.index = i
+        elif len(obstacles) < max_obstacles:
+            obstacles = list(obstacles)
+            while len(obstacles) < max_obstacles:
+                dummy = get_dummy_obstacle(state)
+                dummy.prediction = get_constant_velocity_prediction(
+                    dummy.position, np.zeros(2), dt, N, probabilistic)
+                obstacles.append(dummy)
+        return obstacles
 
 
 def propagate_prediction_uncertainty(prediction: Prediction, dt: float, N: int

@@ -7,7 +7,9 @@ updates and the vectorized parameter fill, the module-owned optimization
 (the T-MPC guidance module) with the default solve as fallback, output
 extraction and the topology metadata. ``prepare``, ``solve_mpc_start`` and
 ``solve_mpc_finish`` split the cycle so that the next tick's host work runs
-while this tick's solve is on the device.
+while this tick's solve is on the device. ``solve_mpc`` is the ``plan`` span
+(``utils/profiling.py``) and ends a tick; the phases under it are spans
+inside the methods that do them, so both paths record them.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Optional
 from ..modules.base import EXIT_CODE_NOT_OPTIMIZED_YET
 from ..solver.solver import Solver
 from ..types import ModuleData, PlannerOutput, Trajectory
-from ..utils.profiling import BENCHMARKERS
+from ..utils.profiling import span
 
 
 class Planner:
@@ -44,100 +46,107 @@ class Planner:
         self.modules.on_data_received(data, data_name)
 
     def solve_mpc(self, state, data) -> PlannerOutput:
-        was_feasible = self.output.success
-        prev_topology = self.output.selected_topology_id
+        with span("plan", tick=True):
+            was_feasible = self.output.success
+            prev_topology = self.output.selected_topology_id
 
-        self.output = PlannerOutput()
-        self.output.previous_topology_id = prev_topology
-        self.module_data = ModuleData()
+            self.output = PlannerOutput()
+            self.output.previous_topology_id = prev_topology
+            self.module_data = ModuleData()
 
-        # 1. Data-ready gate
-        if not self.modules.is_data_ready(data):
-            self.output.success = False
-            self.output.was_infeasible = False
-            return self.output
+            # 1. Data-ready gate
+            if not self.modules.is_data_ready(data):
+                self.output.success = False
+                self.output.was_infeasible = False
+                return self.output
 
-        bench = BENCHMARKERS.get("planning")
-        bench.start()
+            # 2. Warm start
+            self._warm_start(state, was_feasible)
 
-        # 2. Warm start
-        shift_forward = bool(
-            self.settings.get("shift_previous_solution_forward", False)
-            and self.settings.get("enable_output", True))
-        if was_feasible:
-            self.solver.initialize_warmstart(state, shift_forward)
-        else:
-            self.solver.initialize_with_braking(state)
-        self.solver.set_xinit(state)
+            # 3. Module updates
+            self.modules.update_all(state, data, self.module_data)
 
-        # 3. Module updates
-        self.modules.update_all(state, data, self.module_data)
+            # 4. Parameter fill, vectorized over stages
+            self.modules.set_all_parameters(self.solver.params, data,
+                                            self.module_data)
 
-        # 4. Parameter fill, vectorized over stages
-        self.modules.set_all_parameters(self.solver.params, data, self.module_data)
+            # 5. Latch the warm start
+            self.solver.load_warmstart()
 
-        # 5. Latch the warm start
-        self.solver.load_warmstart()
+            # 6. Timeout budget: 1/f - used - 6 ms. The solver picks its SQP
+            #    iteration count from its ladder to fit it
+            #    (Solver.select_iterations). Budget tracking activates only
+            #    when the caller stamped data.planning_start_time on the
+            #    time.monotonic clock (real-vehicle/driver loops); sim-clock
+            #    or unset stamps yield a non-positive budget, which the
+            #    solver treats as "no budget information" and runs the full
+            #    iteration count, keeping simulated runs deterministic.
+            self._set_timeout(data)
 
-        # 6. Timeout budget: 1/f - used - 6 ms. The solver picks its SQP
-        #    iteration count from its ladder to fit it
-        #    (Solver.select_iterations). Budget tracking activates only when
-        #    the caller stamped data.planning_start_time on the
-        #    time.monotonic clock (real-vehicle/driver loops); sim-clock or
-        #    unset stamps yield a non-positive budget, which the solver treats
-        #    as "no budget information" and runs the full iteration count,
-        #    keeping simulated runs deterministic.
+            # 7. Optimize: a module that owns the optimization, else the
+            #    solver
+            with span("optimization"):
+                exit_flag = EXIT_CODE_NOT_OPTIMIZED_YET
+                for module in self.modules:
+                    exit_flag = module.optimize(state, data, self.module_data)
+                    if exit_flag != EXIT_CODE_NOT_OPTIMIZED_YET:
+                        break
+                if exit_flag == EXIT_CODE_NOT_OPTIMIZED_YET:
+                    exit_flag = self.solver.solve()
+
+            return self._complete_output(exit_flag, prev_topology)
+
+    def _warm_start(self, state, was_feasible: bool) -> None:
+        """Shift or hold the last solution after a feasible cycle, else the
+        braking ramp; then the initial state."""
+        with span("plan.warmstart"):
+            shift_forward = bool(
+                self.settings.get("shift_previous_solution_forward", False)
+                and self.settings.get("enable_output", True))
+            if was_feasible:
+                self.solver.initialize_warmstart(state, shift_forward)
+            else:
+                self.solver.initialize_with_braking(state)
+            self.solver.set_xinit(state)
+
+    def _set_timeout(self, data) -> None:
         start = float(getattr(data, "planning_start_time", 0.0) or 0.0)
         used = (time.monotonic() - start) if start > 0.0 else float("inf")
         self.solver.solver_timeout = (
             1.0 / float(self.settings.get("control_frequency", 20))
             - used - 0.006)
 
-        # 7. Optimize: a module that owns the optimization, else the solver
-        opt_bench = BENCHMARKERS.get("optimization")
-        opt_bench.start()
-        exit_flag = EXIT_CODE_NOT_OPTIMIZED_YET
-        for module in self.modules:
-            exit_flag = module.optimize(state, data, self.module_data)
-            if exit_flag != EXIT_CODE_NOT_OPTIMIZED_YET:
-                break
-        if exit_flag == EXIT_CODE_NOT_OPTIMIZED_YET:
-            exit_flag = self.solver.solve()
-        opt_bench.stop()
-        bench.stop()
-
-        return self._complete_output(exit_flag, prev_topology)
-
     def _complete_output(self, exit_flag: int, prev_topology) -> "PlannerOutput":
         """Steps 8-9 of solve_mpc: output extraction and the topology
         metadata."""
-        if exit_flag != 1:
-            self.output.success = False
-            self.output.was_infeasible = True
+        with span("plan.output"):
+            if exit_flag != 1:
+                self.output.success = False
+                self.output.was_infeasible = True
+                self.output.exit_code = exit_flag
+                return self.output
+
+            # 8. Output extraction
+            self.output.success = True
             self.output.exit_code = exit_flag
+            self.output.objective = self.solver.info["pobj"]
+            traj = Trajectory(dt=self.solver.dt)
+            for k in range(self.solver.N):
+                traj.add(self.solver.get_output(k, "x"), self.solver.get_output(k, "y"))
+                traj.add_orientation(self.solver.get_output(k, "psi"))
+            self.output.trajectory = traj
+
+            # 9. Topology metadata
+            md = self.module_data
+            self.output.selected_topology_id = md.selected_topology_id
+            self.output.selected_planner_index = md.selected_planner_index
+            self.output.used_guidance = md.used_guidance
+            self.output.trajectory_cost = md.trajectory_cost
+            self.output.num_of_guidance_found = md.num_of_guidance_found
+            self.output.non_guided_homology_failed = md.non_guided_homology_failed
+            self.output.topology_changed = (
+                prev_topology != md.selected_topology_id)
             return self.output
-
-        # 8. Output extraction
-        self.output.success = True
-        self.output.exit_code = exit_flag
-        self.output.objective = self.solver.info["pobj"]
-        traj = Trajectory(dt=self.solver.dt)
-        for k in range(self.solver.N):
-            traj.add(self.solver.get_output(k, "x"), self.solver.get_output(k, "y"))
-            traj.add_orientation(self.solver.get_output(k, "psi"))
-        self.output.trajectory = traj
-
-        # 9. Topology metadata
-        md = self.module_data
-        self.output.selected_topology_id = md.selected_topology_id
-        self.output.selected_planner_index = md.selected_planner_index
-        self.output.used_guidance = md.used_guidance
-        self.output.trajectory_cost = md.trajectory_cost
-        self.output.num_of_guidance_found = md.num_of_guidance_found
-        self.output.non_guided_homology_failed = md.non_guided_homology_failed
-        self.output.topology_changed = (
-            prev_topology != md.selected_topology_id)
-        return self.output
 
     # ------------------------------------------------------------------
     # Pipelined (two-phase) tick: overlap next-tick host work with the
@@ -224,17 +233,7 @@ class Planner:
         # Latch the staged parameter fill into the live buffer (see prepare)
         self.solver.params.data[...] = prepared[2].data
 
-        bench = BENCHMARKERS.get("planning")
-        bench.start()
-
-        shift_forward = bool(
-            self.settings.get("shift_previous_solution_forward", False)
-            and self.settings.get("enable_output", True))
-        if was_feasible:
-            self.solver.initialize_warmstart(state, shift_forward)
-        else:
-            self.solver.initialize_with_braking(state)
-        self.solver.set_xinit(state)
+        self._warm_start(state, was_feasible)
 
         # State-bound refresh for the ACTUAL state (e.g. re-anchor the
         # contouring progress — prepare() anchored the PREDICTED state
@@ -251,14 +250,8 @@ class Planner:
                 m.set_parameters(self.solver.params, data, self.module_data)
 
         self.solver.load_warmstart()
+        self._set_timeout(data)
 
-        start = float(getattr(data, "planning_start_time", 0.0) or 0.0)
-        used = (time.monotonic() - start) if start > 0.0 else float("inf")
-        self.solver.solver_timeout = (
-            1.0 / float(self.settings.get("control_frequency", 20))
-            - used - 0.006)
-
-        BENCHMARKERS.get("optimization").start()
         for module in self.modules:
             r = module.optimize_dispatch(state, data, self.module_data)
             if r is True:
@@ -282,8 +275,6 @@ class Planner:
             exit_flag = payload.optimize_finish(state, data, self.module_data)
         else:
             exit_flag = payload
-        BENCHMARKERS.get("optimization").stop()
-        BENCHMARKERS.get("planning").stop()
         return self._complete_output(exit_flag, prev_topology)
 
     def get_solution(self, k: int, var_name: str) -> float:

@@ -16,7 +16,9 @@ optimization (``factory.configuration_basic``). The T-MPC optimizer
 (:mod:`..parallel.tmpc`) instead stacks the buffers over its planners,
 solves them as one fleet and hands the winner back through
 :meth:`Solver.load_result`. The solve of each ladder entry is built on its
-first selection and shared by every clone.
+first selection and shared by every clone. :meth:`Solver.solve` records the
+spans ``launch``, ``select`` and ``fetch_wait`` (``utils/profiling.py``),
+as the T-MPC optimizer does.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from ..ops.sqp import (SQPConfig, SQPResult, _phases_of, fetch_result_single,
                        make_sqp_solver, scale_iterations)
+from ..utils.profiling import BENCHMARKERS, span
 from .ocp import OCP
 
 
@@ -228,9 +231,11 @@ class Solver:
         """The solve of ladder entry ``n`` (``n`` SQP iterations), built on
         first use."""
         if n not in self._ladder_fns:
-            self._ladder_fns[n] = make_sqp_solver(
-                self.ocp, scale_iterations(self.config, n), dtype=self.dtype,
-                device=self.device)
+            with span("build"):
+                BENCHMARKERS.count("solve_builds")
+                self._ladder_fns[n] = make_sqp_solver(
+                    self.ocp, scale_iterations(self.config, n),
+                    dtype=self.dtype, device=self.device)
         return self._ladder_fns[n]
 
     def note_solve_time(self, n: int, elapsed: float,
@@ -251,12 +256,16 @@ class Solver:
         budget, store the result (one device-to-host copy) and return the
         exit code. A ladder entry's first solve is not fed into the
         per-iteration time."""
-        n = self.select_iterations()
-        fn = self._ladder_fn(n)
-        first_call = n not in self._timed_variants
-        t0 = time.perf_counter()
-        result = fn(self.params.data, self._xinit, self._loaded_warmstart)
-        self.load_result(fetch_result_single(result))
+        with span("launch"):
+            n = self.select_iterations()
+            fn = self._ladder_fn(n)
+            first_call = n not in self._timed_variants
+            t0 = time.perf_counter()
+            result = fn(self.params.data, self._xinit, self._loaded_warmstart)
+        with span("select"):
+            with span("fetch_wait"):
+                fetched = fetch_result_single(result)
+            self.load_result(fetched)
         elapsed = time.perf_counter() - t0
         if first_call:
             self._timed_variants.add(n)

@@ -20,6 +20,18 @@ merit launch:
   each tick's host time = its wall time minus its wait on the device
   (``TMPCOptimizer.last_fetch_wait``); ``PROFILE=1`` adds cProfile.
 
+``SPANS=1`` (:func:`spans`) instead profiles the deployed planner: the
+jackalsimulator settings (N=30, f64, 10 SQP x 18 IP iterations) at
+``SPANS_CONFIG`` (``tmpc_consistency_cost``, the default, or ``basic``) in
+the same scene, ``SPAN_TICKS`` ticks after ``WARM`` traced by
+``torch.profiler`` with the program's spans as profiler ranges
+(``utils/profiling.py``). Per span it prints the calls a tick, the total
+and self ms a tick and the device's idle ms inside the span's self time
+(each idle interval split over the spans that cover its parts, innermost
+first), then the idle outside every span, ``solve_builds`` and the
+T-MPC planners solved, enabled and useful a tick; with
+``SPANS_TRACE=<path>`` it writes the chrome trace there.
+
 Exits with code 2 without a CUDA device.
 """
 
@@ -34,10 +46,12 @@ import numpy as np
 import torch
 
 from ..ops.sqp import SQPConfig
+from ..utils.profiling import BENCHMARKERS, profiler_ranges
 from .bench import e2e_tick
-from .common import BENCH_N, require_card, tick_scene
+from .common import (BENCH_N, SimClock, TickScene, require_card, sync,
+                     tick_scene)
 
-WARM, TICKS, HOST_TICKS = 4, 20, 36
+WARM, TICKS, HOST_TICKS, SPAN_TICKS = 4, 20, 36, 40
 #: The JAX tool's SQP config (its ``tools/profile_e2e_tick.py``).
 PROFILE_CONFIG = SQPConfig(n_sqp=10, n_qp_iter=8, mu_min=1e-6, w_max=1e6,
                            reg_eps=1e-4, regularization="mirror",
@@ -107,8 +121,160 @@ def host_only(device="cuda", N=None, warm=WARM, ticks=HOST_TICKS,
                 tick_median_ms=float(np.median(tick_ms)), stats=stats)
 
 
+def owners(spans, lo, hi):
+    """``[(start, end, name)]`` covering [lo, hi] in order: each piece's
+    innermost span of ``spans`` (``(name, start, end)``, nested as one
+    thread's spans are), None where no span is open."""
+    pieces, stack, t = [], [], lo
+
+    def close_until(limit):
+        nonlocal t
+        while stack and stack[-1][2] <= limit:
+            name, _, end = stack.pop()
+            pieces.append((t, end, name))
+            t = end
+
+    for name, a, b in sorted(spans, key=lambda s: (s[1], -s[2])):
+        close_until(a)
+        pieces.append((t, a, stack[-1][0] if stack else None))
+        t = a
+        stack.append((name, a, b))
+    close_until(np.inf)
+    pieces.append((t, hi, None))
+    return [(max(a, lo), min(b, hi), n) for a, b, n in pieces
+            if min(b, hi) > max(a, lo)]
+
+
+def idle_split(spans, ops, lo, hi) -> dict:
+    """Per span name (None: outside every span) ``{"self": s, "idle":
+    s}``: its self time in [lo, hi] and the device's idle time inside it,
+    with ``ops`` the device's ``(start, end)`` intervals."""
+    busy = []
+    for a, b in sorted((max(a, lo), min(b, hi)) for a, b in ops):
+        if b <= a:
+            continue
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    edges = [lo] + [x for iv in busy for x in iv] + [hi]
+    idle = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2)
+            if edges[i + 1] > edges[i]]
+    out, i = {}, 0
+    for a, b, name in owners(spans, lo, hi):
+        row = out.setdefault(name, {"self": 0.0, "idle": 0.0})
+        row["self"] += b - a
+        while i < len(idle) and idle[i][1] <= a:
+            i += 1
+        j = i
+        while j < len(idle) and idle[j][0] < b:
+            row["idle"] += min(b, idle[j][1]) - max(a, idle[j][0])
+            j += 1
+    return out
+
+
+def spans(device="cuda", configuration=None, warm=WARM, ticks=None,
+          trace_path=None) -> dict:
+    """``ticks`` (``SPAN_TICKS``) ticks of the deployed planner at
+    ``configuration`` after ``warm``, traced with the program's spans as
+    profiler ranges; prints and returns ``rows`` (per span: ``calls``,
+    ``total_ms``, ``self_ms``, ``idle_ms``, each a tick), ``outside_idle_ms``,
+    ``tick_ms``, ``busy_ms`` (the device, a tick), ``solve_builds`` and
+    ``planners`` (solved, enabled, useful a tick)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..factory import prewarm_planner
+    from ..systems import make_system_planner
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        require_card("profile_e2e_tick")
+    configuration = configuration or os.environ.get(
+        "SPANS_CONFIG", "tmpc_consistency_cost")
+    ticks = ticks or SPAN_TICKS
+    trace_path = trace_path or os.environ.get("SPANS_TRACE")
+    clock = SimClock()
+    planner, model, settings = make_system_planner(
+        "jackalsimulator", configuration, device=device, clock=clock)
+    prewarm_planner(planner, model, settings)
+    scene = TickScene(planner, model, settings, clock)
+    state = scene.reset()
+    planner.on_data_received(scene.build_data(state), "reference_path")
+
+    def tick():
+        scene.psim.step([state.get_position()])
+        out = planner.solve_mpc(state, scene.build_data(state))
+        scene.advance(*scene.command(out))
+
+    for _ in range(warm):
+        tick()
+    sync(device)
+    BENCHMARKERS.reset()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                           else [])
+    before = profiler_ranges(True)
+    try:
+        with profile(activities=activities, record_shapes=True) as prof:
+            for _ in range(ticks):
+                tick()
+            sync(device)
+    finally:
+        profiler_ranges(before)
+    names = {n for n in BENCHMARKERS.names() if BENCHMARKERS.get(n).count}
+    host, ops = [], []
+    for ev in prof.events():
+        iv = (ev.time_range.start * 1e-3, ev.time_range.end * 1e-3)  # ms
+        if ev.name in names:
+            if ev.device_type != DeviceType.CUDA:  # not the range's copy
+                host.append((ev.name, *iv))
+        elif ev.device_type == DeviceType.CUDA:
+            ops.append(iv)
+    lo, hi = min(s[1] for s in host), max(s[2] for s in host)
+    split = idle_split(host, ops, lo, hi)
+    n_ticks = sum(1 for s in host if s[0] == "plan")
+    rows = {}
+    for name in sorted(names, key=lambda n: -BENCHMARKERS.get(n).total):
+        mine = [b - a for n, a, b in host if n == name]
+        rows[name] = dict(calls=len(mine) / n_ticks,
+                          total_ms=sum(mine) / n_ticks,
+                          self_ms=split.get(name, {}).get("self", 0.0)
+                          / n_ticks,
+                          idle_ms=split.get(name, {}).get("idle", 0.0)
+                          / n_ticks)
+    outside = split.get(None, {"idle": 0.0})["idle"] / n_ticks
+    busy_ms = (hi - lo - sum(r["idle"] for r in split.values())) / n_ticks
+    planners = {k: BENCHMARKERS.counter(f"tmpc.planners_{k}") / n_ticks
+                for k in ("solved", "enabled", "useful")}
+    result = dict(rows=rows, outside_idle_ms=outside,
+                  tick_ms=(hi - lo) / n_ticks, busy_ms=busy_ms,
+                  solve_builds=BENCHMARKERS.counter("solve_builds"),
+                  planners=planners, ticks=n_ticks)
+    solver = planner.solver
+    print(f"spans of {n_ticks} traced ticks ({configuration}, "
+          f"N={solver.N}, {str(solver.dtype).split('.')[-1]}, "
+          f"{solver.config.n_sqp} x {solver.config.n_qp_iter}, {device}); "
+          f"ms a tick:", flush=True)
+    print(f"{'span':<16} {'calls':>6} {'total':>9} {'self':>9} "
+          f"{'idle in self':>12}")
+    for name, r in rows.items():
+        print(f"{name:<16} {r['calls']:6.2f} {r['total_ms']:9.3f} "
+              f"{r['self_ms']:9.3f} {r['idle_ms']:12.3f}")
+    print(f"idle outside every span {outside:.3f}; traced tick "
+          f"{result['tick_ms']:.3f}, device busy {busy_ms:.3f}; "
+          f"solve_builds {result['solve_builds']}; planners a tick: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in planners.items()),
+          flush=True)
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+        print(f"chrome trace: {trace_path}")
+    return result
+
+
 if __name__ == "__main__":
-    if os.environ.get("HOST_ONLY"):
+    if os.environ.get("SPANS"):
+        spans()
+    elif os.environ.get("HOST_ONLY"):
         host_only()
     else:
         main()

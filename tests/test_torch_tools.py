@@ -75,6 +75,28 @@ def test_profile_e2e_tick_both_modes(capsys):
         assert np.isfinite(v) and v > 0
 
 
+def test_profile_e2e_tick_splits_each_idle_gap_over_its_spans():
+    """A tick of 10 ms: ``plan`` [0, 10] over ``launch`` [1, 3] and
+    ``select`` [4, 9] over ``fetch_wait`` [5, 8], a kernel [2, 8]. The
+    idle gap [0, 2] goes 1 ms to ``plan`` and 1 ms to ``launch``, the gap
+    [8, 10] 1 ms to ``select`` and 1 ms to ``plan``; the data preparation
+    [-1, -0.5] before the tick is idle too, and [-0.5, 0] outside every
+    span."""
+    spans = [("prep.obstacles", -1.0, -0.5), ("plan", 0.0, 10.0),
+             ("launch", 1.0, 3.0), ("select", 4.0, 9.0),
+             ("fetch_wait", 5.0, 8.0)]
+    pieces = profile_e2e_tick.owners(spans, -1.0, 10.0)
+    assert [n for _, _, n in pieces] == [
+        "prep.obstacles", None, "plan", "launch", "plan", "select",
+        "fetch_wait", "select", "plan"]
+    split = profile_e2e_tick.idle_split(spans, [(2.0, 8.0)], -1.0, 10.0)
+    want = {"prep.obstacles": (0.5, 0.5), None: (0.5, 0.5),
+            "plan": (3.0, 2.0), "launch": (2.0, 1.0), "select": (2.0, 1.0),
+            "fetch_wait": (3.0, 0.0)}
+    assert {k: (v["self"], v["idle"]) for k, v in split.items()} == {
+        k: pytest.approx(v) for k, v in want.items()}
+
+
 def test_kernel_check_covers_every_instance_model_and_row_kind():
     """B1 at (4, 2), (6, 2), (6, 3); B2's models besides the bench's and the
     h-row kinds besides ellipsoid and halfspace."""
@@ -105,11 +127,12 @@ def test_kernel_check_covers_every_instance_model_and_row_kind():
 @pytest.mark.parametrize("run", [
     validate.main, exp_schedule_hw.main, kernel_check.main,
     lambda: profile_e2e_tick.main(), lambda: profile_e2e_tick.host_only(),
+    lambda: profile_e2e_tick.spans(),
     lambda: s1_sections.main([]), lambda: lin_sections.main([]),
     lambda: build_check.main([])],
     ids=["validate", "exp_schedule_hw", "kernel_check", "profile_e2e_tick",
-         "profile_e2e_tick_host_only", "s1_sections", "lin_sections",
-         "build_check"])
+         "profile_e2e_tick_host_only", "profile_e2e_tick_spans",
+         "s1_sections", "lin_sections", "build_check"])
 def test_tool_without_card_exits_2(run):
     with pytest.raises(SystemExit) as exc:
         run()
